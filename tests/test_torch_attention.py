@@ -1,0 +1,88 @@
+"""Parity of the port's attention (visionllm_tpu_torch.ops.attention)
+against the JAX `multi_head_attention` on the CPU, where JAX takes its
+einsum branch and the port its plain versions. fp32, tolerance 1e-5
+(same arithmetic, different summation order).
+
+The flash kernel itself is tested on a CUDA card in
+`tests/test_torch_kernels_gpu.py`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from visionllm_tpu.ops.attention import multi_head_attention as jax_mha
+from visionllm_tpu_torch.ops import attention as tatt
+
+TOL = 1e-5
+
+
+def _inputs(seed, B, Lq, Lk, H, H_kv, D):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Lq, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, Lk, H_kv, D)).astype(np.float32)
+    v = rng.standard_normal((B, Lk, H_kv, D)).astype(np.float32)
+    return q, k, v
+
+
+CASES = {
+    "noncausal": dict(B=2, Lq=40, Lk=40, H=4, H_kv=4, D=64, causal=False),
+    "causal_eq": dict(B=2, Lq=37, Lk=37, H=4, H_kv=4, D=128, causal=True),
+    "causal_lq_lt_lk": dict(B=1, Lq=9, Lk=23, H=2, H_kv=2, D=64,
+                            causal=True),
+    "gqa": dict(B=1, Lq=33, Lk=33, H=8, H_kv=2, D=64, causal=True),
+    "odd_lengths": dict(B=1, Lq=13, Lk=29, H=3, H_kv=3, D=16, causal=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_multi_head_attention_matches_jax(name):
+    torch.set_num_threads(1)
+    c = dict(CASES[name])
+    causal = c.pop("causal")
+    q, k, v = _inputs(0, **c)
+    want = np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal))
+    got = tatt.multi_head_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_segment_ids_match_jax():
+    torch.set_num_threads(1)
+    q, k, v = _inputs(1, B=2, Lq=30, Lk=30, H=4, H_kv=4, D=64)
+    seg = np.ones((2, 30), np.int32)
+    seg[0, :7] = 0            # left padding of sample 0
+    seg[1, 20:] = 2
+    want = np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True, segment_ids=jnp.asarray(seg)))
+    got = tatt.multi_head_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, segment_ids=torch.from_numpy(seg))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_explicit_mask_takes_einsum_branch():
+    torch.set_num_threads(1)
+    q, k, v = _inputs(2, B=1, Lq=12, Lk=12, H=2, H_kv=2, D=64)
+    rng = np.random.default_rng(3)
+    mask = rng.random((1, 1, 12, 12)) > 0.3
+    mask[..., 0] = True
+    want = np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              mask=jnp.asarray(mask)))
+    got = tatt.multi_head_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_flash_wrapper_on_cpu_runs_plain_without_launch():
+    q, k, v = (torch.from_numpy(a) for a in
+               _inputs(4, B=1, Lq=20, Lk=20, H=2, H_kv=2, D=64))
+    before = tatt.flash_attention.launches
+    out = tatt.flash_attention(q, k, v, causal=True)
+    assert tatt.flash_attention.launches == before
+    ref = tatt.flash_attention_plain(q, k, v, causal=True)
+    assert torch.equal(out, ref)

@@ -1,0 +1,114 @@
+"""The port's CUDA kernels against their plain PyTorch versions on a CUDA
+card. They skip on hosts without one; on a machine with a card (and no
+JAX) run them with
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
+
+Inputs are made with numpy from a seed. Tolerance: max abs err within
+0.02 + 0.01 * max|plain| (bf16 outputs; the plain attention rounds its
+probabilities to bf16 before P V).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from visionllm_tpu_torch.ops import attention as A
+from visionllm_tpu_torch.ops import ms_deform_attn as M
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a CUDA card")
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 0.02 + 0.01 * want.float().abs().max().item(), err
+
+
+def _bf16(rng, dev, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dev).to(torch.bfloat16)
+
+
+# (B, L, H, H_kv, D, causal, segmented)
+FLASH = {
+    "noncausal_d64": (1, 577, 16, 16, 64, False, False),
+    "causal_d128": (1, 586, 8, 8, 128, True, False),
+    "gqa": (2, 130, 8, 2, 128, True, False),
+    "segments": (2, 200, 4, 4, 64, True, True),
+    "segments_noncausal": (2, 97, 4, 4, 128, False, True),
+    "one_token": (3, 1, 4, 4, 64, True, False),
+    "tile_edges": (1, 65, 2, 2, 64, False, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH))
+def test_flash_kernel_matches_plain(cuda, name):
+    B, L, H, Hkv, D, causal, segmented = FLASH[name]
+    rng = np.random.default_rng(sorted(FLASH).index(name))
+    q, k, v = (_bf16(rng, cuda, B, L, h, D) for h in (H, Hkv, Hkv))
+    seg = None
+    if segmented:
+        seg = torch.from_numpy(rng.integers(0, 3, (B, L)).astype(np.int32)
+                               ).to(cuda)
+    n = A.flash_attention.launches
+    got = A.flash_attention(q, k, v, causal=causal, segment_ids=seg)
+    assert A.flash_attention.launches == n + 1
+    want = A.flash_attention_plain(q, k, v, causal=causal, segment_ids=seg)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+def test_flash_kernel_takes_strided_views(cuda):
+    rng = np.random.default_rng(7)
+    qkv = _bf16(rng, cuda, 1, 150, 3, 8, 64)          # packed [B, L, 3, H, D]
+    q, k, v = qkv.unbind(2)
+    got = A.flash_attention(q, k, v)
+    want = A.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(TypeError):
+        A.flash_attention(q, q, q)                     # float32
+    qb = q.bfloat16()
+    with pytest.raises(ValueError):
+        A.flash_attention(qb, qb[:, :4], qb[:, :4], causal=True)
+    with pytest.raises(ValueError):
+        A.flash_attention(qb[..., :32], qb[..., :32], qb[..., :32])
+
+
+SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
+
+
+@pytest.mark.parametrize("Q", [5440, 900, 1])
+def test_msda_kernel_matches_plain(cuda, Q):
+    rng = np.random.default_rng(Q)
+    S = sum(h * w for h, w in SHAPES)
+    value = _bf16(rng, cuda, 1, S, 8, 32)
+    loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (1, Q, 8, 4, 4, 2))
+                           .astype(np.float32)).to(cuda)
+    attw = torch.from_numpy(rng.random((1, Q, 8, 4, 4)).astype(np.float32)
+                            ).to(cuda)
+    n = M.ms_deform_attn.launches
+    got = M.ms_deform_attn(value, SHAPES, loc, attw)
+    assert M.ms_deform_attn.launches == n + 1
+    want = M.ms_deform_attn_plain(value, SHAPES, loc, attw)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+def test_msda_kernel_far_and_nonfinite_locations_are_zero(cuda):
+    value = torch.ones(2, 5 * 7, 2, 64, device=cuda, dtype=torch.bfloat16)
+    loc = torch.full((2, 3, 2, 1, 2, 2), 1e9, device=cuda)
+    loc[0] = float("nan")
+    attw = torch.ones(2, 3, 2, 1, 2, device=cuda)
+    got = M.ms_deform_attn(value, ((5, 7),), loc, attw)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got) == 0

@@ -1,0 +1,85 @@
+"""Guards of the PyTorch port's boundaries: it imports nothing of JAX,
+flax or the JAX package, and its entry point does not quietly fall back
+to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "visionllm_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "visionllm_tpu")
+
+
+def _port_sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_nothing_of_jax(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_package_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "import visionllm_tpu_torch as pkg\n"
+        "for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "bad = [m for m in sys.modules if m == 'visionllm_tpu'\n"
+        "       or m.startswith('visionllm_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_entry_point_without_device_raises_on_cpu_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from visionllm_tpu_torch import resolve_device
+    from visionllm_tpu_torch.config import tiny_test_config
+    from visionllm_tpu_torch.models.composite import build_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(tiny_test_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_on_cpu_run_plain_versions_in_bf16():
+    """On CPU tensors the wrappers run their plain versions, which keep
+    the bf16 dtype the kernels take."""
+    from visionllm_tpu_torch.ops import attention, ms_deform_attn
+    q = torch.randn(1, 8, 2, 64, dtype=torch.bfloat16)
+    assert attention.flash_attention(q, q, q).dtype == torch.bfloat16
+    v = torch.randn(1, 5, 2, 4, dtype=torch.bfloat16)
+    loc = torch.rand(1, 3, 2, 1, 2, 2)
+    attw = torch.rand(1, 3, 2, 1, 2)
+    out = ms_deform_attn.ms_deform_attn(v, ((1, 5),), loc, attw)
+    assert out.shape == (1, 3, 8) and out.dtype == torch.bfloat16

@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of visionllm_tpu for NVIDIA Hopper (H100).
+
+Module paths mirror the JAX package (`visionllm_tpu_torch/models/llama.py`
+is the counterpart of `visionllm_tpu/models/llama.py`). The port imports
+torch, numpy and the standard library only; it keeps its own copies of
+the configuration dataclasses. Hand-written CUDA kernels live in `csrc/`
+and are built at first use by `kernels/build.py`.
+"""
+
+__all__ = ["resolve_device"]
+
+from visionllm_tpu_torch.device import resolve_device

@@ -1,0 +1,122 @@
+"""Config dataclasses of the det path (own copies of the JAX package's
+`VisionEncoderConfig`, `LLMConfig`, `GDinoConfig`, `VisionLLMConfig` and
+`tiny_test_config`, cut to the fields this port reads; defaults and the
+tiny dims are the same)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Optional
+
+
+@dataclass(frozen=True)
+class VisionEncoderConfig:
+    """CLIP-ViT-L/336 by default."""
+
+    arch: str = "clip_vit"
+    image_size: int = 336
+    patch_size: int = 14
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_layers: int = 24
+    num_heads: int = 16
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    # which hidden_states layer feeds the VL bridge (reference default -2)
+    output_layer: int = -2
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+
+@dataclass(frozen=True)
+class LLMConfig:
+    """LLaMA-family decoder (Vicuna-7B default)."""
+
+    arch: str = "llama"
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    max_position_embeddings: int = 4096
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+@dataclass(frozen=True)
+class GDinoConfig:
+    """Open-vocabulary Grounding-DINO decoder (inference fields)."""
+
+    backbone: str = "swin_tiny"
+    # optional kwargs overriding the swin preset's dims; None -> preset
+    backbone_overrides: Optional[Mapping[str, Any]] = None
+    d_model: int = 256
+    num_queries: int = 900
+    encoder_layers: int = 6
+    decoder_layers: int = 6
+    num_heads: int = 8
+    num_feature_levels: int = 4
+    num_points: int = 4
+    ffn_dim: int = 2048
+    text_dim: int = 4096
+    max_text_len: int = 256
+    mask_dim: int = 256
+    two_stage: bool = True
+
+
+@dataclass(frozen=True)
+class VisionLLMConfig:
+    """Top-level composition config of the det path."""
+
+    vis_encoder: VisionEncoderConfig = field(default_factory=VisionEncoderConfig)
+    llm: LLMConfig = field(default_factory=LLMConfig)
+    vl_bridge_type: str = "mlp2x_gelu"
+    num_embs: int = 4
+    num_embs_gen: int = 64
+    use_gdino: bool = False
+    gdino: Optional[GDinoConfig] = None
+    max_num_patches: int = 100
+
+
+def vllm_7b_det_config(**overrides: Any) -> VisionLLMConfig:
+    """The 7B flagship's det path: CLIP-ViT-L/336 + Vicuna-7B (vocab
+    32096) + Grounding-DINO with Swin-T at its defaults."""
+    base = dict(
+        vis_encoder=VisionEncoderConfig(),
+        llm=LLMConfig(vocab_size=32096),
+        vl_bridge_type="mlp2x_gelu",
+        use_gdino=True,
+        gdino=GDinoConfig(),
+    )
+    base.update(overrides)
+    return VisionLLMConfig(**base)
+
+
+def tiny_test_config(**overrides: Any) -> VisionLLMConfig:
+    """A minuscule config for unit tests (same dims as the JAX package's
+    `tiny_test_config` for the fields kept here)."""
+    base = dict(
+        vis_encoder=VisionEncoderConfig(
+            image_size=56, patch_size=14, hidden_size=32, intermediate_size=64,
+            num_layers=2, num_heads=4),
+        llm=LLMConfig(
+            vocab_size=32096, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=4, num_kv_heads=4,
+            max_position_embeddings=512),
+        vl_bridge_type="mlp2x_gelu",
+        use_gdino=True,
+        gdino=GDinoConfig(
+            d_model=32, num_queries=20, encoder_layers=1, decoder_layers=2,
+            num_heads=4, ffn_dim=64, text_dim=64, mask_dim=32),
+        num_embs_gen=8,
+        max_num_patches=10,
+    )
+    base.update(overrides)
+    return VisionLLMConfig(**base)

@@ -1,0 +1,62 @@
+"""Composite model: VisionLLM core + Grounding-DINO in one module tree,
+with the det-VQA inference entry `infer_det` (counterpart of
+`visionllm_tpu/models/composite.py:158-166`).
+
+`build_model` is the entry point: it builds the model on CUDA unless the
+caller names another device, in the requested dtype (bf16 by default, as
+the JAX package deploys the whole composite), with weights drawn from a
+seeded `torch.Generator`. Load real weights with
+`utils.convert.load_jax_params`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+import torch.nn as nn
+
+from visionllm_tpu_torch.config import VisionLLMConfig
+from visionllm_tpu_torch.device import resolve_device
+from visionllm_tpu_torch.models.common import init_weights
+from visionllm_tpu_torch.models.grounding_dino.model import GroundingDino
+from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
+
+
+class VisionLLMWithTools(nn.Module):
+    def __init__(self, cfg: VisionLLMConfig):
+        super().__init__()
+        if not cfg.use_gdino:
+            raise ValueError("the det path needs use_gdino=True")
+        self.cfg = cfg
+        self.core = VisionLLM(cfg)
+        self.gdino = GroundingDino(cfg.gdino)
+
+    @torch.no_grad()
+    def infer_det(self, input_ids: torch.Tensor, images: torch.Tensor,
+                  images_aug: torch.Tensor, tid: SpecialTokenIds,
+                  pixel_mask: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
+        """Single-image det given a ready prompt: ViT encode -> bridge ->
+        LLM prefill -> [EMB] text queries -> Grounding-DINO.
+
+        input_ids [B, L]; images [N, H, W, 3] CLIP pixels (NHWC);
+        images_aug [B, H', W', 3] det pixels (NHWC)."""
+        out = self.core(input_ids, images, tid, compute_logits=False)
+        tq, tq_mask = self.core.extract_text_query(out["hidden"], input_ids,
+                                                   tid)
+        return self.gdino(images_aug, tq, tq_mask, pixel_mask=pixel_mask)
+
+
+def build_model(cfg: VisionLLMConfig, *,
+                device: Optional[Union[str, torch.device]] = None,
+                dtype: torch.dtype = torch.bfloat16,
+                seed: int = 0) -> VisionLLMWithTools:
+    """Build `VisionLLMWithTools` directly on `device` (CUDA when None;
+    raises when there is none) in `dtype`, with seeded random weights."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = VisionLLMWithTools(cfg)
+    model = model.to(dtype=dtype).to_empty(device=dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    return model.eval()

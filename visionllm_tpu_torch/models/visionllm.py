@@ -1,0 +1,200 @@
+"""The composite VisionLLM core: vision encoder -> VL bridge -> LLM, with
+super-link routing of [EMB] hidden states to the tool decoders.
+
+Counterpart of `visionllm_tpu/models/visionllm.py` for the det path:
+token embeddings, the [EMB]-table splice, the <im_patch> image-feature
+scatter, the cache-less LLM prefill and `extract_text_query`. Every step
+is a fixed-shape tensor op, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from visionllm_tpu_torch import constants as C
+from visionllm_tpu_torch.config import VisionLLMConfig
+from visionllm_tpu_torch.models.clip_vit import ClipVisionTower
+from visionllm_tpu_torch.models.llama import LlamaModel
+from visionllm_tpu_torch.models.vl_bridge import VLBridge
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecialTokenIds:
+    """Token ids of the routing vocabulary."""
+
+    pad: int
+    img: int
+    imp: int
+    reg: int
+    emb: int          # [EMB]; [EMB2..8] are emb+1..emb+7 (contiguous)
+    det: int
+    grd: int
+    seg: int
+    pose: int
+    gen: int
+    edit: int
+
+    @classmethod
+    def synthetic(cls, base: int = 32000) -> "SpecialTokenIds":
+        """Id layout matching the reference's token-addition order."""
+        order = ["img", "imp", "reg", "boi", "eoi", "sor", "eor", "sod",
+                 "eod", "sog", "eog", "det", "grd", "seg", "pose", "gen",
+                 "edit", "emb", "emb2", "emb3", "emb4", "emb5", "emb6",
+                 "emb7", "emb8"]
+        ids = {k: base + i for i, k in enumerate(order)}
+        return cls(pad=0, img=ids["img"], imp=ids["imp"], reg=ids["reg"],
+                   emb=ids["emb"], det=ids["det"], grd=ids["grd"],
+                   seg=ids["seg"], pose=ids["pose"], gen=ids["gen"],
+                   edit=ids["edit"])
+
+
+def tool_context(input_ids: torch.Tensor, tid: SpecialTokenIds
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-position (tool_code, last_tool_position): the code and position
+    of the last tool token at or before each position, (0, 0) where there
+    is none (the JAX inclusive "last non-zero" scan)."""
+    code = torch.zeros_like(input_ids)
+    for ids, c in (((tid.det, tid.seg, tid.grd), C.TOOL_DET),
+                   ((tid.pose,), C.TOOL_POSE),
+                   ((tid.gen,), C.TOOL_GEN),
+                   ((tid.edit,), C.TOOL_EDIT)):
+        for t in ids:
+            code = torch.where(input_ids == t, torch.full_like(code, c), code)
+    L = input_ids.shape[-1]
+    pos = torch.arange(L, device=input_ids.device).expand_as(input_ids)
+    last = torch.where(code != 0, pos, torch.full_like(pos, -1))
+    last = torch.cummax(last, dim=-1).values
+    found = last >= 0
+    last = last.clamp(min=0)
+    ctx = torch.where(found, torch.gather(code, -1, last),
+                      torch.zeros_like(code))
+    return ctx, last
+
+
+def compact_masked_rows(x: torch.Tensor, mask: torch.Tensor, out_len: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather rows where mask is True, in order, into [B, out_len, C];
+    second return is the valid-slot mask [B, out_len]."""
+    B, L, Cdim = x.shape
+    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
+    if out_len > L:       # surplus slots read row 0 and are masked off
+        order = torch.cat([order, order.new_zeros(B, out_len - L)], dim=1)
+    idx = order[:, :out_len]
+    rows = torch.gather(x, 1, idx[..., None].expand(-1, -1, Cdim))
+    counts = mask.sum(1)
+    valid = (torch.arange(out_len, device=x.device)[None, :]
+             < counts[:, None])
+    return torch.where(valid[..., None], rows, torch.zeros_like(rows)), valid
+
+
+class VisionLLM(nn.Module):
+    def __init__(self, cfg: VisionLLMConfig):
+        super().__init__()
+        if cfg.vis_encoder.arch != "clip_vit":
+            raise NotImplementedError(cfg.vis_encoder.arch)
+        self.cfg = cfg
+        hid = cfg.llm.hidden_size
+        self.vis_encoder = ClipVisionTower(cfg.vis_encoder)
+        self.vl_bridge = VLBridge(cfg.vl_bridge_type,
+                                  cfg.vis_encoder.hidden_size, hid)
+        self.llm = LlamaModel(cfg.llm)
+        self.emb_embeddings_det = nn.Parameter(torch.zeros(cfg.num_embs, hid))
+        self.emb_embeddings_pose = nn.Parameter(torch.zeros(cfg.num_embs, hid))
+        self.emb_embeddings_gen = nn.Parameter(
+            torch.zeros(cfg.num_embs_gen, hid))
+        self.emb_embeddings_edit = nn.Parameter(
+            torch.zeros(cfg.num_embs_gen, hid))
+
+    def encode_images(self, images: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """images [N, H, W, 3] NHWC -> (llm-space features [N, P, hid],
+        all ViT hidden states [n_layers + 1, N, 1 + P, D])."""
+        if images.ndim != 4:
+            raise NotImplementedError("anyres tile stacks ([B, T, H, W, 3]) "
+                                      "are not ported")
+        hs = self.vis_encoder(images)
+        feats = hs[self.cfg.vis_encoder.output_layer][:, 1:]   # drop CLS
+        return self.vl_bridge(feats), hs
+
+    def splice_emb_embeddings(self, inputs_embeds: torch.Tensor,
+                              input_ids: torch.Tensor,
+                              tid: SpecialTokenIds) -> torch.Tensor:
+        """Replace rows at [EMB]-range positions with the owning tool's
+        learnable embeddings."""
+        cfg = self.cfg
+        ctx, last_pos = tool_context(input_ids, tid)
+        L = input_ids.shape[-1]
+        pos = torch.arange(L, device=input_ids.device).expand_as(input_ids)
+        is_emb = (input_ids >= tid.emb) & (input_ids < tid.emb + cfg.num_embs)
+        off_p = (input_ids - tid.emb).clamp(0, cfg.num_embs - 1)
+        off_g = (pos - last_pos - 1).clamp(0, cfg.num_embs_gen - 1)
+        dt = inputs_embeds.dtype
+        out = inputs_embeds
+        for code, rows in ((C.TOOL_DET, self.emb_embeddings_det[off_p]),
+                           (C.TOOL_POSE, self.emb_embeddings_pose[off_p]),
+                           (C.TOOL_GEN, self.emb_embeddings_gen[off_g]),
+                           (C.TOOL_EDIT, self.emb_embeddings_edit[off_g])):
+            sel = (is_emb & (ctx == code))[..., None]
+            out = torch.where(sel, rows.to(dt), out)
+        return out
+
+    @staticmethod
+    def scatter_image_features(inputs_embeds: torch.Tensor,
+                               input_ids: torch.Tensor,
+                               image_features: torch.Tensor,
+                               imp_token_id: int) -> torch.Tensor:
+        """Write image features into the <im_patch> slots in flattened
+        batch-major order."""
+        B, L, Cdim = inputs_embeds.shape
+        flat_sel = (input_ids == imp_token_id).reshape(-1)
+        feats = image_features.reshape(-1, Cdim).to(inputs_embeds.dtype)
+        src = (torch.cumsum(flat_sel.long(), 0) - 1).clamp(0, feats.shape[0] - 1)
+        out = torch.where(flat_sel[:, None], feats[src],
+                          inputs_embeds.reshape(-1, Cdim))
+        return out.reshape(B, L, Cdim)
+
+    def extract_text_query(self, hidden: torch.Tensor,
+                           input_ids: torch.Tensor, tid: SpecialTokenIds,
+                           max_patches: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[EMB]-position hidden states -> text_query
+        [B, max_patches, num_embs, C] + mask [B, max_patches]."""
+        cfg = self.cfg
+        max_patches = max_patches or cfg.max_num_patches
+        emb_sel = (input_ids >= tid.emb) & (input_ids < tid.emb + cfg.num_embs)
+        rows, valid = compact_masked_rows(hidden, emb_sel,
+                                          max_patches * cfg.num_embs)
+        B, _, Cdim = hidden.shape
+        tq = rows.reshape(B, max_patches, cfg.num_embs, Cdim)
+        tq_mask = valid.reshape(B, max_patches, cfg.num_embs)[..., 0]
+        return tq, tq_mask
+
+    def build_prompt_embeds(self, input_ids: torch.Tensor,
+                            images: Optional[torch.Tensor],
+                            tid: SpecialTokenIds) -> torch.Tensor:
+        """Token embeddings + [EMB] splice + image-feature scatter."""
+        inputs_embeds = self.llm.embed(input_ids)
+        inputs_embeds = self.splice_emb_embeddings(inputs_embeds, input_ids,
+                                                   tid)
+        if images is not None:
+            image_features, _ = self.encode_images(images)
+            inputs_embeds = self.scatter_image_features(
+                inputs_embeds, input_ids, image_features, tid.imp)
+        return inputs_embeds
+
+    def forward(self, input_ids: torch.Tensor, images: Optional[torch.Tensor],
+                tid: SpecialTokenIds, attn_mask: Optional[torch.Tensor] = None,
+                compute_logits: bool = True) -> Dict[str, torch.Tensor]:
+        """Returns dict(hidden, logits): the prefill over the assembled
+        prompt."""
+        inputs_embeds = self.build_prompt_embeds(input_ids, images, tid)
+        B, L = input_ids.shape
+        positions = torch.arange(L, device=input_ids.device).expand(B, L)
+        hidden, logits = self.llm(inputs_embeds, positions,
+                                  attn_mask=attn_mask,
+                                  compute_logits=compute_logits)
+        return {"hidden": hidden, "logits": logits}

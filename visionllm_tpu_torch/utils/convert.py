@@ -1,0 +1,94 @@
+"""Load a JAX-package flax parameter tree into the port's modules.
+
+`load_jax_params(module, params)` takes the flax params as nested dicts
+of numpy arrays (e.g. `jax.tree.map(np.asarray, variables["params"])`)
+and fills the module's parameters. The port names its parameters after
+the flax ones, so the map is mechanical:
+
+  * Dense `kernel` [in, out]         -> Linear `weight` [out, in]
+  * Conv `kernel` HWIO               -> Conv2d `weight` OIHW
+  * Embed `embedding`                -> Embedding `weight`
+  * LayerNorm / GroupNorm `scale`    -> `weight`
+  * `nn.scan`-stacked `layers/layer/...` (stacked on axis 0)
+                                     -> ModuleList `layers.{i}...`
+  * every other leaf keeps its name.
+
+It raises on any flax leaf that maps to no parameter and on any
+parameter that no leaf fills.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def _leaf(mod: nn.Module, name: str, arr: np.ndarray):
+    if name == "kernel" and isinstance(mod, nn.Linear):
+        return "weight", arr.T
+    if name == "kernel" and isinstance(mod, nn.Conv2d):
+        return "weight", arr.transpose(3, 2, 0, 1)
+    if name == "embedding" and isinstance(mod, nn.Embedding):
+        return "weight", arr
+    if name == "scale" and isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+        return "weight", arr
+    return name, arr
+
+
+def _emit(mod: nn.Module, prefix: str, tree: Mapping, out: Dict[str, np.ndarray]):
+    for key, val in tree.items():
+        if not isinstance(val, Mapping):
+            name, arr = _leaf(mod, key, np.asarray(val))
+            out[prefix + name] = arr
+            continue
+        child = mod._modules.get(key)
+        if child is None:
+            raise KeyError(f"flax subtree {prefix}{key} has no module in the "
+                           f"port")
+        if isinstance(child, nn.ModuleList):
+            if set(val) != {"layer"}:
+                raise KeyError(f"{prefix}{key}: expected a scanned "
+                               f"'layer' subtree, got {sorted(val)}")
+            for i, sub in enumerate(child):
+                sliced = _slice(val["layer"], i, len(child), f"{prefix}{key}")
+                _emit(sub, f"{prefix}{key}.{i}.", sliced, out)
+        else:
+            _emit(child, f"{prefix}{key}.", val, out)
+
+
+def _slice(tree: Mapping, i: int, n: int, where: str) -> Dict:
+    res = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            res[k] = _slice(v, i, n, where)
+        else:
+            v = np.asarray(v)
+            if v.shape[0] != n:
+                raise ValueError(f"{where}/{k}: stacked axis {v.shape[0]} "
+                                 f"!= {n} layers")
+            res[k] = v[i]
+    return res
+
+
+@torch.no_grad()
+def load_jax_params(module: nn.Module, params: Mapping) -> None:
+    """Copy a flax param tree into `module` (cast to each parameter's
+    dtype and device). Raises on unused or missing keys and on shape
+    mismatches."""
+    arrays: Dict[str, np.ndarray] = {}
+    _emit(module, "", params, arrays)
+    own = dict(module.named_parameters())
+    unused = sorted(set(arrays) - set(own))
+    missing = sorted(set(own) - set(arrays))
+    if unused or missing:
+        raise KeyError(f"flax params do not match the module: unused "
+                       f"{unused[:10]}, missing {missing[:10]}")
+    for name, arr in arrays.items():
+        p = own[name]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: flax shape {arr.shape} vs port "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
