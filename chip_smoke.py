@@ -7,7 +7,7 @@ Phases, each printing one JSON line:
 
 1. device  - requires a CUDA card (exits 2 without one) and prints
              `nvidia-smi --query-gpu=name,power.limit` for it;
-2. build   - builds every CUDA kernel of the det path from
+2. build   - builds every CUDA kernel of the det and chat paths from
              `visionllm_tpu_torch/csrc/` (one nvcc per source, in
              parallel) and reports the seconds;
 3. kernel  - holds each kernel against its plain PyTorch version at the
@@ -15,16 +15,28 @@ Phases, each printing one JSON line:
              times the kernel, the plain version and one PyTorch library
              call computing the same function (yardstick only; the port
              never calls it);
-4. slice   - builds `VisionLLMWithTools` at full width (CLIP-L/336 24
-             layers, LLaMA-7B 32 layers, Grounding-DINO with Swin-T at
-             512 px) in bf16 with seeded random weights, answers 3 det
-             requests through `infer_det`, checks shapes, finiteness and
-             the launch counters (flash 56 and MSDA 12 per request), holds
-             the text queries and the top-900 selection against the same
-             model run with the plain versions, and times a request and
-             its stages;
-5. profile - one more request under torch.profiler: device kernel time,
-             the device's idle share, and the kernels that take the most.
+4. slice   - the det path: builds `VisionLLMWithTools` at full width
+             (CLIP-L/336 24 layers, LLaMA-7B 32 layers, Grounding-DINO
+             with Swin-T at 512 px) in bf16 with seeded random weights,
+             answers 3 det requests through `infer_det`, checks shapes,
+             finiteness and the launch counters (flash 56 and MSDA 12 per
+             request), holds the text queries and the top-900 selection
+             against the same model run with the plain versions, and
+             times a request and its stages;
+5. profile - one more det request under torch.profiler: device kernel
+             time, the device's idle share, the kernels that take the most;
+6. serve   - the chat path, after the det model is freed: `build_core`
+             of the 7B chat config with `quant="int4"` at full width,
+             `ChatService(max_batch=4, max_prompt=640, max_new_tokens=32)`
+             with the port's `SimpleTokenizer`; 4 image requests from
+             threads (one generate call), the first of them again alone, a
+             text-only request with a history, and the first again over
+             HTTP. Checks the answers, the launch counters (int4 225 per
+             forward, flash 56 per generate call), holds the prefill and
+             every decode step's logits against a plain run teacher-forced
+             on the kernel run's tokens, and times TTFT, a decode step and
+             tok/s;
+7. serve_profile - one decode step under torch.profiler.
 
 Then it prints the `{"kernels": [...]}` line, the card's name and power
 limit, and as its last line `{"ok": true, "device": {...}}`. Any failed
@@ -33,24 +45,39 @@ check raises, so the script exits nonzero and prints no ok line.
 
 from __future__ import annotations
 
+import base64
+import gc
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+from contextlib import ExitStack
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from visionllm_tpu_torch.config import vllm_7b_det_config
+from visionllm_tpu_torch import constants as C
+from visionllm_tpu_torch.config import (LLMConfig, vllm_7b_chat_config,
+                                        vllm_7b_det_config)
+from visionllm_tpu_torch.generation import _tool_kind, advance_tool_state
 from visionllm_tpu_torch.kernels import build
-from visionllm_tpu_torch.models.composite import build_model
+from visionllm_tpu_torch.models.composite import build_core, build_model
+from visionllm_tpu_torch.models.llama import KVCache
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
 from visionllm_tpu_torch.ops import attention as A
 from visionllm_tpu_torch.ops import ms_deform_attn as M
+from visionllm_tpu_torch.ops import quant4 as Q
+from visionllm_tpu_torch.serve import ChatService, _Request, make_server
+from visionllm_tpu_torch.utils.simple_tokenizer import SimpleTokenizer
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
@@ -65,6 +92,15 @@ ATOL, RTOL = 2e-2, 1e-2
 # text queries after 32 bf16 LLaMA layers, kernel run vs plain run:
 # relative Frobenius error
 TQ_REL_TOL = 5e-2
+# chat serving: the batch shape ChatService compiles to, and the logits
+# of the kernel run vs the plain run teacher-forced on its tokens
+# (relative Frobenius error per step, live rows)
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 640, 32
+# the 4 threaded requests resize their images on the host before they
+# queue; the window lets the slowest still join the first one's call
+BATCH_WINDOW_MS = 200.0
+LOGIT_REL_TOL = 5e-2
+L2_BYTES = 50 * 2 ** 20       # H100 L2: decode weights are timed cold
 
 
 def emit(obj):
@@ -256,6 +292,65 @@ def check_msda(g):
     return cases
 
 
+def rotating_ms(fn, sets, n=20):
+    """Mean device ms of fn over rotating argument sets: with more bytes
+    in the sets than the L2 holds, each call reads its weights cold, as
+    the decode loop does."""
+    it = itertools.count()
+    return cuda_ms(lambda: fn(*sets[next(it) % len(sets)]), n=n)
+
+
+def int4_dequant(wp, scale):
+    """bf16 [K, N] weights of a packed tree (the library yardstick's
+    input; computed outside any timed region)."""
+    G = 2 * wp.shape[0] // scale.shape[0]
+    wi = wp.to(torch.int32)
+    w = torch.cat([((wi & 0xF) ^ 8) - 8, wi >> 4], 0).float()
+    return (w * scale.float().repeat_interleave(G, 0)).to(torch.bfloat16)
+
+
+def check_int4(g):
+    cases = []
+    specs = [(f"decode_m{m}_{k}x{n}", m, k, n)
+             for m in (1, 4) for k, n in ((4096, 4096), (4096, 11008),
+                                           (11008, 4096), (4096, 32096))]
+    specs.append(("prefill_m2560_4096x11008", 2560, 4096, 11008))
+    for name, M_, K, N in specs:
+        wbytes = K * N // 2 + 2 * (K // 128) * N
+        copies = max(1, math.ceil(2 * L2_BYTES / wbytes)) \
+            if M_ <= 8 else 1
+        packed = [Q.pack_int4(torch.randn(K, N, generator=g, device="cuda")
+                              * K ** -0.5) for _ in range(copies)]
+        x = torch.randn(M_, K, generator=g, device="cuda").to(torch.bfloat16)
+        wp, scale = packed[0]
+        got = Q.int4_matmul(x, wp, scale)
+        want = Q.int4_matmul_plain(x, wp, scale)
+        torch.cuda.synchronize()
+        err = check_close(f"int4_matmul[{name}]", got, want)
+        lib_copies = max(1, math.ceil(copies * wbytes / (2 * K * N)))
+        deq = [int4_dequant(*packed[i % copies]) for i in range(lib_copies)]
+        torch.cuda.synchronize()
+        check_close(f"matmul[{name}]", torch.matmul(x, deq[0]), want)
+        sets = [(x, wp_, s_) for wp_, s_ in packed]
+        nbytes = 2 * M_ * K + wbytes + 2 * M_ * N
+        b_ms, b_by = bound(nbytes, 2 * M_ * K * N, BF16_TENSOR_FLOPS)
+        case = {
+            "case": name, "shape": [M_, K, N], "max_abs_err": err,
+            "ms": rotating_ms(Q.int4_matmul, sets),
+            "plain_ms": rotating_ms(Q.int4_matmul_plain, sets, n=5),
+            "library_ms": rotating_ms(torch.matmul,
+                                      [(x, d) for d in deq]),
+            "library": "torch.matmul(x, dequantized bf16 W)",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "flops": 2 * M_ * K * N, "bytes": nbytes,
+            "weight_copies_rotated": copies}
+        emit({"phase": "kernel", "kernel": "int4_matmul", **case})
+        cases.append(case)
+        del packed, deq, sets
+    torch.cuda.empty_cache()
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the det slice at full width
 # ---------------------------------------------------------------------------
@@ -380,9 +475,7 @@ def run_slice():
 
 
 def profile_request(model, req, tid):
-    """One warm request under torch.profiler: wall ms, the summed device
-    kernel time (one stream, so their union), the device's idle share,
-    and the kernels that take the most device time."""
+    """One warm det request under torch.profiler."""
     ids, images, aug = req
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA]) as prof:
@@ -391,6 +484,12 @@ def profile_request(model, req, tid):
         model.infer_det(ids, images, aug, tid)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    emit({"phase": "profile", **device_summary(prof, wall_ms)})
+
+
+def device_summary(prof, wall_ms):
+    """Summed device kernel time (one stream, so their union), the
+    device's idle share of the wall, and the kernels that take the most."""
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -398,11 +497,290 @@ def profile_request(model, req, tid):
             by_name[e.name] = (tot + e.device_time_total / 1e3, n + 1)
     busy_ms = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "device_kernels": sum(n for _, n in by_name.values()),
-          "top_kernels": [{"name": k[:90], "ms": t, "count": n}
-                          for k, (t, n) in top]})
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_kernels": sum(n for _, n in by_name.values()),
+            "top_kernels": [{"name": k[:90], "ms": t, "count": n}
+                            for k, (t, n) in top]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: int4 chat serving at full width
+# ---------------------------------------------------------------------------
+
+def serve_requests():
+    """The serve phase's requests: 4 image requests, a text-only request
+    with a history (uint8 images from a numpy seed)."""
+    rng = np.random.RandomState(0)
+    shapes = ((480, 640, 3), (336, 336, 3), (600, 400, 3), (224, 300, 3))
+    prompts = ("describe the image", "what color is the car",
+               "how many people are there", "where was this photo taken")
+    images = [dict(prompt=p, image=rng.randint(0, 255, sh, np.uint8))
+              for p, sh in zip(prompts, shapes)]
+    text = dict(prompt="and what should I bring",
+                history=["I plan a trip to the mountains",
+                         "that sounds great, when do you leave",
+                         "next week", "pack warm clothes"])
+    return images, text
+
+
+def post_json(url, obj):
+    req = urllib.request.Request(url, json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def teacher_forced(svc, ids, imgs, mask, tokens, n_gen, step_ms=None):
+    """Prefill + (n_gen - 1) decode steps of `svc`'s core, fed the tokens
+    `tokens` [B, >= n_gen] emitted by a generate call (through the same
+    emb-countdown state machine), returning each step's last-position
+    fp32 logits [n_gen, B, V]. Appends each decode step's synced wall ms
+    to `step_ms` when given."""
+    core, tid, cfg = svc.core, svc.tid, svc.core.cfg
+    B, L = ids.shape
+    max_len = svc.max_prompt + svc.max_new_tokens + 8
+    cache = KVCache.create(cfg.llm, B, max_len, torch.bfloat16, ids.device)
+    out = core(ids, imgs, tid, attn_mask=mask, cache=cache)
+    logits = [out["logits"][:, -1].float()]
+    first = tokens[:, 0]
+    kind = _tool_kind(first, tid)
+    total = torch.where(kind >= C.TOOL_GEN,
+                        torch.full_like(kind, cfg.num_embs_gen),
+                        torch.full_like(kind, cfg.num_embs))
+    countdown = torch.where(kind > 0, total, torch.zeros_like(kind))
+    embed = core.embed_tokens(first[:, None].long())
+    dmask = torch.cat([mask, torch.ones(B, max_len - L, dtype=torch.bool,
+                                        device=ids.device)], 1)
+    for step in range(1, n_gen):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pos = torch.full((B, 1), cache.index, dtype=torch.long,
+                         device=ids.device)
+        res = core.llm_step(embed, pos, cache, dmask)
+        _, embed, countdown, kind = advance_tool_state(
+            core, tid, cfg.num_embs, cfg.num_embs_gen, tokens[:, step],
+            countdown, kind)
+        torch.cuda.synchronize()
+        if step_ms is not None:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        logits.append(res["logits"][:, -1].float())
+    return torch.stack(logits)
+
+
+def plain_versions():
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(A, "flash_attention",
+                                          A.flash_attention_plain))
+    stack.enter_context(mock.patch.object(M, "ms_deform_attn",
+                                          M.ms_deform_attn_plain))
+    stack.enter_context(mock.patch.object(Q, "int4_matmul",
+                                          Q.int4_matmul_plain))
+    return stack
+
+
+def compare_plain(svc, reqs):
+    """One generate call of `reqs` with the kernels, then the kernel run
+    and the plain run teacher-forced on its tokens: per-step relative
+    error of the logits (live rows) and top-1 agreement."""
+    ids, imgs, mask, live = svc._pack(reqs)
+    out = svc.generate_fn(ids, imgs, attn_mask=mask, live=live)
+    n_gen = int(out["num_generated"])
+    toks = out["out_tokens"]
+    lk = teacher_forced(svc, ids, imgs, mask, toks, n_gen)
+    with plain_versions():
+        lp = teacher_forced(svc, ids, imgs, mask, toks, n_gen)
+    rows = live.nonzero()[:, 0]
+    lk, lp = lk[:, rows], lp[:, rows]
+    rel = ((lk - lp).flatten(1).norm(dim=1)
+           / lp.flatten(1).norm(dim=1)).tolist()
+    if not max(rel) <= LOGIT_REL_TOL:
+        raise AssertionError(f"teacher-forced logits: rel err {max(rel)} > "
+                             f"{LOGIT_REL_TOL}")
+    # the kernel run's own teacher-forced argmax reproduces its tokens
+    if not torch.equal(lk[0].argmax(-1).int(), toks[rows, 0]):
+        raise AssertionError("teacher-forced kernel run disagrees with "
+                             "the generate call's first token")
+    top1 = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    return {"rows": len(rows), "steps": n_gen, "prefill_rel_err": rel[0],
+            "decode_rel_err_max": max(rel[1:], default=0.0),
+            "top1_agreement": top1,
+            "tokens": toks[rows, :n_gen].tolist()}, (ids, imgs, mask, live)
+
+
+def run_serve():
+    torch.cuda.reset_peak_memory_stats()
+    cfg = vllm_7b_chat_config(llm=LLMConfig(vocab_size=32096, quant="int4"))
+    t = time.perf_counter()
+    core = build_core(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    n_int4 = sum(isinstance(m, Q.Int4Linear) for m in core.modules())
+    per_fwd_int4 = 7 * cfg.llm.num_layers + 1
+    if n_int4 != per_fwd_int4:
+        raise AssertionError(f"{n_int4} Int4Linear modules, want "
+                             f"{per_fwd_int4}")
+    per_call_flash = cfg.vis_encoder.num_layers + cfg.llm.num_layers
+    svc = ChatService(cfg, core, SimpleTokenizer(),
+                      image_size=cfg.vis_encoder.image_size,
+                      max_batch=SERVE_BATCH, max_prompt=SERVE_PROMPT,
+                      max_new_tokens=SERVE_NEW,
+                      batch_window_ms=BATCH_WINDOW_MS, device="cuda")
+    image_reqs, text_req = serve_requests()
+    for r in image_reqs + [text_req]:
+        n = len(svc._encode(r["prompt"], r.get("image"), r.get("history"))[0])
+        if n >= SERVE_PROMPT:
+            raise AssertionError(f"prompt of {n} tokens would be cut")
+    srv = make_server(svc, host="127.0.0.1", port=0)
+    http = threading.Thread(target=srv.serve_forever, daemon=True)
+    http.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    calls = []
+
+    def call(label, fn):
+        f0, q0 = A.flash_attention.launches, Q.int4_matmul.launches
+        b0, s0 = svc.stats["batches_total"], svc.stats["steps_total"]
+        t0 = time.perf_counter()
+        res = fn()
+        calls.append({"call": label,
+                      "wall_ms": (time.perf_counter() - t0) * 1e3,
+                      "generate_calls": svc.stats["batches_total"] - b0,
+                      "num_generated": svc.stats["steps_total"] - s0,
+                      "flash": A.flash_attention.launches - f0,
+                      "int4": Q.int4_matmul.launches - q0})
+        return res
+
+    def concurrent():
+        res = [None] * len(image_reqs)
+
+        def fire(i):
+            res[i] = svc.generate(**image_reqs[i])
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(len(image_reqs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        return res
+
+    img0 = image_reqs[0]
+    body = {"prompt": img0["prompt"],
+            "image_b64": base64.b64encode(img0["image"].tobytes()).decode(),
+            "image_shape": list(img0["image"].shape)}
+    # the main path, with the launch counts taken around it alone
+    A.flash_attention.launches = 0
+    Q.int4_matmul.launches = 0
+    with torch.no_grad():
+        batched = call("4 image requests from threads", concurrent)
+        alone = call("image request 0 alone", lambda: svc.generate(**img0))
+        text = call("text-only with history",
+                    lambda: svc.generate(**text_req))
+        over_http = call("image request 0 over HTTP",
+                         lambda: post_json(url + "/v1/generate", body))
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches,
+                "int4_matmul": Q.int4_matmul.launches}
+    srv.shutdown()
+    srv.server_close()
+
+    answers = batched + [alone, text, over_http]
+    vocab = cfg.llm.vocab_size
+    for a in answers:
+        if a is None or a["num_tokens"] < 1 or \
+                not all(0 <= t < vocab for t in a["ids"]):
+            raise AssertionError(f"bad answer {a}")
+    if alone["ids"] != over_http["ids"]:
+        raise AssertionError("the same request twice gave other ids")
+    if calls[0]["generate_calls"] != 1:
+        raise AssertionError(f"4 threaded requests took "
+                             f"{calls[0]['generate_calls']} generate calls")
+    for c in calls:
+        want = (per_call_flash * c["generate_calls"],
+                per_fwd_int4 * c["num_generated"])
+        if (c["flash"], c["int4"]) != want or c["generate_calls"] < 1:
+            raise AssertionError(f"launches {c} != (flash, int4) {want}")
+
+    with torch.no_grad():
+        enc = [_Request(*svc._encode(r["prompt"], r.get("image"),
+                                     r.get("history"))[:2])
+               for r in image_reqs]
+        cmp_images, packed = compare_plain(svc, enc)
+        tr = _Request(*svc._encode(text_req["prompt"], None,
+                                   text_req["history"])[:2])
+        cmp_text, _ = compare_plain(svc, [tr])
+        direct_equals_alone = \
+            cmp_images["tokens"][0][:alone["num_tokens"]] == alone["ids"]
+        ids, imgs, mask, live = packed
+        ttft = host_ms(lambda: svc.core(
+            ids, imgs, svc.tid, attn_mask=mask,
+            cache=KVCache.create(cfg.llm, SERVE_BATCH, SERVE_PROMPT
+                                 + SERVE_NEW + 8, torch.bfloat16, "cuda")),
+            n=3)
+        out = svc.generate_fn(ids, imgs, attn_mask=mask, live=live)
+        n_gen = int(out["num_generated"])
+        step_ms = []
+        teacher_forced(svc, ids, imgs, mask, out["out_tokens"], n_gen,
+                       step_ms)
+        gen_ms = host_ms(lambda: svc.generate_fn(ids, imgs, attn_mask=mask,
+                                                 live=live), n=3)
+    emit({"phase": "serve", "config": "vllm_7b_chat_config quant=int4",
+          "int4_linear_modules": n_int4, "build_core_s": build_s,
+          "max_batch": SERVE_BATCH, "max_prompt": SERVE_PROMPT,
+          "max_new_tokens": SERVE_NEW, "calls": calls, "launches": launches,
+          "answers": [{"num_tokens": a["num_tokens"], "text": a["text"][:60]}
+                      for a in answers],
+          "batched_equals_alone": batched[0]["ids"] == alone["ids"],
+          "direct_call_equals_alone": direct_equals_alone,
+          "plain_images": {k: v for k, v in cmp_images.items()
+                           if k != "tokens"},
+          "plain_text": {k: v for k, v in cmp_text.items() if k != "tokens"},
+          "logit_rel_tol": LOGIT_REL_TOL,
+          "ttft_ms": ttft, "decode_step_ms_median": statistics.median(step_ms),
+          "decode_steps_timed": len(step_ms),
+          "generate_ms": gen_ms, "generate_tokens": SERVE_BATCH * n_gen,
+          "tok_per_s": SERVE_BATCH * n_gen / (gen_ms / 1e3),
+          "metrics": svc.metrics(),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    profile_decode_step(svc, packed)
+    svc.close()
+    return launches
+
+
+def profile_decode_step(svc, packed):
+    """One warm decode step (llm_step + the tool state machine) of the
+    packed batch under torch.profiler."""
+    ids, imgs, mask, live = packed
+    cfg, core, tid = svc.cfg, svc.core, svc.tid
+    B, L = ids.shape
+    max_len = SERVE_PROMPT + SERVE_NEW + 8
+    with torch.no_grad():
+        cache = KVCache.create(cfg.llm, B, max_len, torch.bfloat16, "cuda")
+        out = core(ids, imgs, tid, attn_mask=mask, cache=cache)
+        tok = out["logits"][:, -1].argmax(-1).int()
+        embed = core.embed_tokens(tok[:, None].long())
+        dmask = torch.cat([mask, torch.ones(B, max_len - L, dtype=torch.bool,
+                                            device="cuda")], 1)
+        zero = torch.zeros_like(tok)
+
+        def step():
+            pos = torch.full((B, 1), cache.index, dtype=torch.long,
+                             device="cuda")
+            res = core.llm_step(embed, pos, cache, dmask)
+            sampled = res["logits"][:, -1].argmax(-1).int()
+            advance_tool_state(core, tid, cfg.num_embs, cfg.num_embs_gen,
+                               sampled, zero, zero)
+            return bool((sampled == svc.eos_id).all())
+
+        step()                                  # warm
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    emit({"phase": "serve_profile", **device_summary(prof, wall_ms)})
 
 
 def kernel_entry(name, source, replaces, launches, cases, main_case):
@@ -436,19 +814,37 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     attn_cases = check_attention(g)
     msda_cases = check_msda(g)
-    launches = run_slice()
+    int4_cases = check_int4(g)
+    det = run_slice()
+    gc.collect()
+    torch.cuda.empty_cache()
+    chat = run_serve()
+    # each path's counts were read around that path's run alone
+    by_path = {"det": det, "chat": chat}
 
-    emit({"kernels": [
-        kernel_entry("flash_attn_fwd",
-                     "visionllm_tpu_torch/csrc/flash_attn_fwd.cu",
-                     "visionllm_tpu/ops/attention.py:72",
-                     launches["flash_attn_fwd"], attn_cases,
-                     "llama7b_prefill"),
-        kernel_entry("ms_deform_attn_fwd",
-                     "visionllm_tpu_torch/csrc/ms_deform_attn_fwd.cu",
-                     "visionllm_tpu/ops/ms_deform_attn.py:212",
-                     launches["ms_deform_attn_fwd"], msda_cases, "encoder"),
-    ]})
+    def launches(name):
+        per = {p: c[name] for p, c in by_path.items() if name in c}
+        if not all(per.values()):
+            raise AssertionError(f"{name}: no launch on a path: {per}")
+        return sum(per.values()), per
+
+    entries = []
+    for name, src, replaces, cases, main_case in (
+            ("flash_attn_fwd", "visionllm_tpu_torch/csrc/flash_attn_fwd.cu",
+             "visionllm_tpu/ops/attention.py:72", attn_cases,
+             "llama7b_prefill"),
+            ("ms_deform_attn_fwd",
+             "visionllm_tpu_torch/csrc/ms_deform_attn_fwd.cu",
+             "visionllm_tpu/ops/ms_deform_attn.py:212", msda_cases,
+             "encoder"),
+            ("int4_matmul", "visionllm_tpu_torch/csrc/int4_matmul.cu",
+             "visionllm_tpu/ops/quant4.py:112", int4_cases,
+             "decode_m4_4096x11008")):
+        total, per = launches(name)
+        entry = kernel_entry(name, src, replaces, total, cases, main_case)
+        entry["launches_by_path"] = per
+        entries.append(entry)
+    emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ import torch
 
 from visionllm_tpu_torch.ops import attention as A
 from visionllm_tpu_torch.ops import ms_deform_attn as M
+from visionllm_tpu_torch.ops import quant4 as Q
 
 
 @pytest.fixture
@@ -112,3 +113,53 @@ def test_msda_kernel_far_and_nonfinite_locations_are_zero(cuda):
     got = M.ms_deform_attn(value, ((5, 7),), loc, attw)
     torch.cuda.synchronize()
     assert torch.count_nonzero(got) == 0
+
+
+def _int4_weights(rng, dev, K, N):
+    w = torch.from_numpy(rng.normal(0, 0.05, (K, N)).astype(np.float32))
+    wp, scale = Q.pack_int4(w.to(dev))
+    return wp, scale
+
+
+@pytest.mark.parametrize("M_", [1, 3, 17, 129])
+@pytest.mark.parametrize("N", [200, 32096])
+def test_int4_kernel_matches_plain(cuda, M_, N):
+    rng = np.random.default_rng(M_ * 7 + N)
+    K = 11008
+    wp, scale = _int4_weights(rng, cuda, K, N)
+    x = _bf16(rng, cuda, M_, K)
+    n = Q.int4_matmul.launches
+    got = Q.int4_matmul(x, wp, scale)
+    assert Q.int4_matmul.launches == n + 1
+    want = Q.int4_matmul_plain(x, wp, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (M_, N) and got.dtype == torch.bfloat16
+    _close(got, want)
+
+
+@pytest.mark.parametrize("N", [4096, 201])
+def test_int4_kernel_rows_are_batch_invariant(cuda, N):
+    """Row i of an M = 17 call is bit-identical to the M = 1 call on
+    that row (and to the row inside an M = 4 call)."""
+    rng = np.random.default_rng(N)
+    wp, scale = _int4_weights(rng, cuda, 4096, N)
+    x = _bf16(rng, cuda, 17, 4096)
+    full = Q.int4_matmul(x, wp, scale)
+    four = Q.int4_matmul(x[3:7], wp, scale)
+    for i in range(17):
+        assert torch.equal(Q.int4_matmul(x[i:i + 1], wp, scale)[0], full[i])
+    assert torch.equal(four, full[3:7])
+
+
+def test_int4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(3)
+    wp, scale = _int4_weights(rng, cuda, 512, 64)
+    x = _bf16(rng, cuda, 2, 512)
+    with pytest.raises(TypeError):
+        Q.int4_matmul(x.float(), wp, scale)            # float32 x
+    with pytest.raises(TypeError):
+        Q.int4_matmul(x, wp.to(torch.uint8), scale)    # not int8
+    with pytest.raises(ValueError):
+        Q.int4_matmul(_bf16(rng, cuda, 512, 2).t(), wp, scale)  # strided
+    with pytest.raises(ValueError):                    # K % (2 G) != 0
+        Q.int4_matmul(x[:, :384], wp[:192], scale[:3])

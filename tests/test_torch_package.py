@@ -72,6 +72,23 @@ def test_entry_point_without_device_raises_on_cpu_host():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_chat_entry_points_without_device_raise_on_cpu_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from visionllm_tpu_torch.config import tiny_test_config
+    from visionllm_tpu_torch.models.composite import build_core
+    from visionllm_tpu_torch.serve import ChatService
+    from visionllm_tpu_torch.utils.simple_tokenizer import SimpleTokenizer
+    cfg = tiny_test_config(use_gdino=False, gdino=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_core(cfg)
+    core = build_core(cfg, device="cpu", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ChatService(cfg, core, SimpleTokenizer())
+    svc = ChatService(cfg, core, SimpleTokenizer(), device="cpu")
+    svc.close()
+
+
 def test_kernel_wrappers_on_cpu_run_plain_versions_in_bf16():
     """On CPU tensors the wrappers run their plain versions, which keep
     the bf16 dtype the kernels take."""
@@ -83,3 +100,15 @@ def test_kernel_wrappers_on_cpu_run_plain_versions_in_bf16():
     attw = torch.rand(1, 3, 2, 1, 2)
     out = ms_deform_attn.ms_deform_attn(v, ((1, 5),), loc, attw)
     assert out.shape == (1, 3, 8) and out.dtype == torch.bfloat16
+
+
+def test_int4_wrapper_on_cpu_runs_plain_version_in_bf16():
+    from visionllm_tpu_torch.ops import quant4
+    w = torch.randn(256, 40)
+    wp, scale = quant4.pack_int4(w)
+    x = torch.randn(3, 256, dtype=torch.bfloat16)
+    n = quant4.int4_matmul.launches
+    out = quant4.int4_matmul(x, wp, scale)
+    assert out.shape == (3, 40) and out.dtype == torch.bfloat16
+    assert quant4.int4_matmul.launches == n        # no kernel launched
+    assert torch.equal(out, quant4.int4_matmul_plain(x, wp, scale))

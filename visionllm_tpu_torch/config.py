@@ -1,7 +1,7 @@
-"""Config dataclasses of the det path (own copies of the JAX package's
-`VisionEncoderConfig`, `LLMConfig`, `GDinoConfig`, `VisionLLMConfig` and
-`tiny_test_config`, cut to the fields this port reads; defaults and the
-tiny dims are the same)."""
+"""Config dataclasses of the det and chat paths (own copies of the JAX
+package's `VisionEncoderConfig`, `LLMConfig`, `GDinoConfig`,
+`VisionLLMConfig` and `tiny_test_config`, cut to the fields this port
+reads; defaults and the tiny dims are the same)."""
 
 from __future__ import annotations
 
@@ -44,6 +44,20 @@ class LLMConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     max_position_embeddings: int = 4096
+    # serving-only weight storage: "" (model dtype) | "int4" (w4a16
+    # group-128 packed nibbles, ops/quant4.py). The JAX package's "int8"
+    # and "w8a8" are not ported.
+    quant: str = ""
+    # serving-only KV-cache storage: "" (model dtype); "int8" is not ported
+    kv_quant: str = ""
+
+    def __post_init__(self):
+        if self.quant not in ("", "int4"):
+            raise NotImplementedError(f"LLMConfig.quant={self.quant!r} is "
+                                      "not ported (only '' and 'int4')")
+        if self.kv_quant != "":
+            raise NotImplementedError(f"LLMConfig.kv_quant="
+                                      f"{self.kv_quant!r} is not ported")
 
     @property
     def head_dim(self) -> int:
@@ -94,6 +108,20 @@ def vllm_7b_det_config(**overrides: Any) -> VisionLLMConfig:
         vl_bridge_type="mlp2x_gelu",
         use_gdino=True,
         gdino=GDinoConfig(),
+    )
+    base.update(overrides)
+    return VisionLLMConfig(**base)
+
+
+def vllm_7b_chat_config(**overrides: Any) -> VisionLLMConfig:
+    """The 7B flagship's chat path: the JAX `vllm_7b_config` with the tool
+    decoders off (chat needs none): CLIP-ViT-L/336 + `mlp2x_gelu` +
+    Vicuna-7B (vocab 32096). Pass `llm=LLMConfig(vocab_size=32096,
+    quant="int4")` for int4 serving."""
+    base = dict(
+        vis_encoder=VisionEncoderConfig(),
+        llm=LLMConfig(vocab_size=32096),
+        vl_bridge_type="mlp2x_gelu",
     )
     base.update(overrides)
     return VisionLLMConfig(**base)

@@ -1,0 +1,195 @@
+"""Greedy autoregressive generation with super-link tool routing.
+
+Counterpart of `visionllm_tpu/generation.py` (`build_generate_fn` in its
+greedy mode, `advance_tool_state`, `extract_tool_queries_from_generation`).
+When the LLM emits a tool token ([DET]/[GRD]/[SEG]/[POSE]/[GEN]/[EDIT]),
+the next 4 (perception) or 64 (generation) inputs are the tool's
+learnable [EMB] rows and the matching [EMB] ids are emitted: the
+emb-countdown state machine. The JAX `lax.while_loop` becomes a Python
+loop over a preallocated state with the same bookkeeping: `step` starts at
+1 after the prefill, `out_hidden[step - 1]` holds the hidden state of the
+token emitted at step - 1, and the loop runs while `step < max_new` and
+some row is not done (one host sync per step reads that test).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from visionllm_tpu_torch import constants as C
+from visionllm_tpu_torch.config import VisionLLMConfig
+from visionllm_tpu_torch.models.llama import KVCache
+from visionllm_tpu_torch.models.visionllm import (SpecialTokenIds, VisionLLM,
+                                                  compact_masked_rows,
+                                                  tool_context)
+
+
+def _token_logprob(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
+    """log softmax of `logits` [B, V] at `token` [B] -> [B] fp32."""
+    lp = F.log_softmax(logits.float(), dim=-1)
+    return torch.gather(lp, -1, token[:, None].long())[:, 0]
+
+
+def _tool_kind(token: torch.Tensor, tid: SpecialTokenIds) -> torch.Tensor:
+    kind = torch.zeros_like(token)
+    for ids, code in (((tid.det, tid.seg, tid.grd), C.TOOL_DET),
+                      ((tid.pose,), C.TOOL_POSE),
+                      ((tid.gen,), C.TOOL_GEN),
+                      ((tid.edit,), C.TOOL_EDIT)):
+        for t in ids:
+            kind = torch.where(token == t, torch.full_like(kind, code), kind)
+    return kind
+
+
+def advance_tool_state(core: VisionLLM, tid: SpecialTokenIds, num_embs: int,
+                       num_embs_gen: int, sampled: torch.Tensor,
+                       countdown: torch.Tensor, kind: torch.Tensor):
+    """One step of the emb-countdown tool state machine: given the sampled
+    token and the per-row (countdown, kind), pick the emitted token
+    (forced [EMB] id while counting down), its next-step input embedding
+    (tool table row or vocab embedding) and the updated (countdown, kind).
+
+    Returns (next_token [B], next_embed [B, 1, C], countdown', kind')."""
+    forcing = countdown > 0
+    gen_like = kind >= C.TOOL_GEN
+    total = torch.where(gen_like, torch.full_like(countdown, num_embs_gen),
+                        torch.full_like(countdown, num_embs))
+    offset = total - countdown
+    # perception embs have distinct ids [EMB]..[EMB4]; gen/edit repeat [EMB]
+    forced_token = torch.where(gen_like, torch.full_like(offset, tid.emb),
+                               tid.emb + offset)
+    next_token = torch.where(forcing, forced_token, sampled)
+
+    next_embed = core.embed_tokens(next_token[:, None].long())
+    for code, table in ((C.TOOL_DET, core.emb_embeddings_det),
+                        (C.TOOL_POSE, core.emb_embeddings_pose),
+                        (C.TOOL_GEN, core.emb_embeddings_gen),
+                        (C.TOOL_EDIT, core.emb_embeddings_edit)):
+        row = table[offset.clamp(0, table.shape[0] - 1)]          # [B, C]
+        use = forcing & (kind == code)
+        next_embed = torch.where(use[:, None, None],
+                                 row[:, None, :].to(next_embed.dtype),
+                                 next_embed)
+
+    # countdown bookkeeping: start on a sampled tool token, else decrement
+    new_kind = _tool_kind(sampled, tid)
+    started = (~forcing) & (new_kind > 0)
+    start_total = torch.where(new_kind >= C.TOOL_GEN,
+                              torch.full_like(new_kind, num_embs_gen),
+                              torch.full_like(new_kind, num_embs))
+    zero = torch.zeros_like(countdown)
+    new_countdown = torch.where(forcing, countdown - 1,
+                                torch.where(started, start_total, zero))
+    kind_out = torch.where(forcing, kind,
+                           torch.where(started, new_kind, zero))
+    return next_token, next_embed, new_countdown, kind_out
+
+
+def build_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
+                      max_new_tokens: int = 256, eos_id: int = 2,
+                      max_len: int = 4096):
+    """Returns the greedy `generate(input_ids, images, first_token=None,
+    attn_mask=None, live=None)` closure of the JAX `build_generate_fn`.
+
+    input_ids [B, L]; images [N, H, W, 3] or [B, T, H, W, 3] or None;
+    `first_token` [B] overrides the first sampled token; `attn_mask`
+    [B, L] marks valid prompt tokens of LEFT-padded batches (pads are
+    excluded from attention in prefill and decode); `live` [B] marks real
+    rows (dead rows start done). Returns dict(out_tokens [B, max_new]
+    int32, out_hidden [B, max_new, C] fp32, out_logprobs [B, max_new]
+    fp32, num_generated int, cache)."""
+    cfg = core.cfg
+    num_embs, num_embs_gen = cfg.num_embs, cfg.num_embs_gen
+
+    @torch.no_grad()
+    def generate(input_ids: torch.Tensor, images: Optional[torch.Tensor],
+                 first_token: Optional[torch.Tensor] = None,
+                 attn_mask: Optional[torch.Tensor] = None,
+                 live: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        B, L = input_ids.shape
+        dev = input_ids.device
+        dtype = core.llm.norm.weight.dtype
+        cache = KVCache.create(cfg.llm, B, max_len, dtype, dev)
+        out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache)
+        last = out["logits"][:, -1, :]
+        first = torch.argmax(last, dim=-1).to(torch.int32)
+        if first_token is not None:
+            first = torch.as_tensor(first_token, dtype=torch.int32,
+                                    device=dev).expand(B).clone()
+        cur_embed = core.embed_tokens(first[:, None].long())
+
+        decode_mask = None
+        if attn_mask is not None:
+            # prompt pads stay invisible; every slot decode writes is valid
+            decode_mask = torch.cat(
+                [attn_mask.bool(),
+                 torch.ones(B, max_len - L, dtype=torch.bool, device=dev)], 1)
+
+        kind = _tool_kind(first, tid)
+        total0 = torch.where(kind >= C.TOOL_GEN,
+                             torch.full_like(kind, num_embs_gen),
+                             torch.full_like(kind, num_embs))
+        countdown = torch.where(kind > 0, total0, torch.zeros_like(kind))
+        done = first == eos_id
+        if live is not None:
+            done = done | ~live.bool()
+        out_tokens = torch.zeros(B, max_new_tokens, dtype=torch.int32,
+                                 device=dev)
+        out_tokens[:, 0] = torch.where(done & (first != eos_id),
+                                       torch.zeros_like(first), first)
+        out_hidden = torch.zeros(B, max_new_tokens, cfg.llm.hidden_size,
+                                 dtype=torch.float32, device=dev)
+        out_logprobs = torch.zeros(B, max_new_tokens, dtype=torch.float32,
+                                   device=dev)
+        out_logprobs[:, 0] = _token_logprob(last, first)
+
+        step = 1
+        while step < max_new_tokens and not bool(done.all()):
+            pos = torch.full((B, 1), cache.index, dtype=torch.long,
+                             device=dev)
+            res = core.llm_step(cur_embed, pos, cache, decode_mask)
+            logits = res["logits"][:, -1, :]
+            sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+            forcing = countdown > 0
+            next_token, cur_embed, countdown, kind = advance_tool_state(
+                core, tid, num_embs, num_embs_gen, sampled, countdown, kind)
+            zero_tok = torch.zeros_like(next_token)
+            out_tokens[:, step] = torch.where(done, zero_tok, next_token)
+            out_logprobs[:, step] = torch.where(
+                done, torch.zeros_like(logits[:, 0]),
+                _token_logprob(logits, next_token))
+            # the hidden state fed this step belongs to out_tokens[step - 1]
+            out_hidden[:, step - 1] = res["hidden"][:, 0].float()
+            done = done | ((~forcing) & (sampled == eos_id))
+            step += 1
+        return {"out_tokens": out_tokens, "out_hidden": out_hidden,
+                "out_logprobs": out_logprobs, "num_generated": step,
+                "cache": cache}
+
+    return generate
+
+
+def extract_tool_queries_from_generation(cfg: VisionLLMConfig,
+                                         tid: SpecialTokenIds,
+                                         out_tokens: torch.Tensor,
+                                         out_hidden: torch.Tensor
+                                         ) -> Dict[str, Any]:
+    """Post-decode: gather each tool's text queries [B, max_patches, n, C]
+    and masks [B, max_patches] from the recorded hidden states."""
+    is_emb = (out_tokens >= tid.emb) & (out_tokens < tid.emb + cfg.num_embs)
+    ctx, _ = tool_context(out_tokens, tid)
+    B = out_tokens.shape[0]
+    result = {}
+    for name, code, n in (("det", C.TOOL_DET, cfg.num_embs),
+                          ("pose", C.TOOL_POSE, cfg.num_embs),
+                          ("gen", C.TOOL_GEN, cfg.num_embs_gen),
+                          ("edit", C.TOOL_EDIT, cfg.num_embs_gen)):
+        rows, valid = compact_masked_rows(out_hidden, is_emb & (ctx == code),
+                                          cfg.max_num_patches * n)
+        tq = rows.reshape(B, cfg.max_num_patches, n, -1)
+        tq_mask = valid.reshape(B, cfg.max_num_patches, n)[..., 0]
+        result[name] = (tq, tq_mask)
+    return result

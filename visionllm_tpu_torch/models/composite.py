@@ -5,12 +5,15 @@ with the det-VQA inference entry `infer_det` (counterpart of
 `build_model` is the entry point: it builds the model on CUDA unless the
 caller names another device, in the requested dtype (bf16 by default, as
 the JAX package deploys the whole composite), with weights drawn from a
-seeded `torch.Generator`. Load real weights with
+seeded `torch.Generator`. `build_core` does the same for the `VisionLLM`
+core alone (the chat path) and packs its LLM to int4 when
+`cfg.llm.quant == "int4"`. Load real weights with
 `utils.convert.load_jax_params`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Union
 
 import torch
@@ -21,6 +24,7 @@ from visionllm_tpu_torch.device import resolve_device
 from visionllm_tpu_torch.models.common import init_weights
 from visionllm_tpu_torch.models.grounding_dino.model import GroundingDino
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
+from visionllm_tpu_torch.ops.quant4 import quantize_llm_int4
 
 
 class VisionLLMWithTools(nn.Module):
@@ -60,3 +64,24 @@ def build_model(cfg: VisionLLMConfig, *,
     model = model.to(dtype=dtype).to_empty(device=dev)
     init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     return model.eval()
+
+
+def build_core(cfg: VisionLLMConfig, *,
+               device: Optional[Union[str, torch.device]] = None,
+               dtype: torch.dtype = torch.bfloat16,
+               seed: int = 0) -> VisionLLM:
+    """Build the `VisionLLM` core alone on `device` (CUDA when None;
+    raises when there is none) in `dtype` with seeded random weights.
+    With `cfg.llm.quant == "int4"` the LLM is drawn in `dtype` and then
+    packed one Linear at a time (`quantize_llm_int4`)."""
+    dev = resolve_device(device)
+    dense_cfg = dataclasses.replace(
+        cfg, llm=dataclasses.replace(cfg.llm, quant=""))
+    with torch.device("meta"):
+        core = VisionLLM(dense_cfg)
+    core = core.to(dtype=dtype).to_empty(device=dev)
+    init_weights(core, torch.Generator(device=dev).manual_seed(seed))
+    if cfg.llm.quant == "int4":
+        quantize_llm_int4(core.llm)
+    core.cfg, core.llm.cfg = cfg, cfg.llm
+    return core.eval()

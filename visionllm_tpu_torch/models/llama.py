@@ -1,11 +1,20 @@
-"""LLaMA-family causal decoder, cache-less prefill (counterpart of
-`visionllm_tpu/models/llama.py` without the KV cache, quantization or
-LoRA). The layer stack is a ModuleList `layers` run by a Python loop
-(the flax tree stacks it on axis 0 under `layers/layer`).
+"""LLaMA-family causal decoder with a KV cache (counterpart of
+`visionllm_tpu/models/llama.py` without LoRA, the int8 modes or the
+speculative extend window). The layer stack is a ModuleList `layers` run
+by a Python loop (the flax tree stacks it on axis 0 under `layers/layer`).
 
-A key-valid mask [B, L] (left-padded prefill) becomes segment ids —
-valid tokens 1, pads 0 — so the flash kernel stays on the path, as in
-the JAX package (`llama.py:110-119`).
+* `cache=None` runs causal attention over the sequence. With a `KVCache`,
+  L > 1 is a prefill that writes the cache window [index, index + L) and
+  attends within the fresh window; L == 1 is a decode step that writes
+  K/V at `cache.index` and attends the whole buffer through the einsum
+  branch, masked by `pos <= index` and the key-valid mask
+  (`llama.py:162-172`, `:292-297`). The cache is updated in place (JAX
+  returns a new one) and its index advances by L.
+* A key-valid mask [B, L] on a prefill (left-padded prompts) becomes
+  segment ids - valid tokens 1, pads 0 - so the flash kernel stays on the
+  path, as in the JAX package (`llama.py:110-119`).
+* `quant="int4"` makes every projection and `lm_head` an `Int4Linear`
+  (`llama.py:95-98`, `:245-248`).
 """
 
 from __future__ import annotations
@@ -19,6 +28,29 @@ import torch.nn.functional as F
 from visionllm_tpu_torch.config import LLMConfig
 from visionllm_tpu_torch.models.common import RMSNorm, apply_rope, rope_cos_sin
 from visionllm_tpu_torch.ops.attention import multi_head_attention
+from visionllm_tpu_torch.ops.quant4 import Int4Linear
+
+
+class KVCache:
+    """Preallocated K/V buffers [n_layers, B, max_len, H_kv, D] in the
+    model dtype, and `index`, the number of positions already written."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, index: int = 0):
+        self.k, self.v, self.index = k, v, index
+
+    @classmethod
+    def create(cls, cfg: LLMConfig, batch: int, max_len: int,
+               dtype: torch.dtype, device) -> "KVCache":
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _dense(cfg: LLMConfig, fin: int, fout: int) -> nn.Module:
+    if cfg.quant == "int4":
+        return Int4Linear(fin, fout)
+    return nn.Linear(fin, fout, bias=False)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -27,16 +59,19 @@ class LlamaDecoderLayer(nn.Module):
         self.cfg = cfg
         hid, hd = cfg.hidden_size, cfg.head_dim
         self.input_layernorm = RMSNorm(hid, cfg.rms_norm_eps)
-        self.q_proj = nn.Linear(hid, cfg.num_heads * hd, bias=False)
-        self.k_proj = nn.Linear(hid, cfg.num_kv_heads * hd, bias=False)
-        self.v_proj = nn.Linear(hid, cfg.num_kv_heads * hd, bias=False)
-        self.o_proj = nn.Linear(cfg.num_heads * hd, hid, bias=False)
+        self.q_proj = _dense(cfg, hid, cfg.num_heads * hd)
+        self.k_proj = _dense(cfg, hid, cfg.num_kv_heads * hd)
+        self.v_proj = _dense(cfg, hid, cfg.num_kv_heads * hd)
+        self.o_proj = _dense(cfg, cfg.num_heads * hd, hid)
         self.post_attention_layernorm = RMSNorm(hid, cfg.rms_norm_eps)
-        self.gate_proj = nn.Linear(hid, cfg.intermediate_size, bias=False)
-        self.up_proj = nn.Linear(hid, cfg.intermediate_size, bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, hid, bias=False)
+        self.gate_proj = _dense(cfg, hid, cfg.intermediate_size)
+        self.up_proj = _dense(cfg, hid, cfg.intermediate_size)
+        self.down_proj = _dense(cfg, cfg.intermediate_size, hid)
 
-    def forward(self, hidden, cos, sin, segment_ids=None):
+    def forward(self, hidden, cos, sin, segment_ids=None, bias=None,
+                k_cache=None, v_cache=None, cache_index=0):
+        """k_cache/v_cache: this layer's [B, max_len, H_kv, D] buffers,
+        written in place; `bias` [B, 1, 1, max_len] the decode mask."""
         cfg = self.cfg
         B, L, _ = hidden.shape
         x = self.input_layernorm(hidden)
@@ -44,8 +79,16 @@ class LlamaDecoderLayer(nn.Module):
         k = self.k_proj(x).reshape(B, L, cfg.num_kv_heads, cfg.head_dim)
         v = self.v_proj(x).reshape(B, L, cfg.num_kv_heads, cfg.head_dim)
         q, k = apply_rope(q, k, cos, sin)
-        attn = multi_head_attention(q, k, v, causal=True,
-                                    segment_ids=segment_ids)
+        if k_cache is not None:
+            k_cache[:, cache_index:cache_index + L] = k
+            v_cache[:, cache_index:cache_index + L] = v
+        if k_cache is None or L > 1:
+            # no cache, or a prefill: attend within the fresh window
+            attn = multi_head_attention(q, k, v, causal=True,
+                                        segment_ids=segment_ids)
+        else:
+            # decode: the whole (masked) buffer; the bias holds causality
+            attn = multi_head_attention(q, k_cache, v_cache, mask=bias)
         hidden = hidden + self.o_proj(attn.reshape(B, L, -1))
         x = self.post_attention_layernorm(hidden)
         return hidden + self.down_proj(F.silu(self.gate_proj(x))
@@ -62,28 +105,44 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(
             LlamaDecoderLayer(cfg) for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+        self.lm_head = _dense(cfg, cfg.hidden_size, cfg.vocab_size)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
 
     def forward(self, inputs_embeds: torch.Tensor, positions: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None,
                 compute_logits: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """inputs_embeds [B, L, hid], positions [B, L], attn_mask [B, L]
-        (1 = valid) -> (hidden after the final norm, fp32 logits or None)."""
+        """inputs_embeds [B, L, hid], positions [B, L]; attn_mask (1 =
+        valid) is [B, L] for a prefill or cache-less run and [B, max_len]
+        for a decode step. Returns (hidden after the final norm, fp32
+        logits or None); a given cache is written and advanced by L."""
         cfg = self.cfg
         dtype = self.norm.weight.dtype
         B, L, _ = inputs_embeds.shape
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                                 dtype=dtype)
-        seg = None
-        if attn_mask is not None and L > 1:
+        seg = bias = None
+        if cache is not None and L == 1:
+            max_len = cache.k.shape[2]
+            valid = (torch.arange(max_len, device=inputs_embeds.device)
+                     <= cache.index)[None, :]
+            if attn_mask is not None:
+                valid = valid & attn_mask.bool()
+            bias = valid.expand(B, max_len)[:, None, None, :]
+        elif attn_mask is not None and L > 1:
             seg = attn_mask.to(torch.int32)
         hidden = inputs_embeds.to(dtype)
-        for layer in self.layers:
-            hidden = layer(hidden, cos, sin, seg)
+        for i, layer in enumerate(self.layers):
+            kc = vc = None
+            if cache is not None:
+                kc, vc = cache.k[i], cache.v[i]
+            hidden = layer(hidden, cos, sin, seg, bias, kc, vc,
+                           0 if cache is None else cache.index)
+        if cache is not None:
+            cache.index += L
         hidden = self.norm(hidden)
         logits = self.lm_head(hidden).float() if compute_logits else None
         return hidden, logits

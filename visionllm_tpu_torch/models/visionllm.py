@@ -1,10 +1,12 @@
 """The composite VisionLLM core: vision encoder -> VL bridge -> LLM, with
 super-link routing of [EMB] hidden states to the tool decoders.
 
-Counterpart of `visionllm_tpu/models/visionllm.py` for the det path:
-token embeddings, the [EMB]-table splice, the <im_patch> image-feature
-scatter, the cache-less LLM prefill and `extract_text_query`. Every step
-is a fixed-shape tensor op, as in the JAX package.
+Counterpart of `visionllm_tpu/models/visionllm.py` for the det and chat
+paths: token embeddings, the [EMB]-table splice, the <im_patch>
+image-feature scatter (flattened for [N, H, W, 3] images, per sample for
+[B, T, H, W, 3] tile stacks), the LLM prefill with an optional KV cache,
+the decode step `llm_step` and `extract_text_query`. Every step is a
+fixed-shape tensor op, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch.nn as nn
 from visionllm_tpu_torch import constants as C
 from visionllm_tpu_torch.config import VisionLLMConfig
 from visionllm_tpu_torch.models.clip_vit import ClipVisionTower
-from visionllm_tpu_torch.models.llama import LlamaModel
+from visionllm_tpu_torch.models.llama import KVCache, LlamaModel
 from visionllm_tpu_torch.models.vl_bridge import VLBridge
 
 
@@ -37,6 +39,19 @@ class SpecialTokenIds:
     pose: int
     gen: int
     edit: int
+
+    @classmethod
+    def from_tokenizer(cls, tok) -> "SpecialTokenIds":
+        t = C.DEFAULT_TOKENS
+        get = lambda k: tok.convert_tokens_to_ids(t[k])  # noqa: E731
+        ids = cls(pad=tok.pad_token_id, img=get("img"), imp=get("imp"),
+                  reg=get("reg"), emb=get("emb"), det=get("det"),
+                  grd=get("grd"), seg=get("seg"), pose=get("pose"),
+                  gen=get("gen"), edit=get("edit"))
+        # the [EMB]..[EMB8] block must be contiguous (routing relies on it)
+        if get("emb8") != ids.emb + 7:
+            raise ValueError("the tokenizer's [EMB] ids are not contiguous")
+        return ids
 
     @classmethod
     def synthetic(cls, base: int = 32000) -> "SpecialTokenIds":
@@ -112,13 +127,16 @@ class VisionLLM(nn.Module):
     def encode_images(self, images: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """images [N, H, W, 3] NHWC -> (llm-space features [N, P, hid],
-        all ViT hidden states [n_layers + 1, N, 1 + P, D])."""
-        if images.ndim != 4:
-            raise NotImplementedError("anyres tile stacks ([B, T, H, W, 3]) "
-                                      "are not ported")
+        all ViT hidden states [n_layers + 1, N, 1 + P, D]). Tile stacks
+        [B, T, H, W, 3] are flattened to [B*T, ...] first."""
+        if images.ndim == 5:
+            images = images.reshape(-1, *images.shape[2:])
         hs = self.vis_encoder(images)
         feats = hs[self.cfg.vis_encoder.output_layer][:, 1:]   # drop CLS
         return self.vl_bridge(feats), hs
+
+    def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.llm.embed(input_ids)
 
     def splice_emb_embeddings(self, inputs_embeds: torch.Tensor,
                               input_ids: torch.Tensor,
@@ -157,6 +175,21 @@ class VisionLLM(nn.Module):
                           inputs_embeds.reshape(-1, Cdim))
         return out.reshape(B, L, Cdim)
 
+    @staticmethod
+    def scatter_image_features_per_sample(inputs_embeds: torch.Tensor,
+                                          input_ids: torch.Tensor,
+                                          image_features: torch.Tensor,
+                                          imp_token_id: int) -> torch.Tensor:
+        """Per-sample variant for tile stacks: sample b's k-th <im_patch>
+        reads image_features[b, k] ([B, F, C])."""
+        F = image_features.shape[1]
+        sel = input_ids == imp_token_id
+        src = (torch.cumsum(sel.long(), dim=1) - 1).clamp(0, F - 1)
+        gathered = torch.gather(
+            image_features.to(inputs_embeds.dtype), 1,
+            src[..., None].expand(-1, -1, image_features.shape[-1]))
+        return torch.where(sel[..., None], gathered, inputs_embeds)
+
     def extract_text_query(self, hidden: torch.Tensor,
                            input_ids: torch.Tensor, tid: SpecialTokenIds,
                            max_patches: Optional[int] = None
@@ -176,25 +209,45 @@ class VisionLLM(nn.Module):
     def build_prompt_embeds(self, input_ids: torch.Tensor,
                             images: Optional[torch.Tensor],
                             tid: SpecialTokenIds) -> torch.Tensor:
-        """Token embeddings + [EMB] splice + image-feature scatter."""
-        inputs_embeds = self.llm.embed(input_ids)
+        """Token embeddings + [EMB] splice + image-feature scatter
+        (per sample for [B, T, H, W, 3] tile stacks, as at
+        `visionllm.py:405-415` of the JAX package)."""
+        inputs_embeds = self.embed_tokens(input_ids)
         inputs_embeds = self.splice_emb_embeddings(inputs_embeds, input_ids,
                                                    tid)
         if images is not None:
             image_features, _ = self.encode_images(images)
-            inputs_embeds = self.scatter_image_features(
-                inputs_embeds, input_ids, image_features, tid.imp)
+            if images.ndim == 5:
+                B, T = images.shape[:2]
+                feats = image_features.reshape(
+                    B, T * image_features.shape[1], -1)
+                inputs_embeds = self.scatter_image_features_per_sample(
+                    inputs_embeds, input_ids, feats, tid.imp)
+            else:
+                inputs_embeds = self.scatter_image_features(
+                    inputs_embeds, input_ids, image_features, tid.imp)
         return inputs_embeds
 
     def forward(self, input_ids: torch.Tensor, images: Optional[torch.Tensor],
                 tid: SpecialTokenIds, attn_mask: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None,
                 compute_logits: bool = True) -> Dict[str, torch.Tensor]:
         """Returns dict(hidden, logits): the prefill over the assembled
-        prompt."""
+        prompt; a given cache is filled from its index on."""
         inputs_embeds = self.build_prompt_embeds(input_ids, images, tid)
-        B, L = input_ids.shape
-        positions = torch.arange(L, device=input_ids.device).expand(B, L)
+        if positions is None:
+            B, L = input_ids.shape
+            positions = torch.arange(L, device=input_ids.device).expand(B, L)
         hidden, logits = self.llm(inputs_embeds, positions,
-                                  attn_mask=attn_mask,
+                                  attn_mask=attn_mask, cache=cache,
                                   compute_logits=compute_logits)
+        return {"hidden": hidden, "logits": logits}
+
+    def llm_step(self, inputs_embeds: torch.Tensor, positions: torch.Tensor,
+                 cache: KVCache, attn_mask: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """One decode step on pre-built embeddings [B, 1, C]."""
+        hidden, logits = self.llm(inputs_embeds, positions,
+                                  attn_mask=attn_mask, cache=cache)
         return {"hidden": hidden, "logits": logits}

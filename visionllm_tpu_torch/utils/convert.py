@@ -11,6 +11,9 @@ the flax ones, so the map is mechanical:
   * LayerNorm / GroupNorm `scale`    -> `weight`
   * `nn.scan`-stacked `layers/layer/...` (stacked on axis 0)
                                      -> ModuleList `layers.{i}...`
+  * int4 `Int4Dense` `kernel_p`, `scale` -> `Int4Linear` buffers of the
+    same names and layout, no transpose (a tree packed by the JAX
+    `quantize_serving_params(..., bits=4)` loads byte for byte)
   * every other leaf keeps its name.
 
 It raises on any flax leaf that maps to no parameter and on any
@@ -75,12 +78,13 @@ def _slice(tree: Mapping, i: int, n: int, where: str) -> Dict:
 
 @torch.no_grad()
 def load_jax_params(module: nn.Module, params: Mapping) -> None:
-    """Copy a flax param tree into `module` (cast to each parameter's
-    dtype and device). Raises on unused or missing keys and on shape
-    mismatches."""
+    """Copy a flax param tree into `module`'s parameters and buffers (cast
+    to each one's dtype and device; integer leaves copy exactly). Raises
+    on unused or missing keys and on shape mismatches."""
     arrays: Dict[str, np.ndarray] = {}
     _emit(module, "", params, arrays)
     own = dict(module.named_parameters())
+    own.update(module.named_buffers())
     unused = sorted(set(arrays) - set(own))
     missing = sorted(set(own) - set(arrays))
     if unused or missing:
@@ -91,4 +95,6 @@ def load_jax_params(module: nn.Module, params: Mapping) -> None:
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: flax shape {arr.shape} vs port "
                              f"{tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+        src = np.array(arr, dtype=np.int64 if np.issubdtype(
+            np.asarray(arr).dtype, np.integer) else np.float32)
+        p.copy_(torch.from_numpy(src))

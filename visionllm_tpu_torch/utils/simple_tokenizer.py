@@ -1,0 +1,77 @@
+"""Deterministic word-level tokenizer (tokenizer-free smoke runs + tests);
+own copy of the JAX package's `utils/simple_tokenizer.py`.
+
+Mimics the HF LlamaTokenizer interface surface the data layer touches:
+callable → .input_ids with a leading BOS, special tokens (bracketed /
+angled) as single ids, pad/bos ids, `legacy` flag.
+"""
+
+import re
+from typing import List
+
+from visionllm_tpu_torch.constants import DEFAULT_TOKENS
+
+SPECIAL = list(DEFAULT_TOKENS.values()) + ["<|im_start|>", "<|im_end|>"]
+_PATTERN = re.compile(
+    "(" + "|".join(re.escape(s) for s in
+                   sorted(SPECIAL, key=len, reverse=True)) + ")")
+
+
+class _Enc:
+    def __init__(self, ids):
+        self.input_ids = ids
+
+
+class SimpleTokenizer:
+    bos_token_id = 1
+    eos_token_id = 2
+    pad_token_id = 0
+    legacy = True
+    model_max_length = 4096
+
+    def __init__(self):
+        # special tokens at stable ids, matching SpecialTokenIds.synthetic
+        order = ["img", "imp", "reg", "boi", "eoi", "sor", "eor", "sod",
+                 "eod", "sog", "eog", "det", "grd", "seg", "pose", "gen",
+                 "edit", "emb", "emb2", "emb3", "emb4", "emb5", "emb6",
+                 "emb7", "emb8"]
+        self.vocab = {"<pad>": 0, "<s>": 1, "</s>": 2, "<unk>": 3}
+        base = 32000
+        for i, k in enumerate(order):
+            self.vocab[DEFAULT_TOKENS[k]] = base + i
+        self.vocab["<|im_start|>"] = base + len(order)
+        self.vocab["<|im_end|>"] = base + len(order) + 1
+        self._next = 4
+
+    def _word_id(self, w: str) -> int:
+        if w not in self.vocab:
+            self.vocab[w] = self._next
+            self._next += 1
+            if self._next >= 31000:
+                self._next = 4
+        return self.vocab[w]
+
+    def tokenize_str(self, text: str) -> List[int]:
+        ids = []
+        for part in _PATTERN.split(text):
+            if not part:
+                continue
+            if part in self.vocab and part in SPECIAL:
+                ids.append(self.vocab[part])
+            else:
+                for w in part.replace(",", " ,").replace(".", " .").split():
+                    ids.append(self._word_id(w))
+        return ids
+
+    def __call__(self, text, **kw):
+        if isinstance(text, list):
+            return _Enc([[self.bos_token_id] + self.tokenize_str(t)
+                         for t in text])
+        return _Enc([self.bos_token_id] + self.tokenize_str(text))
+
+    def convert_tokens_to_ids(self, tok: str) -> int:
+        return self.vocab.get(tok, 3)
+
+    def decode(self, ids, **kw):
+        rev = {v: k for k, v in self.vocab.items()}
+        return " ".join(rev.get(int(i), "<unk>") for i in ids)
