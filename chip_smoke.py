@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
              main-path shapes, on the card, with the tolerance below, and
              times the kernel, the plain version and one PyTorch library
              call computing the same function (yardstick only; the port
-             never calls it);
+             never calls it); a backward kernel is held against autograd
+             of the plain forward, output by output;
 4. slice   - the det path: builds `VisionLLMWithTools` at full width
              (CLIP-L/336 24 layers, LLaMA-7B 32 layers, Grounding-DINO
              with Swin-T at 512 px) in bf16 with seeded random weights,
@@ -36,7 +37,23 @@ Phases, each printing one JSON line:
              every decode step's logits against a plain run teacher-forced
              on the kernel run's tokens, and times TTFT, a decode step and
              tok/s;
-7. serve_profile - one decode step under torch.profiler.
+7. serve_profile - one decode step under torch.profiler;
+8. train   - the det training step, after the chat model is freed: the
+             stage-1 frozen `vllm_7b_det_config()` at full width and
+             depth (LLaMA 32 layers, CLIP 24, Grounding-DINO with Swin-T
+             at 640 px, CDN with dn_number 100, 12544 mask points) in
+             bf16 with fp32 masters, bs 1 as `bench_train.py` builds its
+             batch. One step with the kernels against the plain versions
+             (same weights, batch, draws and discrete choices): the loss
+             terms against the all-plain step, the trainable gradient
+             against the step with the plain backwards (see run_train);
+             then 5 AdamW steps: finite losses, trainable masters moved,
+             frozen parameters bit-identical, and per step flash fwd 56,
+             flash bwd 32, MSDA fwd 12, MSDA bwd 12 launches; step ms,
+             peak memory, the loss trace;
+9. train_profile - one more step under torch.profiler;
+10. probes - the gather probes' entry point
+             (`visionllm_tpu_torch/tools/msda_kernel_attempts.py`).
 
 Then it prints the `{"kernels": [...]}` line, the card's name and power
 limit, and as its last line `{"ok": true, "device": {...}}`. Any failed
@@ -66,7 +83,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from visionllm_tpu_torch import constants as C
-from visionllm_tpu_torch.config import (LLMConfig, vllm_7b_chat_config,
+from visionllm_tpu_torch.config import (LLMConfig, OptimizerConfig,
+                                        vllm_7b_chat_config,
                                         vllm_7b_det_config)
 from visionllm_tpu_torch.generation import _tool_kind, advance_tool_state
 from visionllm_tpu_torch.kernels import build
@@ -74,9 +92,15 @@ from visionllm_tpu_torch.models.composite import build_core, build_model
 from visionllm_tpu_torch.models.llama import KVCache
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
 from visionllm_tpu_torch.ops import attention as A
+from visionllm_tpu_torch.ops import gather as G
 from visionllm_tpu_torch.ops import ms_deform_attn as M
 from visionllm_tpu_torch.ops import quant4 as Q
 from visionllm_tpu_torch.serve import ChatService, _Request, make_server
+from visionllm_tpu_torch.tools import msda_kernel_attempts as probes
+from visionllm_tpu_torch.train.runner import TrainConfig, frozen_predicate
+from visionllm_tpu_torch.train.train_step import (TrainState, build_optimizer,
+                                                  det_loss, draw_step_noise,
+                                                  make_det_train_step)
 from visionllm_tpu_torch.utils.simple_tokenizer import SimpleTokenizer
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -86,8 +110,8 @@ DET_SIZE = 512
 N_REQUESTS = 3
 N_TIMED = 5
 # kernel vs plain on the card, bf16 outputs: max |kernel - plain| must
-# stay within ATOL + RTOL * max |plain| (a few bf16 ulps; the plain
-# attention also rounds its probabilities to bf16 before P V)
+# stay within ATOL + RTOL * max |plain| (a few bf16 ulps of the outputs,
+# which both round from fp32 sums taken in another order)
 ATOL, RTOL = 2e-2, 1e-2
 # text queries after 32 bf16 LLaMA layers, kernel run vs plain run:
 # relative Frobenius error
@@ -98,9 +122,17 @@ TQ_REL_TOL = 5e-2
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 640, 32
 # the 4 threaded requests resize their images on the host before they
 # queue; the window lets the slowest still join the first one's call
-BATCH_WINDOW_MS = 200.0
+# (200 ms missed it once on a slow host)
+BATCH_WINDOW_MS = 500.0
 LOGIT_REL_TOL = 5e-2
 L2_BYTES = 50 * 2 ** 20       # H100 L2: decode weights are timed cold
+# the det train step (bench_train.py's batch): det image, targets per
+# image, AdamW steps on the main path; kernel run vs plain run of one
+# step: each loss term and the concatenated trainable gradient, relative
+TRAIN_DET = 640
+TRAIN_TARGETS = 20
+TRAIN_STEPS = 5
+TRAIN_REL_TOL = 5e-2
 
 
 def emit(obj):
@@ -235,9 +267,10 @@ def check_attention(g):
     return cases
 
 
-def msda_inputs(g, Q=None):
-    """Inputs at the 512 px det shapes; Q=None gives the encoder's Q = S."""
-    shapes = tuple((DET_SIZE // s, DET_SIZE // s) for s in (8, 16, 32, 64))
+def msda_inputs(g, Q=None, det=DET_SIZE):
+    """Inputs at the det shapes of a `det` px image; Q=None gives the
+    encoder's Q = S."""
+    shapes = tuple((det // s, det // s) for s in (8, 16, 32, 64))
     S = sum(h * w for h, w in shapes)
     Q = S if Q is None else Q
     value = torch.randn(1, S, 8, 32, generator=g, device="cuda").to(
@@ -266,8 +299,11 @@ def msda_valid_corners(shapes, loc):
 
 def check_msda(g):
     cases = []
-    for name, Q in (("encoder", None), ("decoder", 900)):
-        value, shapes, loc, attw = msda_inputs(g, Q)
+    for name, Q, det in (("encoder", None, DET_SIZE),
+                         ("decoder", 900, DET_SIZE),
+                         ("train_encoder", None, TRAIN_DET),
+                         ("train_decoder", 1100, TRAIN_DET)):
+        value, shapes, loc, attw = msda_inputs(g, Q, det)
         got = M.ms_deform_attn(value, shapes, loc, attw)
         want = M.ms_deform_attn_plain(value, shapes, loc, attw)
         torch.cuda.synchronize()
@@ -290,6 +326,161 @@ def check_msda(g):
         emit({"phase": "kernel", "kernel": "ms_deform_attn_fwd", **case})
         cases.append(case)
     return cases
+
+
+def check_attention_bwd(g):
+    """The flash backward kernel against autograd of the plain forward,
+    at the forward's cases; the library yardstick is the backward of
+    `scaled_dot_product_attention`."""
+    cases = []
+    for name, q, k, v, causal, seg in attention_cases(g):
+        B, L, H, D = q.shape
+        Hkv = k.shape[2]
+        dout = torch.randn(q.shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+        lse = torch.empty(B, H, L, dtype=torch.float32, device="cuda")
+        out = A._launch_fwd(q, k, v, causal, seg, lse)
+        got = A.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                    segment_ids=seg)
+        want = A.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                           segment_ids=seg)
+        torch.cuda.synchronize()
+        errs = {n: check_close(f"flash_attention_bwd[{name}].{n}", a, b)
+                for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        mask = None
+        if seg is not None:
+            mask = (seg[:, None, :, None] == seg[:, None, None, :]) & \
+                torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+        if mask is None:
+            lib_out = F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal, enable_gqa=Hkv != H)
+        else:
+            lib_out = F.scaled_dot_product_attention(qh, kh, vh,
+                                                     attn_mask=mask)
+        dout_h = dout.transpose(1, 2)
+
+        def lib():
+            return torch.autograd.grad(lib_out, (qh, kh, vh), dout_h,
+                                       retain_graph=True)
+
+        for n, a, b in zip(("dq", "dk", "dv"), lib(), want):
+            check_close(f"sdpa_bwd[{name}].{n}", a.transpose(1, 2), b)
+        pairs = sum(attention_pairs(L, causal, seg)) * H
+        flops = 10 * pairs * D     # S again, dP, dV, dQ, dK
+        nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel() + \
+            (0 if seg is None else seg.numel() * 4)
+        b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        case = {
+            "case": name, "shape": [B, L, H, Hkv, D], "causal": causal,
+            "segment_ids": seg is not None, "max_abs_err": max(errs.values()),
+            "max_abs_err_by_output": errs,
+            "ms": cuda_ms(lambda: A.flash_attention_bwd(
+                q, k, v, out, dout, lse, causal=causal, segment_ids=seg)),
+            "plain_ms": cuda_ms(lambda: A.flash_attention_bwd_plain(
+                q, k, v, dout, causal=causal, segment_ids=seg), n=5),
+            "library_ms": cuda_ms(lib),
+            "library": "scaled_dot_product_attention backward",
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": nbytes}
+        emit({"phase": "kernel", "kernel": "flash_attn_bwd", **case})
+        cases.append(case)
+        del lib_out
+    return cases
+
+
+def check_msda_bwd(g):
+    """The MSDA backward kernel against autograd of the plain forward at
+    the 640 px train shapes (no single PyTorch call computes it)."""
+    cases = []
+    for name, Q in (("train_encoder", None), ("train_decoder", 1100)):
+        value, shapes, loc, attw = msda_inputs(g, Q, TRAIN_DET)
+        Q = loc.shape[1]
+        gout = torch.randn(1, Q, 256, generator=g, device="cuda").to(
+            torch.bfloat16)
+        got = M.ms_deform_attn_bwd(value, shapes, loc, attw, gout)
+        want = M.ms_deform_attn_bwd_plain(value, shapes, loc, attw, gout)
+        torch.cuda.synchronize()
+        errs = {n: check_close(f"ms_deform_attn_bwd[{name}].{n}", a, b)
+                for n, a, b in zip(("grad_value", "grad_loc", "grad_attw"),
+                                   got, want)}
+        D = value.shape[3]
+        valid = msda_valid_corners(shapes, loc)
+        # per valid corner and channel: the value-gradient product and
+        # its add, and the FMAs of the weight and two location sums
+        flops = 8 * D * valid + 30 * attw.numel()
+        nbytes = (2 * 2 * value.numel() + 2 * 4 * loc.numel()
+                  + 2 * 4 * attw.numel() + 2 * gout.numel())
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+        case = {
+            "case": name, "shape": {"S": value.shape[1], "Q": Q, "H": 8,
+                                    "D": D, "L": 4, "P": 4},
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_by_output": errs,
+            "valid_corners": valid, "atomic_adds": valid * D,
+            "ms": cuda_ms(lambda: M.ms_deform_attn_bwd(
+                value, shapes, loc, attw, gout)),
+            "plain_ms": cuda_ms(lambda: M.ms_deform_attn_bwd_plain(
+                value, shapes, loc, attw, gout), n=3, warmup=1),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "flops": flops, "bytes": nbytes}
+        emit({"phase": "kernel", "kernel": "ms_deform_attn_bwd", **case})
+        cases.append(case)
+    return cases
+
+
+def check_gathers():
+    """The two gather probes' kernels against their plain versions at the
+    probe's shapes (exact), with `torch.gather` / `torch.index_select` as
+    the library yardsticks."""
+    lane, row = [], []
+    for E in probes.LANE_EXTENTS:
+        v, idx = probes.lane_inputs(E, "cuda")
+        idx64 = idx.long()
+        got = G.lane_gather(v, idx)
+        want = G.lane_gather_plain(v, idx)
+        torch.cuda.synchronize()
+        err = check_close(f"lane_gather[{E}]", got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"lane_gather[{E}] differs from plain")
+        nbytes = 3 * 4 * v.numel()
+        b_ms, b_by = bound(nbytes, 0, FP32_FLOPS)
+        case = {"case": f"extent_{E}", "shape": list(v.shape),
+                "max_abs_err": err,
+                "ms": cuda_ms(lambda: G.lane_gather(v, idx)),
+                "plain_ms": cuda_ms(lambda: G.lane_gather_plain(v, idx)),
+                "library_ms": cuda_ms(lambda: torch.gather(v, 1, idx64)),
+                "library": "torch.gather", "bound_ms": b_ms,
+                "bound_by": b_by, "bytes": nbytes}
+        emit({"phase": "kernel", "kernel": "lane_gather", **case})
+        lane.append(case)
+    for n in (8192, probes.N):
+        table, idx = probes.row_inputs(n, "cuda")
+        for rpb in (8, 64):
+            got = G.row_gather(table, idx, rpb)
+            want = G.row_gather_plain(table, idx)
+            torch.cuda.synchronize()
+            err = check_close(f"row_gather[{n}, {rpb}]", got, want)
+            if not torch.equal(got, want):
+                raise AssertionError(f"row_gather[{n}, {rpb}] differs")
+            # the table, the indices and the rows out, each once (the
+            # 4 MB table sits in L2 for the repeated row reads)
+            nbytes = 2 * table.numel() + 4 * n + 2 * got.numel()
+            b_ms, b_by = bound(nbytes, 0, BF16_TENSOR_FLOPS)
+            ms = cuda_ms(lambda: G.row_gather(table, idx, rpb))
+            lib_ms = cuda_ms(lambda: torch.index_select(table, 0, idx))
+            case = {"case": f"n{n}_rpb{rpb}", "shape": [n, *table.shape],
+                    "max_abs_err": err, "ms": ms,
+                    "plain_ms": cuda_ms(lambda: G.row_gather_plain(table,
+                                                                   idx)),
+                    "library_ms": lib_ms, "library": "torch.index_select",
+                    "rows_per_s": n / (ms * 1e-3),
+                    "library_rows_per_s": n / (lib_ms * 1e-3),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+            emit({"phase": "kernel", "kernel": "row_gather", **case})
+            row.append(case)
+    return lane, row
 
 
 def rotating_ms(fn, sets, n=20):
@@ -454,7 +645,7 @@ def run_slice():
     with torch.no_grad():
         req_ms = host_ms(lambda: model.infer_det(ids, images, aug, tid))
         vision_ms = host_ms(lambda: model.core.encode_images(images))
-        embeds = model.core.build_prompt_embeds(ids, images, tid)
+        embeds, _ = model.core.build_prompt_embeds(ids, images, tid)
         pos = torch.arange(ids.shape[1], device="cuda")[None]
         prefill_ms = host_ms(lambda: model.core.llm(
             embeds, pos, compute_logits=False))
@@ -505,7 +696,253 @@ def device_summary(prof, wall_ms):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: int4 chat serving at full width
+# phases 8-9: the det training step at full width and depth
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, tid, g):
+    """bench_train.py's det batch at bs 1: the 586-token prompt, CLIP and
+    640 px det pixels, 20 targets (boxes from numpy seed 0, full masks)."""
+    img_len = cfg.vis_encoder.num_patches
+    ids = ([1, 10, 11] + [tid.imp] * img_len + [12] + [tid.det]
+           + [tid.emb + i for i in range(cfg.num_embs)] + [2])
+    input_ids = torch.tensor([ids], dtype=torch.long, device="cuda")
+    rng = np.random.default_rng(0)
+    cxcy = rng.uniform(0.3, 0.7, (1, TRAIN_TARGETS, 2))
+    wh = rng.uniform(0.05, 0.25, (1, TRAIN_TARGETS, 2))
+    size = cfg.vis_encoder.image_size
+    return {
+        "input_ids": input_ids,
+        "labels": torch.where(input_ids >= 10, input_ids,
+                              torch.full_like(input_ids, -100)),
+        "attn_mask": torch.ones_like(input_ids),
+        "images": (0.5 * torch.randn(1, size, size, 3, generator=g,
+                                     device="cuda")).to(torch.bfloat16),
+        "images_aug": (0.5 * torch.randn(1, TRAIN_DET, TRAIN_DET, 3,
+                                         generator=g, device="cuda")
+                       ).to(torch.bfloat16),
+        "targets": {
+            "labels": torch.zeros(1, TRAIN_TARGETS, dtype=torch.long,
+                                  device="cuda"),
+            "boxes": torch.tensor(np.concatenate([cxcy, wh], -1),
+                                  dtype=torch.float32, device="cuda"),
+            "valid": torch.ones(1, TRAIN_TARGETS, dtype=torch.bool,
+                                device="cuda"),
+            "masks": torch.ones(1, TRAIN_TARGETS, TRAIN_DET // 4,
+                                TRAIN_DET // 4, device="cuda"),
+        },
+    }
+
+
+TRAIN_KERNELS = (("flash_attn_fwd", A.flash_attention),
+                 ("flash_attn_bwd", A.flash_attention_bwd),
+                 ("ms_deform_attn_fwd", M.ms_deform_attn),
+                 ("ms_deform_attn_bwd", M.ms_deform_attn_bwd))
+
+
+def train_counts():
+    return tuple(fn.launches for _, fn in TRAIN_KERNELS)
+
+
+def loss_and_grad(model, batch, tid, noise, trainable, choices=None):
+    """One det step's loss terms and fp32 trainable gradients by name (no
+    optimizer step), and the discrete choices it made (or repeated)."""
+    for p in trainable.values():
+        p.grad = None
+    loss, metrics, choices = det_loss(model, batch, tid, noise, choices)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None
+                 else torch.zeros_like(p)).float()
+             for n, p in trainable.items()}
+    for p in trainable.values():
+        p.grad = None
+    return {k: v.item() for k, v in metrics.items()}, grads, choices
+
+
+def grad_groups(gk, gp):
+    """Relative L2 error of the gradients `gk` against `gp` and the norm
+    of `gp`, by module (the first two parts of the parameter path), and
+    the relative L2 error of the whole concatenated gradient."""
+    acc = {}
+    for n in gp:
+        key = ".".join(n.split(".")[:2])
+        d, w = acc.get(key, (0.0, 0.0))
+        acc[key] = (d + (gk[n] - gp[n]).square().sum().item(),
+                    w + gp[n].square().sum().item())
+    total = math.sqrt(sum(d for d, _ in acc.values())
+                      / sum(w for _, w in acc.values()))
+    return {k: {"rel": math.sqrt(d / w) if w else 0.0, "norm": math.sqrt(w)}
+            for k, (d, w) in sorted(acc.items())}, total
+
+
+def plain_backwards():
+    """The kernels' forwards with the plain versions' backwards: the two
+    backward wrappers the autograd functions call become autograd of the
+    plain forwards at the same inputs."""
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(
+        A, "flash_attention_bwd",
+        lambda q, k, v, out, dout, lse, causal=False, segment_ids=None:
+        A.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                    segment_ids=segment_ids)))
+    stack.enter_context(mock.patch.object(M, "ms_deform_attn_bwd",
+                                          M.ms_deform_attn_bwd_plain))
+    return stack
+
+
+def run_train():
+    torch.cuda.reset_peak_memory_stats()
+    cfg = vllm_7b_det_config()
+    tid = SpecialTokenIds.synthetic()
+    t = time.perf_counter()
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    # reference stage 1: vision encoder and LLM frozen
+    frozen = frozen_predicate(TrainConfig(freeze_llm=True), cfg)
+    tx = build_optimizer(OptimizerConfig(total_steps=1000), model, frozen)
+    state = TrainState.create(model, tx, frozen)
+    step = make_det_train_step(model, tx, tid, frozen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    n_train = sum(w.numel() for w in state.masters.values())
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batch = train_batch(cfg, tid, g)
+    per_step = (cfg.vis_encoder.num_layers + cfg.llm.num_layers,
+                cfg.llm.num_layers,
+                cfg.gdino.encoder_layers + cfg.gdino.decoder_layers,
+                cfg.gdino.encoder_layers + cfg.gdino.decoder_layers)
+
+    # one step's losses and gradient, kernels against plain versions, from
+    # the same weights, batch and draws, and on the kernel run's discrete
+    # choices (top-k proposals, matchings, mask points), which bf16
+    # near-ties could otherwise flip between the runs. The loss terms are
+    # held against the all-plain step. The gradient is held against the
+    # step whose forward is the kernels' and whose backward is the plain
+    # versions' (autograd of the plain forwards at the same inputs): with
+    # random weights the gradient is chaotic in the forward's last-bit
+    # rounding (the all-plain step's, reported, moves it by ~13 % while
+    # its text queries move by 1.5 %), which says nothing of a backward
+    # kernel.
+    trainable = {n: p for n, p in model.named_parameters()
+                 if n in state.masters}
+    noise = draw_step_noise(g, cfg.gdino, batch["targets"])
+    mk, gk, choices = loss_and_grad(model, batch, tid, noise, trainable)
+    with plain_versions():
+        mp, gp, _ = loss_and_grad(model, batch, tid, noise, trainable,
+                                  choices)
+    with plain_backwards():
+        _, gb, _ = loss_and_grad(model, batch, tid, noise, trainable,
+                                 choices)
+    loss_rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp}
+    groups, grad_rel = grad_groups(gk, gb)
+    _, grad_rel_all_plain = grad_groups(gk, gp)
+    emit({"phase": "train_compare", "loss_terms_kernel": mk,
+          "loss_terms_plain": mp, "loss_rel_err": loss_rel,
+          "grad_rel_err_plain_backward": grad_rel,
+          "grad_rel_err_all_plain": grad_rel_all_plain,
+          "grad_by_module": groups})
+    if not (max(loss_rel.values()) <= TRAIN_REL_TOL
+            and grad_rel <= TRAIN_REL_TOL):
+        raise AssertionError(f"train step kernel vs plain: loss terms "
+                             f"{loss_rel}, gradient {grad_rel} (tol "
+                             f"{TRAIN_REL_TOL})")
+    if not all(math.isfinite(v) for v in mk.values()):
+        raise AssertionError(f"non-finite loss terms {mk}")
+    del gk, gp, gb
+
+    frozen_before = {n: p.detach().clone() for n, p in model.named_parameters()
+                     if n not in state.masters}
+    masters_before = {n: w.clone() for n, w in state.masters.items()}
+    train_before = {n: p.detach().clone() for n, p in trainable.items()}
+
+    # the main path: TRAIN_STEPS AdamW steps, counts taken around them
+    for _, fn in TRAIN_KERNELS:
+        fn.launches = 0
+    step_ms, counts, losses = [], [], []
+    for _ in range(TRAIN_STEPS):
+        c0 = train_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch, generator=g)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        counts.append(tuple(b - a for a, b in zip(c0, train_counts())))
+        losses.append({k: v.item() for k, v in metrics.items()})
+    launches = {name: fn.launches for name, fn in TRAIN_KERNELS}
+    if any(c != per_step for c in counts):
+        raise AssertionError(f"launches per step {counts} != {per_step}")
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    # the fp32 masters move every step; a bf16 parameter moves once its
+    # master has crossed half a bf16 step (norm weights at 1.0 need more
+    # than these few lr-2e-5 steps)
+    moved = sum(not torch.equal(w, masters_before[n])
+                for n, w in state.masters.items())
+    moved_bf16 = sum(not torch.equal(p.detach(), train_before[n])
+                     for n, p in trainable.items())
+    if moved < 0.9 * len(trainable):
+        raise AssertionError(f"only {moved} of {len(trainable)} trainable "
+                             "masters moved")
+    params = dict(model.named_parameters())
+    changed = [n for n, w in frozen_before.items()
+               if not torch.equal(params[n].detach(), w)]
+    if changed:
+        raise AssertionError(f"frozen parameters changed: {changed[:5]}")
+    del frozen_before, train_before, masters_before
+    emit({"phase": "train", "config": "vllm_7b_det_config() stage 1",
+          "llm_layers": cfg.llm.num_layers, "det_size": TRAIN_DET,
+          "prompt_tokens": int(batch["input_ids"].shape[1]),
+          "targets": TRAIN_TARGETS, "dn_number": cfg.gdino.dn_number,
+          "mask_points": cfg.gdino.num_mask_points,
+          "params": n_params, "trainable": n_train,
+          "trainable_tensors": len(trainable), "moved_masters": moved,
+          "moved_bf16_params": moved_bf16,
+          "build_s": build_s,
+          "plain_loss_rel_err": loss_rel,
+          "plain_backward_grad_rel_err": grad_rel,
+          "all_plain_grad_rel_err": grad_rel_all_plain,
+          "rel_tol": TRAIN_REL_TOL,
+          "launches_per_step": dict(zip([n for n, _ in TRAIN_KERNELS],
+                                        counts[0])),
+          "launches": launches, "step_ms": step_ms,
+          "step_ms_median_2_to_5": statistics.median(step_ms[1:]),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "loss_trace": [m["loss"] for m in losses], "last_step": losses[-1],
+          "kernel_step_terms": mk})
+    profile_train_step(step, state, batch, g)
+    return launches
+
+
+def profile_train_step(step, state, batch, g):
+    """One more train step under torch.profiler."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, batch, generator=g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    emit({"phase": "train_profile", **device_summary(prof, wall_ms)})
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the gather probes' entry point
+# ---------------------------------------------------------------------------
+
+def run_probes():
+    G.lane_gather.launches = 0
+    G.row_gather.launches = 0
+    res = probes.main("cuda")
+    launches = {"lane_gather": G.lane_gather.launches,
+                "row_gather": G.row_gather.launches}
+    bad = [r for r in res["A"] + res["B"] if not r["correct"]]
+    if bad:
+        raise AssertionError(f"probes gave wrong results: {bad}")
+    emit({"phase": "probes", "launches": launches, **res})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: int4 chat serving at full width
 # ---------------------------------------------------------------------------
 
 def serve_requests():
@@ -813,14 +1250,23 @@ def main() -> int:
 
     g = torch.Generator(device="cuda").manual_seed(0)
     attn_cases = check_attention(g)
+    attn_bwd_cases = check_attention_bwd(g)
     msda_cases = check_msda(g)
+    msda_bwd_cases = check_msda_bwd(g)
     int4_cases = check_int4(g)
+    lane_cases, row_cases = check_gathers()
     det = run_slice()
     gc.collect()
     torch.cuda.empty_cache()
     chat = run_serve()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = run_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe = run_probes()
     # each path's counts were read around that path's run alone
-    by_path = {"det": det, "chat": chat}
+    by_path = {"det": det, "train": train, "probes": probe, "chat": chat}
 
     def launches(name):
         per = {p: c[name] for p, c in by_path.items() if name in c}
@@ -839,7 +1285,22 @@ def main() -> int:
              "encoder"),
             ("int4_matmul", "visionllm_tpu_torch/csrc/int4_matmul.cu",
              "visionllm_tpu/ops/quant4.py:112", int4_cases,
-             "decode_m4_4096x11008")):
+             "decode_m4_4096x11008"),
+            ("flash_attn_bwd", "visionllm_tpu_torch/csrc/flash_attn_bwd.cu",
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
+             "(_flash_attention_bwd_dkv) and :1456 (_flash_attention_bwd_dq), "
+             "reached from visionllm_tpu/ops/attention.py:125",
+             attn_bwd_cases, "llama7b_prefill"),
+            ("ms_deform_attn_bwd",
+             "visionllm_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+             "visionllm_tpu/ops/ms_deform_attn.py:212 (the gradient of "
+             "_msda_kernel's op, autodiff of :99 and :314)", msda_bwd_cases,
+             "train_encoder"),
+            ("lane_gather", "visionllm_tpu_torch/csrc/gather_probes.cu",
+             "tools/msda_kernel_attempts.py:34", lane_cases, "extent_256"),
+            ("row_gather", "visionllm_tpu_torch/csrc/gather_probes.cu",
+             "tools/msda_kernel_attempts.py:59", row_cases,
+             "n131072_rpb64")):
         total, per = launches(name)
         entry = kernel_entry(name, src, replaces, total, cases, main_case)
         entry["launches_by_path"] = per

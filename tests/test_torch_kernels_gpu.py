@@ -5,8 +5,9 @@ JAX) run them with
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
 
 Inputs are made with numpy from a seed. Tolerance: max abs err within
-0.02 + 0.01 * max|plain| (bf16 outputs; the plain attention rounds its
-probabilities to bf16 before P V).
+0.02 + 0.01 * max|plain| (bf16 outputs, each rounded from fp32 sums
+taken in another order), for each output of a backward kernel against
+autograd of the plain forward.
 """
 
 import numpy as np
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from visionllm_tpu_torch.ops import attention as A
+from visionllm_tpu_torch.ops import gather as G
 from visionllm_tpu_torch.ops import ms_deform_attn as M
 from visionllm_tpu_torch.ops import quant4 as Q
 
@@ -163,3 +165,120 @@ def test_int4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         Q.int4_matmul(_bf16(rng, cuda, 512, 2).t(), wp, scale)  # strided
     with pytest.raises(ValueError):                    # K % (2 G) != 0
         Q.int4_matmul(x[:, :384], wp[:192], scale[:3])
+
+
+# ---------------------------------------------------------------------------
+# backward kernels, the gather probes, and autograd through the wrappers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(FLASH))
+def test_flash_bwd_kernel_matches_autograd_of_plain(cuda, name):
+    B, L, H, Hkv, D, causal, segmented = FLASH[name]
+    rng = np.random.default_rng(100 + sorted(FLASH).index(name))
+    q, k, v = (_bf16(rng, cuda, B, L, h, D) for h in (H, Hkv, Hkv))
+    dout = _bf16(rng, cuda, B, L, H, D)
+    seg = None
+    if segmented:
+        seg = torch.from_numpy(rng.integers(0, 3, (B, L)).astype(np.int32)
+                               ).to(cuda)
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=cuda)
+    out = A._launch_fwd(q, k, v, causal, seg, lse)
+    n = A.flash_attention_bwd.launches
+    got = A.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                segment_ids=seg)
+    assert A.flash_attention_bwd.launches == n + 1
+    want = A.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                       segment_ids=seg)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _close(g, w)
+
+
+@pytest.mark.parametrize("Q", [1100, 37, 1])
+def test_msda_bwd_kernel_matches_autograd_of_plain(cuda, Q):
+    rng = np.random.default_rng(200 + Q)
+    S = sum(h * w for h, w in SHAPES)
+    value = _bf16(rng, cuda, 1, S, 8, 32)
+    loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (1, Q, 8, 4, 4, 2))
+                           .astype(np.float32)).to(cuda)
+    attw = torch.from_numpy(rng.random((1, Q, 8, 4, 4)).astype(np.float32)
+                            ).to(cuda)
+    gout = _bf16(rng, cuda, 1, Q, 8 * 32)
+    n = M.ms_deform_attn_bwd.launches
+    got = M.ms_deform_attn_bwd(value, SHAPES, loc, attw, gout)
+    assert M.ms_deform_attn_bwd.launches == n + 1
+    want = M.ms_deform_attn_bwd_plain(value, SHAPES, loc, attw, gout)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close(g, w)
+
+
+def test_backward_through_the_wrappers_reaches_every_input(cuda):
+    """The inference wrappers cut nothing from autograd: loss.backward()
+    through flash_attention and ms_deform_attn launches the backward
+    kernels and fills every input's gradient."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_bf16(rng, cuda, 1, 70, 4, 64).requires_grad_()
+               for _ in range(3))
+    f0, b0 = A.flash_attention.launches, A.flash_attention_bwd.launches
+    A.flash_attention(q, k, v, causal=True).float().square().sum().backward()
+    assert (A.flash_attention.launches, A.flash_attention_bwd.launches) \
+        == (f0 + 1, b0 + 1)
+    assert all(t.grad is not None and t.grad.abs().sum() > 0
+               for t in (q, k, v))
+    S = sum(h * w for h, w in SHAPES)
+    value = _bf16(rng, cuda, 1, S, 8, 32).requires_grad_()
+    loc = torch.from_numpy(rng.uniform(0, 1, (1, 50, 8, 4, 4, 2)).astype(
+        np.float32)).to(cuda).requires_grad_()
+    attw = torch.from_numpy(rng.random((1, 50, 8, 4, 4)).astype(np.float32)
+                            ).to(cuda).requires_grad_()
+    m0, mb0 = M.ms_deform_attn.launches, M.ms_deform_attn_bwd.launches
+    M.ms_deform_attn(value, SHAPES, loc, attw).float().square().sum() \
+        .backward()
+    assert (M.ms_deform_attn.launches, M.ms_deform_attn_bwd.launches) \
+        == (m0 + 1, mb0 + 1)
+    assert all(t.grad is not None and t.grad.abs().sum() > 0
+               for t in (value, loc, attw))
+    with torch.no_grad():                  # inference keeps one launch
+        f0, b0 = A.flash_attention.launches, A.flash_attention_bwd.launches
+        A.flash_attention(q, k, v)
+        assert (A.flash_attention.launches,
+                A.flash_attention_bwd.launches) == (f0 + 1, b0)
+
+
+def test_int4_raises_under_grad(cuda):
+    rng = np.random.default_rng(3)
+    wp, scale = _int4_weights(rng, cuda, 512, 64)
+    x = _bf16(rng, cuda, 2, 512).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        Q.int4_matmul(x, wp, scale)
+    with torch.no_grad():
+        assert Q.int4_matmul(x, wp, scale).shape == (2, 64)
+
+
+@pytest.mark.parametrize("R,E", [(8, 128), (8, 256), (3, 1000), (2, 57344)])
+def test_lane_gather_kernel_matches_plain(cuda, R, E):
+    rng = np.random.default_rng(E)
+    v = torch.from_numpy(rng.standard_normal((R, E)).astype(np.float32)
+                         ).to(cuda)
+    idx = torch.from_numpy(rng.integers(-2, E + 2, (R, E)).astype(np.int32)
+                           ).to(cuda)
+    n = G.lane_gather.launches
+    got = G.lane_gather(v, idx)
+    assert G.lane_gather.launches == n + 1
+    assert torch.equal(got, G.lane_gather_plain(v, idx))
+
+
+@pytest.mark.parametrize("rpb,n", [(8, 8192), (64, 1000), (64, 131072),
+                                   (5, 77)])
+def test_row_gather_kernel_matches_plain(cuda, rpb, n):
+    rng = np.random.default_rng(n + rpb)
+    table = _bf16(rng, cuda, 16384, 128)
+    idx = torch.from_numpy(rng.integers(-3, 16387, n).astype(np.int32)
+                           ).to(cuda)
+    k = G.row_gather.launches
+    got = G.row_gather(table, idx, rpb)
+    assert G.row_gather.launches == k + 1
+    assert torch.equal(got, G.row_gather_plain(table, idx))

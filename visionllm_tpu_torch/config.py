@@ -1,12 +1,19 @@
-"""Config dataclasses of the det and chat paths (own copies of the JAX
-package's `VisionEncoderConfig`, `LLMConfig`, `GDinoConfig`,
-`VisionLLMConfig` and `tiny_test_config`, cut to the fields this port
-reads; defaults and the tiny dims are the same)."""
+"""Config dataclasses of the det, chat and det-training paths (own copies
+of the JAX package's `VisionEncoderConfig`, `LLMConfig`, `GDinoConfig`,
+`VisionLLMConfig`, `tiny_test_config` and, from
+`visionllm_tpu/train/train_step.py`, `OptimizerConfig`, cut to the fields
+this port reads; defaults and the tiny dims are the same)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Tuple
+
+
+def _no_remat(owner: str, remat: str) -> None:
+    if remat:
+        raise NotImplementedError(f"{owner}.remat={remat!r}: "
+                                  "rematerialization is not ported")
 
 
 @dataclass(frozen=True)
@@ -50,8 +57,11 @@ class LLMConfig:
     quant: str = ""
     # serving-only KV-cache storage: "" (model dtype); "int8" is not ported
     kv_quant: str = ""
+    # training-time rematerialization: only "" (store all activations)
+    remat: str = ""
 
     def __post_init__(self):
+        _no_remat("LLMConfig", self.remat)
         if self.quant not in ("", "int4"):
             raise NotImplementedError(f"LLMConfig.quant={self.quant!r} is "
                                       "not ported (only '' and 'int4')")
@@ -66,7 +76,7 @@ class LLMConfig:
 
 @dataclass(frozen=True)
 class GDinoConfig:
-    """Open-vocabulary Grounding-DINO decoder (inference fields)."""
+    """Open-vocabulary Grounding-DINO decoder and its training losses."""
 
     backbone: str = "swin_tiny"
     # optional kwargs overriding the swin preset's dims; None -> preset
@@ -83,6 +93,29 @@ class GDinoConfig:
     max_text_len: int = 256
     mask_dim: int = 256
     two_stage: bool = True
+    # losses: matcher costs and loss weights
+    class_cost: float = 2.0
+    bbox_cost: float = 5.0
+    giou_cost: float = 2.0
+    class_loss_coef: float = 2.0
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    mask_loss_coef: float = 5.0
+    dice_loss_coef: float = 5.0
+    focal_alpha: float = 0.25
+    # contrastive denoising
+    dn_number: int = 100
+    label_noise_ratio: float = 0.5
+    box_noise_scale: float = 1.0
+    # mask point sampling (Mask2Former-style)
+    num_mask_points: int = 12544
+    oversample_ratio: float = 3.0
+    importance_sample_ratio: float = 0.75
+    # training-time rematerialization: only "" (store all activations)
+    remat: str = ""
+
+    def __post_init__(self):
+        _no_remat("GDinoConfig", self.remat)
 
 
 @dataclass(frozen=True)
@@ -142,9 +175,35 @@ def tiny_test_config(**overrides: Any) -> VisionLLMConfig:
         use_gdino=True,
         gdino=GDinoConfig(
             d_model=32, num_queries=20, encoder_layers=1, decoder_layers=2,
-            num_heads=4, ffn_dim=64, text_dim=64, mask_dim=32),
+            num_heads=4, ffn_dim=64, text_dim=64, mask_dim=32, dn_number=4,
+            num_mask_points=64),
         num_embs_gen=8,
         max_num_patches=10,
     )
     base.update(overrides)
     return VisionLLMConfig(**base)
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW with per-group lr multipliers (the JAX `OptimizerConfig`)."""
+
+    learning_rate: float = 2e-5
+    lr_multiplier: float = 0.1        # backbone / sampling_offsets / ref pts
+    lr_llm_multiplier: float = 1.0    # llm / region_encoder / vl_bridge
+    weight_decay: float = 0.0
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    max_grad_norm: float = 1.0
+    warmup_steps: int = 0
+    total_steps: int = 10_000
+    schedule: str = "cosine"          # "cosine" | "constant"
+    grad_accum_steps: int = 1         # only 1: accumulation is not ported
+
+    def __post_init__(self):
+        if self.grad_accum_steps != 1:
+            raise NotImplementedError(
+                f"OptimizerConfig.grad_accum_steps={self.grad_accum_steps}: "
+                "gradient accumulation is not ported")
+        if self.schedule not in ("cosine", "constant"):
+            raise ValueError(f"unknown schedule {self.schedule!r}")

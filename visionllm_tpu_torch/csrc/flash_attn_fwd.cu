@@ -29,6 +29,11 @@
 // reduce over the 16 lanes that share a row with warp shuffles. The
 // probabilities of a tile go through shared memory to the P V product.
 // Fully masked rows produce zeros.
+//
+// With a non-null `lse` (fp32 [B, H, Lq]) the kernel also writes each
+// row's logsumexp of the scaled scores (-inf for a fully masked row), the
+// statistic the backward kernels (flash_attn_bwd.cu) recompute P from.
+// Inference passes null and writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +61,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse,
                  const int* __restrict__ seg,
                  int Lq, int Lk, int group,
                  long long sqb, long long sql, long long sqh,
@@ -213,13 +219,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* orow = o + b * sob + qidx[i] * sol + h * soh;
 #pragma unroll
     for (int c = 0; c < CD; ++c) orow[tx + 16 * c] = __float2bfloat16(acc[i][c] * inv);
+    if (lse && tx == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Lq + qidx[i]] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const void* seg, int B, int Lq, int Lk, int H, int H_kv,
-                   const long long* st, long long segb, int causal,
+                   void* lse, const void* seg, int B, int Lq, int Lk, int H,
+                   int H_kv, const long long* st, long long segb, int causal,
                    float scale, cudaStream_t stream) {
   const size_t bytes = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -230,7 +239,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<const int*>(seg), Lq, Lk, H / H_kv,
+      static_cast<float*>(lse), static_cast<const int*>(seg), Lq, Lk, H / H_kv,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], segb, causal, scale);
   return cudaGetLastError();
@@ -239,9 +248,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v and o.
+// lse: null, or fp32 [B, H, Lq] contiguous.
 extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
-                                   void* o, const void* seg, int B, int Lq,
-                                   int Lk, int H, int H_kv, int D,
+                                   void* o, void* lse, const void* seg, int B,
+                                   int Lq, int Lk, int H, int H_kv, int D,
                                    const long long* strides, long long segb,
                                    int causal, float scale, void* stream) {
   if (H_kv <= 0 || H % H_kv != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -249,9 +259,11 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 64)
-    err = launch<64>(q, k, v, o, seg, B, Lq, Lk, H, H_kv, strides, segb, causal, scale, s);
+    err = launch<64>(q, k, v, o, lse, seg, B, Lq, Lk, H, H_kv, strides, segb,
+                     causal, scale, s);
   else if (D == 128)
-    err = launch<128>(q, k, v, o, seg, B, Lq, Lk, H, H_kv, strides, segb, causal, scale, s);
+    err = launch<128>(q, k, v, o, lse, seg, B, Lq, Lk, H, H_kv, strides, segb,
+                      causal, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -24,7 +24,8 @@ from typing import Dict, Sequence
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-KERNELS = ("flash_attn_fwd", "ms_deform_attn_fwd", "int4_matmul")
+KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "ms_deform_attn_fwd",
+           "ms_deform_attn_bwd", "int4_matmul", "gather_probes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,6 +1,7 @@
 """Composite model: VisionLLM core + Grounding-DINO in one module tree,
-with the det-VQA inference entry `infer_det` (counterpart of
-`visionllm_tpu/models/composite.py:158-166`).
+with the det-VQA inference entry `infer_det` and the det training forward
+`forward_det` (counterpart of `visionllm_tpu/models/composite.py:73-97`,
+`:158-166`).
 
 `build_model` is the entry point: it builds the model on CUDA unless the
 caller names another device, in the requested dtype (bf16 by default, as
@@ -18,6 +19,7 @@ from typing import Dict, Optional, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from visionllm_tpu_torch.config import VisionLLMConfig
 from visionllm_tpu_torch.device import resolve_device
@@ -25,6 +27,7 @@ from visionllm_tpu_torch.models.common import init_weights
 from visionllm_tpu_torch.models.grounding_dino.model import GroundingDino
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
 from visionllm_tpu_torch.ops.quant4 import quantize_llm_int4
+from visionllm_tpu_torch.train.losses import lm_cross_entropy
 
 
 class VisionLLMWithTools(nn.Module):
@@ -50,6 +53,42 @@ class VisionLLMWithTools(nn.Module):
         tq, tq_mask = self.core.extract_text_query(out["hidden"], input_ids,
                                                    tid)
         return self.gdino(images_aug, tq, tq_mask, pixel_mask=pixel_mask)
+
+    def forward_det(self, batch: Dict[str, torch.Tensor],
+                    tid: SpecialTokenIds,
+                    dn_noise: Optional[Dict[str, torch.Tensor]] = None,
+                    topk_idx: Optional[torch.Tensor] = None
+                    ) -> Dict[str, object]:
+        """The det training forward: LLM loss (zeroed by the core's
+        ignore_flag) + [EMB] text queries + Grounding-DINO with every
+        decoder layer headed. With `dn_noise` (`train.cdn.draw_cdn_noise`)
+        CDN queries are built from `batch["targets"]`; `topk_idx` repeats
+        a given two-stage proposal selection.
+
+        batch: input_ids / labels / attn_mask [B, L], images (CLIP pixels
+        NHWC), images_aug (det pixels NHWC), pixel_mask?, targets."""
+        out = self.core(batch["input_ids"], batch.get("images"), tid,
+                        attn_mask=batch.get("attn_mask"))
+        lm_loss = (lm_cross_entropy(out["logits"], batch["labels"])
+                   * (1.0 - out["ignore_flag"]))
+        tq, tq_mask = self.core.extract_text_query(
+            out["hidden"], batch["input_ids"], tid)
+        det = self.gdino(batch["images_aug"], tq, tq_mask,
+                         pixel_mask=batch.get("pixel_mask"),
+                         targets=batch.get("targets") if dn_noise is not None
+                         else None,
+                         dn_noise=dn_noise, all_layers=True,
+                         topk_idx=topk_idx)
+        det["text_mask"] = _text_mask(tq_mask, self.cfg.gdino.max_text_len)
+        return {"lm_loss": lm_loss, "det": det,
+                "ignore_flag": out["ignore_flag"]}
+
+
+def _text_mask(tq_mask: torch.Tensor, max_text_len: int) -> torch.Tensor:
+    """[B, P] query-slot validity -> [B, max_text_len] logit-column mask."""
+    pad = max_text_len - tq_mask.shape[1]
+    m = tq_mask.bool()
+    return F.pad(m, (0, pad)) if pad > 0 else m[:, :max_text_len]
 
 
 def build_model(cfg: VisionLLMConfig, *,

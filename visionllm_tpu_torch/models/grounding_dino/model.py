@@ -1,12 +1,18 @@
-"""Open-vocabulary Grounding-DINO decoder, inference path (counterpart of
-`visionllm_tpu/models/grounding_dino/model.py` without contrastive
-denoising queries or targets).
+"""Open-vocabulary Grounding-DINO decoder (counterpart of
+`visionllm_tpu/models/grounding_dino/model.py`), for inference and for
+the det training step.
 
 Text queries come from the LLM's [EMB] hidden states; classification is
 a contrastive dot product against them. Images are NHWC at the public
 functions; convolutions and group norms permute to NCHW internally.
-The inference heads run on the last decoder layer only; the per-layer
-stacks and the two-stage intermediate mask feed only the training loss.
+Inference heads the last decoder layer only. With `all_layers=True` every
+decoder layer is headed (`all_logits`, `all_boxes`, `all_masks`, the
+stacks the losses read), and with `targets` and `dn_noise` contrastive
+denoising queries are placed in front of the matching queries, the
+decoder self-attention is masked between their groups, and the dn slice
+is split off the outputs (JAX `model.py:299-487`). Masks are computed for
+the matching queries only: the losses read no dn mask. The two-stage
+intermediate mask, which no loss reads, is not computed.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from visionllm_tpu_torch.models.grounding_dino.layers import (
     get_sine_pos_embed, sine_position_embedding)
 from visionllm_tpu_torch.models.swin import SwinBackbone, swin_tiny_config
 from visionllm_tpu_torch.ops.box_ops import inverse_sigmoid
+from visionllm_tpu_torch.train.cdn import build_cdn_queries
 
 
 def generate_masks_with_text_query_masks(text_query_masks: torch.Tensor
@@ -117,9 +124,12 @@ class GDinoDecoderLayer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
 
     def forward(self, hidden, *, query_pos, reference_points, spatial_shapes,
-                vision, vision_valid_mask, text, text_pad_mask):
+                vision, vision_valid_mask, text, text_pad_mask,
+                self_attn_mask=None):
+        """self_attn_mask: bool [B, Q, Q], True = blocked (dn groups)."""
         q = hidden + query_pos
-        hidden = self.self_attn_layer_norm(hidden + self.self_attn(q, q, hidden))
+        attn = self.self_attn(q, q, hidden, attn_mask=self_attn_mask)
+        hidden = self.self_attn_layer_norm(hidden + attn)
         attn = self.encoder_attn_text(hidden + query_pos, text, text,
                                       key_padding_mask=text_pad_mask)
         hidden = self.encoder_attn_text_layer_norm(hidden + attn)
@@ -134,10 +144,12 @@ class GDinoDecoderLayer(nn.Module):
 
 class GroundingDino(nn.Module):
     """forward(pixel_values NHWC, text_query [B, P, num_embs, text_dim],
-    text_query_masks [B, P], pixel_mask?) -> dict(logits
-    [B, Q, max_text_len], pred_boxes [B, Q, 4] cxcywh normalized,
-    pred_masks [B, Q, H/4, W/4], enc_logits, enc_boxes, topk_idx,
-    mask_features, text_features)."""
+    text_query_masks [B, P], pixel_mask?, targets?, dn_noise?,
+    all_layers?) -> dict(logits [B, Q, max_text_len], pred_boxes
+    [B, Q, 4] cxcywh normalized, pred_masks [B, Q, H/4, W/4], enc_logits,
+    enc_boxes, topk_idx, mask_features, text_features; with all_layers
+    also all_logits, all_boxes, all_masks [n_layers, ...]; with dn
+    queries also dn_all_logits, dn_all_boxes, dn_targets)."""
 
     def __init__(self, cfg: GDinoConfig):
         super().__init__()
@@ -213,8 +225,16 @@ class GroundingDino(nn.Module):
 
     def forward(self, pixel_values: torch.Tensor, text_query: torch.Tensor,
                 text_query_masks: torch.Tensor,
-                pixel_mask: Optional[torch.Tensor] = None
+                pixel_mask: Optional[torch.Tensor] = None,
+                targets: Optional[Dict[str, torch.Tensor]] = None,
+                dn_noise: Optional[Dict[str, torch.Tensor]] = None,
+                all_layers: bool = False,
+                topk_idx: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
+        """`targets` (labels [B, N], boxes [B, N, 4], valid [B, N]) with
+        `dn_noise` (`train.cdn.draw_cdn_noise`) build the CDN queries;
+        `topk_idx` [B, num_queries] replaces the two-stage top-k
+        selection (to repeat another run's choice)."""
         cfg = self.cfg
         dt = self.level_embed.dtype
         B, H, W, _ = pixel_values.shape
@@ -224,6 +244,14 @@ class GroundingDino(nn.Module):
         pixel_values = pixel_values.to(dt)
 
         tq = self.patch2query(text_query.to(dt)).mean(dim=-2)   # [B, P, d]
+        dn = dn_targets = None
+        if targets is not None and dn_noise is not None and cfg.dn_number > 0:
+            dn, dn_targets = build_cdn_queries(
+                dn_noise, targets, tq, text_query_masks,
+                dn_number=cfg.dn_number,
+                label_noise_ratio=cfg.label_noise_ratio,
+                box_noise_scale=cfg.box_noise_scale,
+                num_queries=cfg.num_queries)
         text_token_mask = text_query_masks.bool()
         text_self_attn_mask, text_position_ids = (
             generate_masks_with_text_query_masks(text_query_masks))
@@ -279,16 +307,25 @@ class GroundingDino(nn.Module):
         enc_class = contrastive_logits(oq, text, text_token_mask,
                                        cfg.max_text_len)
         enc_coord_logits = self.encoder_output_bbox_embed(oq).float() + proposals
-        topk_scores = enc_class.amax(-1)
-        topk_idx = torch.topk(topk_scores, cfg.num_queries, dim=1).indices
+        if topk_idx is None:
+            topk_idx = torch.topk(enc_class.amax(-1), cfg.num_queries,
+                                  dim=1).indices
         topk_coords = torch.gather(enc_coord_logits, 1,
                                    topk_idx[..., None].expand(-1, -1, 4))
-        reference_points = torch.sigmoid(topk_coords)
-        init_reference_points = reference_points
+        # the decoder starts from the proposals without their gradient
+        reference_points = torch.sigmoid(topk_coords.detach())
 
         hidden = self.query_position_embeddings[None].expand(B, -1, -1)
+        self_attn_mask, pad = None, 0
+        if dn is not None:
+            hidden = torch.cat([dn["query_label"].to(hidden.dtype), hidden], 1)
+            reference_points = torch.cat(
+                [torch.sigmoid(dn["query_bbox"]), reference_points], 1)
+            self_attn_mask, pad = dn["attn_mask"], dn["pad_size"]
+        init_reference_points = reference_points
+
         vr2 = torch.cat([valid_ratios, valid_ratios], -1)[:, None]
-        refs = [reference_points]
+        hiddens, new_refs = [], []
         for i in range(cfg.decoder_layers):
             ref_input = reference_points[:, :, None] * vr2
             query_sine = get_sine_pos_embed(ref_input[:, :, 0, :],
@@ -300,25 +337,36 @@ class GroundingDino(nn.Module):
                 hidden, query_pos=query_pos, reference_points=ref_input,
                 spatial_shapes=spatial_shapes, vision=vision,
                 vision_valid_mask=mask_flat, text=text,
-                text_pad_mask=text_pad)
+                text_pad_mask=text_pad, self_attn_mask=self_attn_mask)
             delta = self.bbox_embed(hidden)
-            reference_points = torch.sigmoid(
-                delta.float() + inverse_sigmoid(reference_points))
-            refs.append(reference_points)
+            new_ref = torch.sigmoid(delta.float()
+                                    + inverse_sigmoid(reference_points))
+            # iterative refinement: the next layer starts without the
+            # gradient, the heads below keep it
+            reference_points = new_ref.detach()
+            hiddens.append(hidden)
+            new_refs.append(new_ref)
 
-        # heads on the last decoder layer
-        hs = self.decoder_layer_norm(hidden)
-        ref = inverse_sigmoid(init_reference_points if cfg.decoder_layers == 1
-                              else refs[-2])
-        pred_masks = torch.einsum("bqc,bhwc->bqhw", self.mask_embed(hs),
-                                  mask_features)
-        logits = contrastive_logits(hs, text, text_token_mask,
-                                    cfg.max_text_len)
-        pred_boxes = torch.sigmoid(self.bbox_embed(hs).float() + ref)
-        return {
-            "logits": logits,
-            "pred_boxes": pred_boxes,
-            "pred_masks": pred_masks.float(),
+        def head(lvl):
+            hs = self.decoder_layer_norm(hiddens[lvl])
+            ref = inverse_sigmoid(init_reference_points if lvl == 0
+                                  else new_refs[lvl - 1])
+            masks = torch.einsum("bqc,bhwc->bqhw",
+                                 self.mask_embed(hs[:, pad:]), mask_features)
+            return (contrastive_logits(hs, text, text_token_mask,
+                                       cfg.max_text_len),
+                    torch.sigmoid(self.bbox_embed(hs).float() + ref),
+                    masks.float())
+
+        levels = range(cfg.decoder_layers) if all_layers \
+            else [cfg.decoder_layers - 1]
+        classes, coords, masks = zip(*[head(lvl) for lvl in levels])
+        out = {
+            "logits": classes[-1][:, pad:],
+            "pred_boxes": coords[-1][:, pad:],
+            "pred_masks": masks[-1],
+            # the two-stage loss supervises the selected proposals, with
+            # their gradient (unlike the decoder's start above)
             "enc_logits": torch.gather(
                 enc_class, 1,
                 topk_idx[..., None].expand(-1, -1, enc_class.shape[-1])),
@@ -327,3 +375,12 @@ class GroundingDino(nn.Module):
             "mask_features": mask_features,
             "text_features": text,
         }
+        if all_layers:
+            out["all_logits"] = torch.stack([c[:, pad:] for c in classes])
+            out["all_boxes"] = torch.stack([c[:, pad:] for c in coords])
+            out["all_masks"] = torch.stack(masks)
+        if dn is not None:
+            out["dn_all_logits"] = torch.stack([c[:, :pad] for c in classes])
+            out["dn_all_boxes"] = torch.stack([c[:, :pad] for c in coords])
+            out["dn_targets"] = dn_targets
+        return out

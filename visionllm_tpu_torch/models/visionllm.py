@@ -208,15 +208,27 @@ class VisionLLM(nn.Module):
 
     def build_prompt_embeds(self, input_ids: torch.Tensor,
                             images: Optional[torch.Tensor],
-                            tid: SpecialTokenIds) -> torch.Tensor:
+                            tid: SpecialTokenIds
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Token embeddings + [EMB] splice + image-feature scatter
         (per sample for [B, T, H, W, 3] tile stacks, as at
-        `visionllm.py:405-415` of the JAX package)."""
+        `visionllm.py:405-415` of the JAX package). Returns
+        (inputs_embeds, ignore_flag): the flag is 1.0 when the
+        <im_patch> count does not fit the image features (more than the
+        tile stack holds, or not exactly the flat images' count), which
+        zeroes the LM loss instead of training on misaligned features
+        (JAX `visionllm.py:385-404`), else 0.0."""
         inputs_embeds = self.embed_tokens(input_ids)
         inputs_embeds = self.splice_emb_embeddings(inputs_embeds, input_ids,
                                                    tid)
+        ignore_flag = torch.zeros((), dtype=torch.float32,
+                                  device=input_ids.device)
         if images is not None:
             image_features, _ = self.encode_images(images)
+            n_imp = (input_ids == tid.imp).sum()
+            expected = image_features.shape[0] * image_features.shape[1]
+            bad = n_imp > expected if images.ndim == 5 else n_imp != expected
+            ignore_flag = bad.float()
             if images.ndim == 5:
                 B, T = images.shape[:2]
                 feats = image_features.reshape(
@@ -226,23 +238,25 @@ class VisionLLM(nn.Module):
             else:
                 inputs_embeds = self.scatter_image_features(
                     inputs_embeds, input_ids, image_features, tid.imp)
-        return inputs_embeds
+        return inputs_embeds, ignore_flag
 
     def forward(self, input_ids: torch.Tensor, images: Optional[torch.Tensor],
                 tid: SpecialTokenIds, attn_mask: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
                 compute_logits: bool = True) -> Dict[str, torch.Tensor]:
-        """Returns dict(hidden, logits): the prefill over the assembled
-        prompt; a given cache is filled from its index on."""
-        inputs_embeds = self.build_prompt_embeds(input_ids, images, tid)
+        """Returns dict(hidden, logits, ignore_flag): the prefill over the
+        assembled prompt; a given cache is filled from its index on."""
+        inputs_embeds, ignore_flag = self.build_prompt_embeds(input_ids,
+                                                              images, tid)
         if positions is None:
             B, L = input_ids.shape
             positions = torch.arange(L, device=input_ids.device).expand(B, L)
         hidden, logits = self.llm(inputs_embeds, positions,
                                   attn_mask=attn_mask, cache=cache,
                                   compute_logits=compute_logits)
-        return {"hidden": hidden, "logits": logits}
+        return {"hidden": hidden, "logits": logits,
+                "ignore_flag": ignore_flag}
 
     def llm_step(self, inputs_embeds: torch.Tensor, positions: torch.Tensor,
                  cache: KVCache, attn_mask: Optional[torch.Tensor] = None

@@ -6,10 +6,17 @@ Pallas TPU flash-attention kernel) where the JAX package takes its flash
 branch: no explicit `mask`, and causal only for Lq == Lk (the kernel
 start-aligns the causal mask; the einsum branch end-aligns it, query i
 attending keys <= i + Lk - Lq). Everything else takes the einsum branch,
-as in JAX. The kernel handles head dims 64 and 128 and any length.
+as in JAX, and trains through PyTorch autograd as JAX's does through
+autodiff. The kernel handles head dims 64 and 128 and any length.
 
 `flash_attention` launches the kernel for CUDA tensors (or raises) and
-runs its plain version only for tensors on the CPU.
+runs its plain version only for tensors on the CPU. Under grad mode, with
+an input that requires grad, it is the autograd function
+`FlashAttentionFn`: the forward also writes the row logsumexp, and the
+backward launches `csrc/flash_attn_bwd.cu` (the counterpart of the Pallas
+`_flash_attention_bwd_dkv` / `_flash_attention_bwd_dq`) through
+`flash_attention_bwd`, whose plain version is autograd of
+`flash_attention_plain`.
 """
 
 from __future__ import annotations
@@ -45,7 +52,9 @@ def _segment_mask(segment_ids):
 
 def flash_attention_plain(q, k, v, *, causal=False, segment_ids=None):
     """The flash kernel's function in plain PyTorch: start-aligned causal
-    mask, segment ids, GQA."""
+    mask, segment ids, GQA. Like the kernel it keeps the probabilities in
+    fp32 for P V (the einsum branch rounds them to v's dtype first, as
+    JAX's does) and rounds only the output to q's dtype."""
     mask = None
     if segment_ids is not None:
         mask = _segment_mask(segment_ids)
@@ -54,7 +63,8 @@ def flash_attention_plain(q, k, v, *, causal=False, segment_ids=None):
         cm = (torch.arange(Lk, device=q.device)[None, :]
               <= torch.arange(Lq, device=q.device)[:, None])[None, None]
         mask = cm if mask is None else mask & cm
-    return _einsum_attention(q, k, v, mask, q.shape[-1] ** -0.5)
+    return _einsum_attention(q.float(), k.float(), v.float(), mask,
+                             q.shape[-1] ** -0.5).to(q.dtype)
 
 
 def _check_flash_args(q, k, v, causal, segment_ids):
@@ -88,38 +98,126 @@ def _check_flash_args(q, k, v, causal, segment_ids):
                          "self-attention")
 
 
-def flash_attention(q, k, v, *, causal=False, segment_ids=None):
-    """softmax(q kᵀ / sqrt(D)) v through the hand-written CUDA kernel.
-
-    q [B, Lq, H, D], k/v [B, Lk, H_kv, D] bf16 with a unit last stride;
-    `segment_ids` int [B, L]. CPU tensors take the plain version."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     segment_ids=segment_ids)
-    _check_flash_args(q, k, v, causal, segment_ids)
+def _launch_fwd(q, k, v, causal, segment_ids, lse=None):
     B, Lq, H, D = q.shape
     Lk, H_kv = k.shape[1], k.shape[2]
     out = torch.empty(B, Lq, H, D, dtype=q.dtype, device=q.device)
     seg_ptr, segb = None, 0
     if segment_ids is not None:
-        seg = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
-        seg_ptr, segb = seg.data_ptr(), seg.stride(0)
+        seg_ptr, segb = segment_ids.data_ptr(), segment_ids.stride(0)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     fn = library("flash_attn_fwd").flash_attn_fwd_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong,
                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             seg_ptr, B, Lq, Lk, H, H_kv, D, strides, segb, int(causal),
-             D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream),
+             None if lse is None else lse.data_ptr(), seg_ptr, B, Lq, Lk, H,
+             H_kv, D, strides, segb, int(causal), D ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream),
           "flash_attn_fwd_bf16")
     flash_attention.launches += 1
     return out
 
 
+def _segments_on(q, segment_ids):
+    if segment_ids is None:
+        return None
+    return segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash kernel with its backward kernel (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, segment_ids):
+        B, Lq, H, _ = q.shape
+        lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
+        out = _launch_fwd(q, k, v, causal, segment_ids, lse)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, seg = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=ctx.causal, segment_ids=seg)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal=False, segment_ids=None):
+    """softmax(q kᵀ / sqrt(D)) v through the hand-written CUDA kernel.
+
+    q [B, Lq, H, D], k/v [B, Lk, H_kv, D] bf16 with a unit last stride;
+    `segment_ids` int [B, L]. CPU tensors take the plain version. Under
+    grad mode with an input that requires grad the result carries the
+    backward kernel (`FlashAttentionFn`)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     segment_ids=segment_ids)
+    _check_flash_args(q, k, v, causal, segment_ids)
+    seg = _segments_on(q, segment_ids)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, seg)
+    return _launch_fwd(q, k, v, causal, seg)
+
+
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, dout, *, causal=False,
+                              segment_ids=None):
+    """(dq, dk, dv) of `flash_attention_plain` by autograd."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_plain(*qkv, causal=causal,
+                                    segment_ids=segment_ids)
+        return torch.autograd.grad(out, qkv, dout)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=False,
+                        segment_ids=None):
+    """(dq, dk, dv) through the backward kernel `csrc/flash_attn_bwd.cu`,
+    given the forward's output `out` and row logsumexp `lse` (fp32
+    [B, H, Lq]). CPU tensors take `flash_attention_bwd_plain` (which needs
+    neither `out` nor `lse`)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                         segment_ids=segment_ids)
+    _check_flash_args(q, k, v, causal, segment_ids)
+    B, Lq, H, D = q.shape
+    Lk, H_kv = k.shape[1], k.shape[2]
+    if dout.dtype != torch.bfloat16 or dout.shape != q.shape \
+            or out.shape != q.shape:
+        raise ValueError("flash_attention_bwd: out and dout must be bf16 "
+                         f"{tuple(q.shape)}")
+    if lse.dtype != torch.float32 or lse.shape != (B, H, Lq):
+        raise ValueError(f"flash_attention_bwd: lse must be fp32 "
+                         f"{(B, H, Lq)}")
+    q, k, v, out, dout, lse = (t.contiguous()
+                               for t in (q, k, v, out, dout, lse))
+    seg = _segments_on(q, segment_ids)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    di = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
+    fn = library("flash_attn_bwd").flash_attn_bwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(),
+             None if seg is None else seg.data_ptr(), di.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, H, H_kv,
+             D, int(causal), D ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream),
+          "flash_attn_bwd_bf16")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 def _flash_ok(q, k, mask, causal) -> bool:

@@ -1,4 +1,4 @@
-"""Box utilities the Grounding-DINO inference path uses (counterpart of
+"""Box utilities of the Grounding-DINO path and its losses (counterpart of
 `visionllm_tpu/ops/box_ops.py`)."""
 
 from __future__ import annotations
@@ -16,6 +16,34 @@ def box_xyxy_to_cxcywh(b: torch.Tensor) -> torch.Tensor:
     x0, y0, x1, y1 = b.unbind(-1)
     return torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0],
                        dim=-1)
+
+
+def box_area(b: torch.Tensor) -> torch.Tensor:
+    return (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """Pairwise IoU of xyxy boxes [..., N, 4] x [..., M, 4] -> (iou, union),
+    each [..., N, M]."""
+    area1, area2 = box_area(boxes1), box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union.clamp(min=1e-8), union
+
+
+def generalized_box_iou(boxes1: torch.Tensor,
+                        boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU of xyxy boxes; degenerate boxes give garbage, as in
+    the reference."""
+    iou, union = box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area.clamp(min=1e-8)
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -12,6 +12,12 @@ are fp32 whatever the value dtype.
 `ms_deform_attn` launches the CUDA kernel `csrc/ms_deform_attn_fwd.cu`
 (which replaces the Pallas TPU kernel `_msda_kernel`) for CUDA tensors,
 at any size, or raises; it runs the plain version only for CPU tensors.
+Under grad mode, with an input that requires grad, it is the autograd
+function `MSDeformAttnFn`, whose backward launches
+`csrc/ms_deform_attn_bwd.cu` through `ms_deform_attn_bwd`: the gradients
+of value, locations and weights in the convention of the JAX
+`ms_deform_attn_reference` (autodiff through its gathers), whose plain
+version is autograd of `ms_deform_attn_plain`.
 
 Arrays (B=batch, S=sum of level sizes, H=heads, D=head dim, Q=queries,
 L=levels, P=points):
@@ -111,36 +117,115 @@ def _check_args(value, spatial_shapes, loc, attw):
             raise ValueError("ms_deform_attn: inputs on different devices")
 
 
+def _shapes_arg(spatial_shapes):
+    L = len(spatial_shapes)
+    return (ctypes.c_int * (2 * L))(
+        *[int(x) for hw in spatial_shapes for x in hw])
+
+
+def _launch_fwd(value, spatial_shapes, loc, attw):
+    B, S, H, D = value.shape
+    Q, L, P = loc.shape[1], len(spatial_shapes), loc.shape[4]
+    out = torch.empty(B, Q, H * D, dtype=value.dtype, device=value.device)
+    fn = library("ms_deform_attn_fwd").ms_deform_attn_fwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    check(fn(value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
+             out.data_ptr(), _shapes_arg(spatial_shapes), B, S, Q, H, D, L,
+             P, torch.cuda.current_stream(value.device).cuda_stream),
+          "ms_deform_attn_fwd_bf16")
+    ms_deform_attn.launches += 1
+    return out
+
+
+class MSDeformAttnFn(torch.autograd.Function):
+    """The MSDA kernel with its backward kernel (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, attw):
+        ctx.save_for_backward(value, loc, attw)
+        ctx.spatial_shapes = spatial_shapes
+        return _launch_fwd(value, spatial_shapes, loc, attw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attw = ctx.saved_tensors
+        gv, gl, ga = ms_deform_attn_bwd(value, ctx.spatial_shapes, loc, attw,
+                                        grad_out)
+        return gv, None, gl, ga
+
+
 def ms_deform_attn(value: torch.Tensor,
                    spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
     """MSDA through the hand-written CUDA kernel (bf16 value, f32
     locations and weights) -> [B, Q, H * D] bf16. CPU tensors take the
-    plain version."""
+    plain version. Under grad mode with an input that requires grad the
+    result carries the backward kernel (`MSDeformAttnFn`)."""
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes,
                                     sampling_locations, attention_weights)
     _check_args(value, spatial_shapes, sampling_locations, attention_weights)
-    B, S, H, D = value.shape
-    Q, L, P = (sampling_locations.shape[1], len(spatial_shapes),
-               sampling_locations.shape[4])
-    value = value.contiguous()
-    loc = sampling_locations.contiguous()
-    attw = attention_weights.contiguous()
-    out = torch.empty(B, Q, H * D, dtype=value.dtype, device=value.device)
-    shapes = (ctypes.c_int * (2 * L))(
-        *[int(x) for hw in spatial_shapes for x in hw])
-    fn = library("ms_deform_attn_fwd").ms_deform_attn_fwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    check(fn(value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
-             out.data_ptr(), shapes, B, S, Q, H, D, L, P,
-             torch.cuda.current_stream(value.device).cuda_stream),
-          "ms_deform_attn_fwd_bf16")
-    ms_deform_attn.launches += 1
-    return out
+    args = (value.contiguous(), tuple(tuple(int(x) for x in hw)
+                                      for hw in spatial_shapes),
+            sampling_locations.contiguous(), attention_weights.contiguous())
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, sampling_locations,
+                                      attention_weights)):
+        return MSDeformAttnFn.apply(*args)
+    return _launch_fwd(*args)
 
 
 ms_deform_attn.launches = 0
+
+
+def ms_deform_attn_bwd_plain(value, spatial_shapes, sampling_locations,
+                             attention_weights, grad_out):
+    """(grad_value, grad_locations, grad_weights) of
+    `ms_deform_attn_plain` by autograd."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn_plain(ins[0], spatial_shapes, ins[1], ins[2])
+        return torch.autograd.grad(out, ins, grad_out)
+
+
+def ms_deform_attn_bwd(value, spatial_shapes, sampling_locations,
+                       attention_weights, grad_out):
+    """(grad_value bf16, grad_locations f32, grad_weights f32) through the
+    backward kernel `csrc/ms_deform_attn_bwd.cu`; `grad_out` is
+    [B, Q, H * D] bf16. CPU tensors take `ms_deform_attn_bwd_plain`."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_bwd_plain(value, spatial_shapes,
+                                        sampling_locations,
+                                        attention_weights, grad_out)
+    _check_args(value, spatial_shapes, sampling_locations, attention_weights)
+    B, S, H, D = value.shape
+    Q, L, P = (sampling_locations.shape[1], len(spatial_shapes),
+               sampling_locations.shape[4])
+    if grad_out.dtype != torch.bfloat16 or grad_out.shape != (B, Q, H * D):
+        raise ValueError(f"ms_deform_attn_bwd: grad_out must be bf16 "
+                         f"{(B, Q, H * D)}")
+    value, loc, attw, grad_out = (t.contiguous() for t in (
+        value, sampling_locations, attention_weights, grad_out))
+    gv32 = torch.empty(B, S, H, D, dtype=torch.float32, device=value.device)
+    gv = torch.empty_like(value)
+    gl = torch.empty_like(loc)
+    ga = torch.empty_like(attw)
+    fn = library("ms_deform_attn_bwd").ms_deform_attn_bwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_int)]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    check(fn(value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
+             grad_out.data_ptr(), gv32.data_ptr(), gv.data_ptr(),
+             gl.data_ptr(), ga.data_ptr(), _shapes_arg(spatial_shapes), B, S,
+             Q, H, D, L, P,
+             torch.cuda.current_stream(value.device).cuda_stream),
+          "ms_deform_attn_bwd_bf16")
+    ms_deform_attn_bwd.launches += 1
+    return gv, gl, ga
+
+
+ms_deform_attn_bwd.launches = 0

@@ -141,9 +141,15 @@ def int4_matmul(x: torch.Tensor, wp: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """`x [M, K] @ dequant(wp, scale) -> [M, N]` through the hand-written
     CUDA kernel: x bf16, wp int8 [K/2, N], scale bf16 [K/G, N]. CPU
-    tensors take the plain version."""
+    tensors take the plain version. The kernel has no backward (int4
+    weights serve, they do not train), so on CUDA an `x` that requires
+    grad under grad mode raises instead of returning a detached result."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, wp, scale)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("int4_matmul: the int4 kernel has no backward; "
+                           "call it under torch.no_grad() or on an input "
+                           "that does not require grad")
     M, K, N, G = _check_args(x, wp, scale)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
     n_slices = _n_slices(K, N, G)

@@ -1,0 +1,248 @@
+"""Optimizer and the det training step (counterpart of
+`visionllm_tpu/train/train_step.py`: `build_optimizer`, `split_frozen`,
+`TrainState`, `make_det_train_step`).
+
+Numerics: the model holds its parameters in its compute dtype (bf16 on
+the card); the optimizer keeps fp32 master copies and Adam moments of the
+trainable parameters only and writes the rounded masters back into the
+model after each step, which gives the gradient of the JAX package's
+fp32 parameters cast to bf16 at use. Frozen parameters get
+`requires_grad=False`: no gradient buffer, no optimizer state, and no
+backward through modules with nothing trainable upstream (the frozen ViT).
+
+The update is the optax chain of the JAX `build_optimizer`, written out:
+one global-norm clip over all trainable gradients, then per parameter
+group (`low`, `llm`, `base` by `LOW_LR_PAT` / `LLM_LR_PAT` on the dotted
+parameter path) Adam with bias correction and eps outside the square
+root, decoupled weight decay on parameters with ndim >= 2, the warmup +
+cosine schedule and the group's lr multiplier. The arithmetic is
+elementwise on the card (PyTorch operations); it launches no kernel of
+this package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from visionllm_tpu_torch.config import GDinoConfig, OptimizerConfig
+from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
+from visionllm_tpu_torch.train.cdn import dn_loss, draw_cdn_noise
+from visionllm_tpu_torch.train.losses import (detection_loss_with_aux,
+                                              draw_mask_points)
+
+LOW_LR_PAT = re.compile(
+    r"(backbone|sampling_offsets|reference_points_head|ref_point_head)")
+LLM_LR_PAT = re.compile(r"(core\.llm|core\.vl_bridge|region_encoder)")
+
+Frozen = Optional[Callable[[str], bool]]
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0
+                                 ) -> Callable[[int], float]:
+    """optax's `warmup_cosine_decay_schedule`: linear from init to peak
+    over the warmup, then cosine from peak to end over the rest."""
+    def sched(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - count / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        n = decay_steps - warmup_steps
+        c = min(count - warmup_steps, n)
+        cosine = 0.5 * (1 + math.cos(math.pi * c / n))
+        alpha = end_value / peak_value
+        return peak_value * ((1 - alpha) * cosine + alpha)
+    return sched
+
+
+def split_frozen(model: nn.Module, frozen: Frozen) -> Dict[str, nn.Parameter]:
+    """Set `requires_grad=False` on every frozen parameter and return the
+    trainable ones by dotted path."""
+    trainable = {}
+    for name, p in model.named_parameters():
+        if frozen is not None and frozen(name):
+            p.requires_grad_(False)
+        else:
+            p.requires_grad_(True)
+            trainable[name] = p
+    return trainable
+
+
+class AdamW:
+    """The JAX `build_optimizer` chain over named trainable parameters."""
+
+    def __init__(self, cfg: OptimizerConfig, names):
+        self.cfg = cfg
+        if cfg.schedule == "cosine":
+            # warmup_steps = 0 starts at the peak, not at a zero step
+            init = cfg.learning_rate if cfg.warmup_steps == 0 else 0.0
+            self.schedule = warmup_cosine_decay_schedule(
+                init, cfg.learning_rate, max(cfg.warmup_steps, 1),
+                max(cfg.total_steps, 2))
+        else:
+            self.schedule = lambda count: cfg.learning_rate
+        self.mult = {n: self._mult(n) for n in names}
+
+    def _mult(self, name: str) -> float:
+        if LOW_LR_PAT.search(name):
+            return self.cfg.lr_multiplier
+        if LLM_LR_PAT.search(name):
+            return self.cfg.lr_llm_multiplier
+        return 1.0
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor], state: "TrainState"
+               ) -> torch.Tensor:
+        """One step on `state`'s masters and moments in place; returns the
+        global gradient norm before clipping."""
+        cfg = self.cfg
+        b1, b2 = cfg.betas
+        names = list(state.masters)
+        g = [grads[n].float() for n in names]
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        # clip_by_global_norm: t if norm < max else t / norm * max
+        clip = torch.where(g_norm < cfg.max_grad_norm,
+                           torch.ones_like(g_norm),
+                           cfg.max_grad_norm / g_norm)
+        count = state.step + 1
+        lr = self.schedule(state.step)
+        c1, c2 = 1 - b1 ** count, 1 - b2 ** count
+        for n, gi in zip(names, g):
+            gi = gi * clip
+            mu, nu, w = state.mu[n], state.nu[n], state.masters[n]
+            mu.mul_(b1).add_(gi, alpha=1 - b1)
+            nu.mul_(b2).addcmul_(gi, gi, value=1 - b2)
+            upd = (mu / c1) / ((nu / c2).sqrt() + cfg.eps)
+            if cfg.weight_decay and w.ndim >= 2:
+                upd = upd + cfg.weight_decay * w
+            w.add_(upd, alpha=-lr * self.mult[n])
+        return g_norm
+
+
+def build_optimizer(cfg: OptimizerConfig, model: nn.Module,
+                    frozen: Frozen = None) -> AdamW:
+    """AdamW with per-group lr multipliers over the model's trainable
+    parameters (`frozen(path) -> True` marks one frozen; see
+    `split_frozen`)."""
+    return AdamW(cfg, list(split_frozen(model, frozen)))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Step count, the model, and the fp32 masters and Adam moments of its
+    trainable parameters (by dotted path)."""
+
+    step: int
+    model: nn.Module
+    masters: Dict[str, torch.Tensor]
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: AdamW, frozen: Frozen = None
+               ) -> "TrainState":
+        trainable = split_frozen(model, frozen)
+        if set(trainable) != set(tx.mult):
+            raise ValueError("the optimizer was built for other trainable "
+                             "parameters")
+        masters = {n: p.detach().float().clone() for n, p in trainable.items()}
+        return cls(step=0, model=model, masters=masters,
+                   mu={n: torch.zeros_like(w) for n, w in masters.items()},
+                   nu={n: torch.zeros_like(w) for n, w in masters.items()})
+
+    @torch.no_grad()
+    def write_back(self) -> None:
+        """Round the masters into the model's parameters."""
+        params = dict(self.model.named_parameters())
+        for n, w in self.masters.items():
+            params[n].copy_(w)
+
+
+def draw_step_noise(generator: torch.Generator, cfg: GDinoConfig,
+                    targets: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    """Every random draw of one det step: the CDN noise and one set of
+    mask points per decoder layer."""
+    B, N = targets["labels"].shape
+    dev = targets["labels"].device
+    noise: Dict[str, object] = {
+        "points": [draw_mask_points(generator, B, N, cfg, dev)
+                   for _ in range(cfg.decoder_layers)]}
+    if cfg.dn_number > 0:
+        noise["cdn"] = draw_cdn_noise(generator, B, N, cfg.dn_number, dev)
+    return noise
+
+
+def det_loss(model: nn.Module, batch: Dict[str, object],
+             tid: SpecialTokenIds, noise: Dict[str, object],
+             choices: Optional[Dict[str, object]] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                        Dict[str, object]]:
+    """The det step's loss: LM cross entropy + Hungarian-matched det losses
+    of every decoder layer and the encoder + the dn losses of every layer.
+    Returns (loss, metrics, choices); metrics has loss, lm_loss, det_loss
+    and the last layer's terms, as the JAX step reports them. `choices`
+    holds the step's discrete decisions (the two-stage top-k proposals,
+    the matchings, the chosen mask points); passed back in, they are
+    repeated instead of decided again, so two runs that differ by
+    rounding compare on the same decisions."""
+    gcfg = model.cfg.gdino
+    choices = choices or {}
+    out = model.forward_det(batch, tid, dn_noise=noise.get("cdn"),
+                            topk_idx=choices.get("topk_idx"))
+    det = out["det"]
+    det_total, detail, made = detection_loss_with_aux(
+        det, batch["targets"], cfg=gcfg,
+        points=choices.get("points", noise["points"]),
+        matches=choices.get("matches"))
+    made["topk_idx"] = det["topk_idx"]
+    if det.get("dn_targets") is not None:
+        n_lvl = det["dn_all_logits"].shape[0]
+        for lvl in range(n_lvl):
+            d = dn_loss(det["dn_all_logits"][lvl], det["dn_all_boxes"][lvl],
+                        det["dn_targets"], cfg=gcfg,
+                        text_mask=det["text_mask"])
+            suffix = "" if lvl == n_lvl - 1 else f"_aux{lvl}"
+            for k, v in d.items():
+                detail[k + suffix] = v
+                det_total = det_total + v
+    loss = out["lm_loss"] + det_total
+    metrics = {"loss": loss, "lm_loss": out["lm_loss"], "det_loss": det_total}
+    metrics.update({k: v for k, v in detail.items()
+                    if not ("aux" in k or "enc" in k)})
+    return loss, metrics, made
+
+
+def make_det_train_step(model: nn.Module, tx: AdamW, tid: SpecialTokenIds,
+                        frozen: Frozen = None):
+    """Returns step(state, batch, generator=None, noise=None) ->
+    (state, metrics) for det / grd / seg batches. The draws come from
+    `generator` unless `noise` (`draw_step_noise`'s layout) is given.
+    `frozen` must be the predicate the state was created with."""
+    split_frozen(model, frozen)
+
+    def step(state: TrainState, batch, generator=None, noise=None):
+        if noise is None:
+            noise = draw_step_noise(generator, model.cfg.gdino,
+                                    batch["targets"])
+        trainable = {n: p for n, p in model.named_parameters()
+                     if n in state.masters}
+        for p in trainable.values():
+            p.grad = None
+        loss, metrics, _ = det_loss(model, batch, tid, noise)
+        loss.backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in trainable.items()}
+        metrics["grad_norm"] = tx.update(grads, state)
+        state.step += 1
+        state.write_back()
+        for p in trainable.values():
+            p.grad = None
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
