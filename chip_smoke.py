@@ -15,7 +15,12 @@ Phases, each printing one JSON line:
              times the kernel, the plain version and one PyTorch library
              call computing the same function (yardstick only; the port
              never calls it); a backward kernel is held against autograd
-             of the plain forward, output by output;
+             of the plain forward, output by output. The flash forward
+             also runs the chat prefill (B4 L640) and a causal L2048, and
+             its cases print `device_ms` and `library_device_ms`: device
+             time per call from torch.profiler's kernel events, beside
+             `ms` (CUDA events around back-to-back calls, which for a
+             short kernel include the wrapper's host time);
 4. slice   - the det path: builds `VisionLLMWithTools` at full width
              (CLIP-L/336 24 layers, LLaMA-7B 32 layers, Grounding-DINO
              with Swin-T at 512 px) in bf16 with seeded random weights,
@@ -25,7 +30,8 @@ Phases, each printing one JSON line:
              against the same model run with the plain versions, and
              times a request and its stages;
 5. profile - one more det request under torch.profiler: device kernel
-             time, the device's idle share, the kernels that take the most;
+             time, the device's idle share, the kernels that take the
+             most and each kernel of the port's own (as in phases 7, 9);
 6. serve   - the chat path, after the det model is freed: `build_core`
              of the 7B chat config with `quant="int4"` at full width,
              `ChatService(max_batch=4, max_prompt=640, max_new_tokens=32)`
@@ -63,10 +69,12 @@ check raises, so the script exits nonzero and prints no ok line.
 from __future__ import annotations
 
 import base64
+import functools
 import gc
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -80,7 +88,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from visionllm_tpu_torch import constants as C
 from visionllm_tpu_torch.config import (LLMConfig, OptimizerConfig,
@@ -162,6 +170,49 @@ def cuda_ms(fn, n=20, warmup=3):
     return start.elapsed_time(end) / n
 
 
+def device_ms(fns, n=20, warmup=3, gap_s=0.005):
+    """Device time per call of each fn of `fns` (label -> fn), from one
+    torch.profiler context (the profiler has lost a context's device
+    events once a process had opened a dozen): each fn's n back-to-back
+    calls, ended by a synchronize, run inside a `record_function` range
+    of its label, `gap_s` apart; each CUDA kernel counts for the range nearest
+    to its start if it starts within gap_s / 4 of it (the device's clock
+    may sit a few µs off the host's). Returns per label the summed device
+    ms over n and the kernels counted per call, and the number of kernels
+    that fell in no range. Unlike `cuda_ms` it leaves out the host's time
+    between launches."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, fn in fns.items():
+            time.sleep(gap_s)
+            with record_function(label):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    windows = {e.name: e.time_range for e in events
+               if e.name in fns and e.device_type == DeviceType.CPU}
+    us, count, stray = dict.fromkeys(fns, 0.0), dict.fromkeys(fns, 0), 0
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in fns:
+            continue                        # the ranges' own annotations
+        t = e.time_range.start
+        dist, label = min((max(w.start - t, t - w.end, 0), label)
+                          for label, w in windows.items())
+        if dist > gap_s * 1e6 / 4:
+            stray += 1
+            continue
+        us[label] += e.device_time_total
+        count[label] += 1
+    return {label: {"ms": us[label] / 1e3 / n,
+                    "kernels_per_call": count[label] / n}
+            for label in fns}, stray
+
+
 def host_ms(fn, n=N_TIMED):
     """Median wall ms of fn, each call ended by a device sync."""
     ts = []
@@ -193,7 +244,10 @@ def check_close(name, got, want):
 # phase 3: each kernel against its plain version at main-path shapes
 # ---------------------------------------------------------------------------
 
-def attention_cases(g):
+def attention_cases(g, more=False):
+    """The flash cases at main-path shapes; `more` adds the chat prefill
+    inside `ChatService` (B4 L640) and a long causal L2048, where the
+    tensor-core rate, not the wave count, sets the pace."""
     dev = "cuda"
 
     def rnd(*s):
@@ -206,6 +260,10 @@ def attention_cases(g):
              ("llama7b_prefill", 1, 586, 32, 32, 128, True, None),
              ("gqa_h32_kv8", 1, 586, 32, 8, 128, True, None),
              ("segments", 2, 586, 32, 32, 128, True, seg)]
+    if more:
+        specs += [("chat_prefill_b4", SERVE_BATCH, SERVE_PROMPT, 32, 32, 128,
+                   True, None),
+                  ("long_l2048", 1, 2048, 32, 32, 128, True, None)]
     for name, B, L, H, Hkv, D, causal, sg in specs:
         yield name, rnd(B, L, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D), \
             causal, sg
@@ -223,9 +281,19 @@ def attention_pairs(L, causal, seg):
     return allowed.sum(dim=(1, 2)).tolist()
 
 
+def sdpa(qh, kh, vh, causal, mask):
+    """`scaled_dot_product_attention` on [B, H, L, D] inputs: the library
+    yardstick of the flash forward (never called by the port)."""
+    if mask is None:
+        return F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal,
+            enable_gqa=kh.shape[1] != qh.shape[1])
+    return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+
 def check_attention(g):
-    cases = []
-    for name, q, k, v, causal, seg in attention_cases(g):
+    cases, timed = [], {}
+    for name, q, k, v, causal, seg in attention_cases(g, more=True):
         B, L, H, D = q.shape
         Hkv = k.shape[2]
         got = A.flash_attention(q, k, v, causal=causal, segment_ids=seg)
@@ -239,12 +307,7 @@ def check_attention(g):
             mask = (seg[:, None, :, None] == seg[:, None, None, :]) & \
                 torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
 
-        def lib():
-            if mask is None:
-                return F.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=causal, enable_gqa=Hkv != H)
-            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-
+        lib = functools.partial(sdpa, qh, kh, vh, causal, mask)
         lib_out = lib().transpose(1, 2)
         torch.cuda.synchronize()
         check_close(f"sdpa[{name}]", lib_out, want)
@@ -253,17 +316,29 @@ def check_attention(g):
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel()) + \
             (0 if seg is None else seg.numel() * 4)
         b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        kernel = functools.partial(A.flash_attention, q, k, v, causal=causal,
+                                   segment_ids=seg)
         case = {
             "case": name, "shape": [B, L, H, Hkv, D], "causal": causal,
             "segment_ids": seg is not None, "max_abs_err": err,
-            "ms": cuda_ms(lambda: A.flash_attention(
-                q, k, v, causal=causal, segment_ids=seg)),
+            "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(lambda: A.flash_attention_plain(
                 q, k, v, causal=causal, segment_ids=seg)),
             "library_ms": cuda_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
             "flops": flops, "bytes": nbytes}
-        emit({"phase": "kernel", "kernel": "flash_attn_fwd", **case})
+        timed[name + ":kernel"], timed[name + ":library"] = kernel, lib
         cases.append(case)
+    dev, stray = device_ms(timed)
+    for case in cases:
+        kern, libd = (dev[case["case"] + s] for s in (":kernel", ":library"))
+        # every wrapper call launches one kernel: each must be counted
+        if kern["kernels_per_call"] != 1:
+            raise AssertionError(f"device_ms[{case['case']}]: "
+                                 f"{kern['kernels_per_call']} kernels a call")
+        case.update(device_ms=kern["ms"], library_device_ms=libd["ms"],
+                    library_kernels_per_call=libd["kernels_per_call"],
+                    profiler_stray_kernels=stray)
+        emit({"phase": "kernel", "kernel": "flash_attn_fwd", **case})
     return cases
 
 
@@ -678,9 +753,16 @@ def profile_request(model, req, tid):
     emit({"phase": "profile", **device_summary(prof, wall_ms)})
 
 
+# the port's own kernels (csrc/*.cu, each in an anonymous namespace), as
+# the profiler names them: "(anonymous namespace)::<name>[<D>](...)"
+PORT_KERNEL = re.compile(
+    r"(?:^|\s)\(anonymous namespace\)::(\w+(<\d+(, \d+)*>)?)\(")
+
+
 def device_summary(prof, wall_ms):
     """Summed device kernel time (one stream, so their union), the
-    device's idle share of the wall, and the kernels that take the most."""
+    device's idle share of the wall, the kernels that take the most, and
+    every kernel of the port's own."""
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -688,11 +770,19 @@ def device_summary(prof, wall_ms):
             by_name[e.name] = (tot + e.device_time_total / 1e3, n + 1)
     busy_ms = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    port = {}
+    for k, (t, n) in by_name.items():
+        m = PORT_KERNEL.search(k)
+        if m:
+            pt, pn = port.get(m.group(1), (0.0, 0))
+            port[m.group(1)] = (pt + t, pn + n)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_kernels": sum(n for _, n in by_name.values()),
             "top_kernels": [{"name": k[:90], "ms": t, "count": n}
-                            for k, (t, n) in top]}
+                            for k, (t, n) in top],
+            "port_kernels": [{"name": k, "ms": t, "count": n}
+                             for k, (t, n) in sorted(port.items())]}
 
 
 # ---------------------------------------------------------------------------
@@ -1228,6 +1318,8 @@ def kernel_entry(name, source, replaces, launches, cases, main_case):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "main_case": main_case,
+            **{k: main[k] for k in ("device_ms", "library_device_ms")
+               if k in main},
             "cases": cases}
 
 

@@ -1,7 +1,10 @@
 """Parity of the port's attention (visionllm_tpu_torch.ops.attention)
 against the JAX `multi_head_attention` on the CPU, where JAX takes its
 einsum branch and the port its plain versions. fp32, tolerance 1e-5
-(same arithmetic, different summation order).
+(same arithmetic, different summation order). The routing cases hold the
+port's flash predicate against JAX's on a TPU backend (monkeypatched) and
+check the wrapper's argument checks on CPU tensors; the bf16 case holds
+the einsum branch to 2 bf16 ulps of the output's scale.
 
 The flash kernel itself is tested on a CUDA card in
 `tests/test_torch_kernels_gpu.py`.
@@ -135,3 +138,95 @@ def test_flash_on_cpu_trains_through_autograd():
     tatt.multi_head_attention(q, k, v, causal=True).sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# flash routing: the port takes the kernel exactly where JAX takes flash
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("Lk", [1, 127, 128, 586])
+@pytest.mark.parametrize("Lq", [1, 127, 128, 586])
+def test_flash_predicate_matches_jax(monkeypatch, Lq, Lk, D, causal, masked):
+    """The port's `_flash_ok` against JAX's flash predicate on a TPU
+    backend (`mask is None and (_flash_causal_ok if causal else
+    _flash_ok)`), by shape. JAX also flashes D 192/256; the port does not
+    (no config of the repo has such a head dim), so the grid stops at
+    128."""
+    from visionllm_tpu.ops import attention as jatt
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    q, k = np.zeros((1, Lq, 1, D)), np.zeros((1, Lk, 1, D))
+    want = not masked and (jatt._flash_causal_ok(q, k) if causal
+                           else jatt._flash_ok(q, k))
+    mask = torch.ones(1, 1, Lq, Lk, dtype=torch.bool) if masked else None
+    got = tatt._flash_ok(torch.empty(1, Lq, 1, D), torch.empty(1, Lk, 1, D),
+                         mask, causal)
+    assert got == want
+
+
+@pytest.mark.parametrize("causal,D", [(True, 128), (False, 64)],
+                         ids=["causal_d128", "noncausal_d64"])
+def test_short_bf16_attention_matches_jax(causal, D):
+    """L = 100 < 128 takes the einsum branch in both packages, which
+    rounds the probabilities to bf16 before P V: bf16 outputs within 2
+    bf16 ulps of the output's scale."""
+    torch.set_num_threads(1)
+    q, k, v = _inputs(8, B=1, Lq=100, Lk=100, H=4, H_kv=2, D=D)
+    want = np.asarray(jax_mha(*(jnp.asarray(a, dtype=jnp.bfloat16)
+                                for a in (q, k, v)), causal=causal)
+                      ).astype(np.float32)
+    got = tatt.multi_head_attention(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        causal=causal)
+    assert got.dtype == torch.bfloat16
+    scale = float(np.abs(want).max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2 * ulp)
+
+
+def _bf16_view(shape, last=None, offset=0):
+    """A bf16 [B, L, H, D] view: of a [B, L, H, last] buffer cut to D
+    when `last` is given, starting `offset` elements into its storage."""
+    B, L, H, D = shape
+    row = D if last is None else last
+    flat = torch.zeros(offset + B * L * H * row, dtype=torch.bfloat16)
+    return flat[offset:].view(B, L, H, row)[..., :D]
+
+
+def _packed_qkv_view(shape):
+    B, L, H, D = shape
+    return torch.zeros(B, L, 3, H, D, dtype=torch.bfloat16).unbind(2)[1]
+
+
+FLASH_ARG_CASES = {
+    "contiguous": (lambda s: _bf16_view(s), None),
+    "packed_qkv_view": (_packed_qkv_view, None),
+    "odd_head_stride": (lambda s: _bf16_view(s, last=s[3] + 1), ValueError),
+    "head_stride_not_multiple_of_8": (lambda s: _bf16_view(s, last=s[3] + 2),
+                                      ValueError),
+    "pointer_2_bytes_off": (lambda s: _bf16_view(s, offset=1), ValueError),
+    "pointer_8_bytes_off": (lambda s: _bf16_view(s, offset=4), ValueError),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_ARG_CASES))
+def test_flash_args_need_16_byte_rows(name):
+    """The kernel copies 16-byte chunks: the wrapper takes a unit last
+    stride, other strides that are multiples of 8 elements and a 16-byte
+    aligned pointer, and raises on anything else (no silent copy)."""
+    make, err = FLASH_ARG_CASES[name]
+    shape = (1, 130, 2, 64)
+    q = make(shape)
+    k = v = _bf16_view(shape)
+    assert q.shape == shape
+    if err is None:
+        tatt._check_flash_args(q, k, v, True, None)
+        tatt._check_flash_args(k, q, q, False, None)
+    else:
+        with pytest.raises(err, match="16-byte"):
+            tatt._check_flash_args(q, k, v, True, None)
+        with pytest.raises(err, match="16-byte"):
+            tatt._check_flash_args(k, k, q, False, None)

@@ -4,6 +4,8 @@ JAX) run them with
 
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
 
+and one kernel's cases alone with `-k flash` (or `-k int4`, `-k msda`).
+
 Inputs are made with numpy from a seed. Tolerance: max abs err within
 0.02 + 0.01 * max|plain| (bf16 outputs, each rounded from fp32 sums
 taken in another order), for each output of a backward kernel against
@@ -37,33 +39,105 @@ def _bf16(rng, dev, *shape):
                             ).to(dev).to(torch.bfloat16)
 
 
-# (B, L, H, H_kv, D, causal, segmented)
+# (B, L, H, H_kv, D, causal, segmented[, Lk]); Lk defaults to L. The seed
+# of a case is its place in this dict.
 FLASH = {
-    "noncausal_d64": (1, 577, 16, 16, 64, False, False),
     "causal_d128": (1, 586, 8, 8, 128, True, False),
     "gqa": (2, 130, 8, 2, 128, True, False),
+    "noncausal_d64": (1, 577, 16, 16, 64, False, False),
+    "one_token": (3, 1, 4, 4, 64, True, False),
     "segments": (2, 200, 4, 4, 64, True, True),
     "segments_noncausal": (2, 97, 4, 4, 128, False, True),
-    "one_token": (3, 1, 4, 4, 64, True, False),
     "tile_edges": (1, 65, 2, 2, 64, False, False),
+    "len_128": (1, 128, 4, 4, 128, True, False),
+    "len_129": (1, 129, 4, 4, 64, True, False),
+    "lq100_lk300": (2, 100, 8, 2, 128, False, False, 300),
+    "chat_prefill_b4": (4, 640, 32, 32, 128, True, False),
+    "long_d64": (1, 2048, 8, 8, 64, True, False),
+    "long_d128": (1, 2048, 8, 8, 128, True, False),
 }
 
 
-@pytest.mark.parametrize("name", sorted(FLASH))
-def test_flash_kernel_matches_plain(cuda, name):
-    B, L, H, Hkv, D, causal, segmented = FLASH[name]
-    rng = np.random.default_rng(sorted(FLASH).index(name))
-    q, k, v = (_bf16(rng, cuda, B, L, h, D) for h in (H, Hkv, Hkv))
+def _flash_case(name, seed_offset, dev, with_dout=False):
+    """q, k, v (, dout), segment ids and causal of a FLASH case."""
+    B, L, H, Hkv, D, causal, segmented, *rest = FLASH[name]
+    Lk = rest[0] if rest else L
+    rng = np.random.default_rng(seed_offset + list(FLASH).index(name))
+    q = _bf16(rng, dev, B, L, H, D)
+    k, v = (_bf16(rng, dev, B, Lk, Hkv, D) for _ in range(2))
+    dout = _bf16(rng, dev, B, L, H, D) if with_dout else None
     seg = None
     if segmented:
         seg = torch.from_numpy(rng.integers(0, 3, (B, L)).astype(np.int32)
-                               ).to(cuda)
+                               ).to(dev)
+    return q, k, v, dout, seg, causal
+
+
+@pytest.mark.parametrize("name", list(FLASH))
+def test_flash_kernel_matches_plain(cuda, name):
+    q, k, v, _, seg, causal = _flash_case(name, 0, cuda)
     n = A.flash_attention.launches
     got = A.flash_attention(q, k, v, causal=causal, segment_ids=seg)
     assert A.flash_attention.launches == n + 1
     want = A.flash_attention_plain(q, k, v, causal=causal, segment_ids=seg)
     torch.cuda.synchronize()
     _close(got, want)
+
+
+@pytest.mark.parametrize("name", ["causal_d128", "segments", "lq100_lk300",
+                                  "long_d64"])
+def test_flash_kernel_is_deterministic(cuda, name):
+    """Two calls on the same input are bit-identical, output and lse."""
+    q, k, v, _, seg, causal = _flash_case(name, 0, cuda)
+    B, Lq, H, _ = q.shape
+    runs = []
+    for _ in range(2):
+        lse = torch.empty(B, H, Lq, dtype=torch.float32, device=cuda)
+        runs.append((A._launch_fwd(q, k, v, causal, seg, lse), lse))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("name", ["causal_d128", "gqa", "segments",
+                                  "lq100_lk300"])
+def test_flash_lse_and_autograd_match_plain(cuda, name):
+    """The forward's row logsumexp against the plain scores' (-inf where a
+    row attends no key) within 1e-3 (fp32 sums of bf16 products taken in
+    another order, and the kernel's ex2.approx), and dq/dk/dv of autograd
+    through
+    `FlashAttentionFn` (forward kernel, its lse into the backward kernel)
+    against autograd of the plain forward."""
+    q, k, v, dout, seg, causal = _flash_case(name, 300, cuda, True)
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    lse = torch.empty(B, H, Lq, dtype=torch.float32, device=cuda)
+    A._launch_fwd(q, k, v, causal, seg, lse)
+    kr = k.float().repeat_interleave(H // Hkv, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * D ** -0.5
+    allowed = torch.ones(B, 1, Lq, Lk, dtype=torch.bool, device=cuda)
+    if causal:
+        allowed = allowed & torch.ones(Lq, Lk, dtype=torch.bool,
+                                       device=cuda).tril()
+    if seg is not None:
+        allowed = allowed & (seg[:, None, :, None] == seg[:, None, None, :])
+    want_lse = torch.logsumexp(scores.masked_fill(~allowed, -float("inf")),
+                               dim=-1)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    assert (lse[finite] - want_lse[finite]).abs().max().item() <= 1e-3
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    n = A.flash_attention_bwd.launches
+    out = A.flash_attention(*qkv, causal=causal, segment_ids=seg)
+    got = torch.autograd.grad(out, qkv, dout)
+    assert A.flash_attention_bwd.launches == n + 1
+    want = A.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                       segment_ids=seg)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _close(g, w)
 
 
 def test_flash_kernel_takes_strided_views(cuda):
@@ -171,16 +245,10 @@ def test_int4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 # backward kernels, the gather probes, and autograd through the wrappers
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(FLASH))
+@pytest.mark.parametrize("name", list(FLASH))
 def test_flash_bwd_kernel_matches_autograd_of_plain(cuda, name):
-    B, L, H, Hkv, D, causal, segmented = FLASH[name]
-    rng = np.random.default_rng(100 + sorted(FLASH).index(name))
-    q, k, v = (_bf16(rng, cuda, B, L, h, D) for h in (H, Hkv, Hkv))
-    dout = _bf16(rng, cuda, B, L, H, D)
-    seg = None
-    if segmented:
-        seg = torch.from_numpy(rng.integers(0, 3, (B, L)).astype(np.int32)
-                               ).to(cuda)
+    q, k, v, dout, seg, causal = _flash_case(name, 100, cuda, True)
+    B, L, H, _ = q.shape
     lse = torch.empty(B, H, L, dtype=torch.float32, device=cuda)
     out = A._launch_fwd(q, k, v, causal, seg, lse)
     n = A.flash_attention_bwd.launches

@@ -3,11 +3,15 @@
 Counterpart of `visionllm_tpu/ops/attention.py`. `multi_head_attention`
 takes the flash kernel (`csrc/flash_attn_fwd.cu`, which replaces the
 Pallas TPU flash-attention kernel) where the JAX package takes its flash
-branch: no explicit `mask`, and causal only for Lq == Lk (the kernel
-start-aligns the causal mask; the einsum branch end-aligns it, query i
-attending keys <= i + Lk - Lq). Everything else takes the einsum branch,
-as in JAX, and trains through PyTorch autograd as JAX's does through
-autodiff. The kernel handles head dims 64 and 128 and any length.
+branch: no explicit `mask`, Lq >= 128 and Lk >= 128, and causal only for
+Lq == Lk (the kernel start-aligns the causal mask; the einsum branch
+end-aligns it, query i attending keys <= i + Lk - Lq). Everything else
+takes the einsum branch, as in JAX, which rounds the probabilities to v's
+dtype before P V, and trains through PyTorch autograd as JAX's does
+through autodiff. One difference is deliberate: JAX also flashes head
+dims 192 and 256 (D % 64 == 0); the kernel takes 64 and 128, the head
+dims of every config of the repo, and other head dims take the einsum
+branch here.
 
 `flash_attention` launches the kernel for CUDA tensors (or raises) and
 runs its plain version only for tensors on the CPU. Under grad mode, with
@@ -22,6 +26,7 @@ backward launches `csrc/flash_attn_bwd.cu` (the counterpart of the Pallas
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -29,6 +34,7 @@ import torch
 from visionllm_tpu_torch.kernels.build import check, library
 
 FLASH_HEAD_DIMS = (64, 128)
+FLASH_MIN_LEN = 128        # JAX's `_flash_ok`: Lq and Lk at least 128
 
 
 def _einsum_attention(q, k, v, mask, scale):
@@ -52,9 +58,12 @@ def _segment_mask(segment_ids):
 
 def flash_attention_plain(q, k, v, *, causal=False, segment_ids=None):
     """The flash kernel's function in plain PyTorch: start-aligned causal
-    mask, segment ids, GQA. Like the kernel it keeps the probabilities in
-    fp32 for P V (the einsum branch rounds them to v's dtype first, as
-    JAX's does) and rounds only the output to q's dtype."""
+    mask, segment ids, GQA, all in fp32, rounding only the output to q's
+    dtype. The kernel rounds each tile of unnormalised probabilities to
+    bf16 before P V, with fp32 sums, as the Pallas kernel does
+    (`p.astype(v.dtype)`); this version keeps them in fp32, and the
+    tolerance the kernel is held to (0.02 + 0.01 max|plain|) covers the
+    difference."""
     mask = None
     if segment_ids is not None:
         mask = _segment_mask(segment_ids)
@@ -76,11 +85,13 @@ def _check_flash_args(q, k, v, causal, segment_ids):
                             f"got {t.dtype}")
         if t.device != q.device:
             raise ValueError("flash_attention: q, k, v on different devices")
-        if t.stride(3) != 1 or any(s % 2 for s in t.stride()[:3]) \
-                or t.data_ptr() % 4:
+        # the kernel copies 16-byte chunks of rows: no silent copy here
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} needs a unit last "
-                             "stride, even other strides and 4-byte "
-                             "alignment")
+                             "stride, (batch, seq, head) strides that are "
+                             "multiples of 8 elements and a 16-byte "
+                             "aligned pointer")
     if D not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in "
                          f"{FLASH_HEAD_DIMS}")
@@ -98,6 +109,27 @@ def _check_flash_args(q, k, v, causal, segment_ids):
                          "self-attention")
 
 
+@functools.cache
+def _fwd_entry():
+    """The forward's C entry, its ctypes signature bound once."""
+    fn = library("flash_attn_fwd").flash_attn_fwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+@functools.cache
+def _bwd_entry():
+    """The backward's C entry, its ctypes signature bound once."""
+    fn = library("flash_attn_bwd").flash_attn_bwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
 def _launch_fwd(q, k, v, causal, segment_ids, lse=None):
     B, Lq, H, D = q.shape
     Lk, H_kv = k.shape[1], k.shape[2]
@@ -107,16 +139,12 @@ def _launch_fwd(q, k, v, causal, segment_ids, lse=None):
         seg_ptr, segb = segment_ids.data_ptr(), segment_ids.stride(0)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    fn = library("flash_attn_fwd").flash_attn_fwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong,
-                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             None if lse is None else lse.data_ptr(), seg_ptr, B, Lq, Lk, H,
-             H_kv, D, strides, segb, int(causal), D ** -0.5,
-             torch.cuda.current_stream(q.device).cuda_stream),
-          "flash_attn_fwd_bf16")
+    check(_fwd_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), seg_ptr, B, Lq, Lk, H, H_kv,
+        D, strides, segb, int(causal), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attn_fwd_bf16")
     flash_attention.launches += 1
     return out
 
@@ -202,17 +230,14 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=False,
     seg = _segments_on(q, segment_ids)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     di = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
-    fn = library("flash_attn_bwd").flash_attn_bwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
-    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             dout.data_ptr(), lse.data_ptr(),
-             None if seg is None else seg.data_ptr(), di.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, H, H_kv,
-             D, int(causal), D ** -0.5,
-             torch.cuda.current_stream(q.device).cuda_stream),
-          "flash_attn_bwd_bf16")
+    check(_bwd_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(),
+        None if seg is None else seg.data_ptr(), di.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, H, H_kv, D,
+        int(causal), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attn_bwd_bf16")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -222,11 +247,14 @@ flash_attention_bwd.launches = 0
 
 def _flash_ok(q, k, mask, causal) -> bool:
     """The JAX flash predicate by shape (`_flash_ok` / `_flash_causal_ok`):
-    no explicit mask, causal only for Lq == Lk, a head dim the kernel
-    takes."""
-    if mask is not None or q.shape[-1] not in FLASH_HEAD_DIMS:
+    no explicit mask, Lq >= 128 and Lk >= 128, causal only for Lq == Lk,
+    and a head dim the kernel takes (64 or 128; JAX also takes 192 and
+    256, which no config of the repo has)."""
+    Lq, Lk = q.shape[1], k.shape[1]
+    if mask is not None or q.shape[-1] not in FLASH_HEAD_DIMS \
+            or Lq < FLASH_MIN_LEN or Lk < FLASH_MIN_LEN:
         return False
-    return not causal or q.shape[1] == k.shape[1]
+    return not causal or Lq == Lk
 
 
 def multi_head_attention(q, k, v, *, mask: Optional[torch.Tensor] = None,
