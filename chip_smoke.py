@@ -16,11 +16,13 @@ Phases, each printing one JSON line:
              call computing the same function (yardstick only; the port
              never calls it); a backward kernel is held against autograd
              of the plain forward, output by output. The flash forward
-             also runs the chat prefill (B4 L640) and a causal L2048, and
-             its cases print `device_ms` and `library_device_ms`: device
-             time per call from torch.profiler's kernel events, beside
-             `ms` (CUDA events around back-to-back calls, which for a
-             short kernel include the wrapper's host time);
+             also runs the chat prefill (B4 L640) and a causal L2048. The
+             flash-forward and int4 cases print `device_ms` and
+             `library_device_ms`: device time per call from
+             torch.profiler's kernel events, beside `ms` (CUDA events
+             around back-to-back calls, which for a short kernel include
+             the wrapper's host time), and fail unless a wrapper call is
+             one kernel;
 4. slice   - the det path: builds `VisionLLMWithTools` at full width
              (CLIP-L/336 24 layers, LLaMA-7B 32 layers, Grounding-DINO
              with Swin-T at 512 px) in bf16 with seeded random weights,
@@ -177,16 +179,22 @@ def device_ms(fns, n=20, warmup=3, gap_s=0.005):
     calls, ended by a synchronize, run inside a `record_function` range
     of its label, `gap_s` apart; each CUDA kernel counts for the range nearest
     to its start if it starts within gap_s / 4 of it (the device's clock
-    may sit a few µs off the host's). Returns per label the summed device
-    ms over n and the kernels counted per call, and the number of kernels
-    that fell in no range. Unlike `cuda_ms` it leaves out the host's time
-    between launches."""
+    may sit a few µs off the host's). A range of one warm-up kernel comes
+    first: the profiler once dropped the first kernel of a context.
+    Returns per label the summed device ms over n, the kernels counted per
+    call and their names, and the number of kernels that fell in no
+    range. Unlike `cuda_ms` it leaves out the host's time between
+    launches."""
+    warm = "device_ms:warm-up"
     for fn in fns.values():
         for _ in range(warmup):
             fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        with record_function(warm):
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
         for label, fn in fns.items():
             time.sleep(gap_s)
             with record_function(label):
@@ -194,11 +202,13 @@ def device_ms(fns, n=20, warmup=3, gap_s=0.005):
                     fn()
                 torch.cuda.synchronize()
     events = prof.events()
+    labels = [warm, *fns]
     windows = {e.name: e.time_range for e in events
-               if e.name in fns and e.device_type == DeviceType.CPU}
-    us, count, stray = dict.fromkeys(fns, 0.0), dict.fromkeys(fns, 0), 0
+               if e.name in labels and e.device_type == DeviceType.CPU}
+    us, count, stray = dict.fromkeys(labels, 0.0), dict.fromkeys(labels, 0), 0
+    names = {label: set() for label in labels}
     for e in events:
-        if e.device_type != DeviceType.CUDA or e.name in fns:
+        if e.device_type != DeviceType.CUDA or e.name in labels:
             continue                        # the ranges' own annotations
         t = e.time_range.start
         dist, label = min((max(w.start - t, t - w.end, 0), label)
@@ -208,8 +218,10 @@ def device_ms(fns, n=20, warmup=3, gap_s=0.005):
             continue
         us[label] += e.device_time_total
         count[label] += 1
+        names[label].add(e.name)
     return {label: {"ms": us[label] / 1e3 / n,
-                    "kernels_per_call": count[label] / n}
+                    "kernels_per_call": count[label] / n,
+                    "kernel_names": sorted(names[label])}
             for label in fns}, stray
 
 
@@ -562,8 +574,13 @@ def rotating_ms(fn, sets, n=20):
     """Mean device ms of fn over rotating argument sets: with more bytes
     in the sets than the L2 holds, each call reads its weights cold, as
     the decode loop does."""
+    return cuda_ms(rotating(fn, sets), n=n)
+
+
+def rotating(fn, sets):
+    """fn over the argument sets in turn, one set a call."""
     it = itertools.count()
-    return cuda_ms(lambda: fn(*sets[next(it) % len(sets)]), n=n)
+    return lambda: fn(*sets[next(it) % len(sets)])
 
 
 def int4_dequant(wp, scale):
@@ -576,7 +593,7 @@ def int4_dequant(wp, scale):
 
 
 def check_int4(g):
-    cases = []
+    cases, timed = [], {}
     specs = [(f"decode_m{m}_{k}x{n}", m, k, n)
              for m in (1, 4) for k, n in ((4096, 4096), (4096, 11008),
                                            (11008, 4096), (4096, 32096))]
@@ -598,21 +615,42 @@ def check_int4(g):
         torch.cuda.synchronize()
         check_close(f"matmul[{name}]", torch.matmul(x, deq[0]), want)
         sets = [(x, wp_, s_) for wp_, s_ in packed]
+        lib_sets = [(x, d) for d in deq]
         nbytes = 2 * M_ * K + wbytes + 2 * M_ * N
         b_ms, b_by = bound(nbytes, 2 * M_ * K * N, BF16_TENSOR_FLOPS)
         case = {
             "case": name, "shape": [M_, K, N], "max_abs_err": err,
             "ms": rotating_ms(Q.int4_matmul, sets),
             "plain_ms": rotating_ms(Q.int4_matmul_plain, sets, n=5),
-            "library_ms": rotating_ms(torch.matmul,
-                                      [(x, d) for d in deq]),
+            "library_ms": rotating_ms(torch.matmul, lib_sets),
             "library": "torch.matmul(x, dequantized bf16 W)",
             "bound_ms": b_ms, "bound_by": b_by,
             "flops": 2 * M_ * K * N, "bytes": nbytes,
             "weight_copies_rotated": copies}
-        emit({"phase": "kernel", "kernel": "int4_matmul", **case})
+        timed[name + ":kernel"] = rotating(Q.int4_matmul, sets)
+        timed[name + ":library"] = rotating(torch.matmul, lib_sets)
         cases.append(case)
-        del packed, deq, sets
+    # device time per call, all cases in one profiler session (the
+    # rotated copies stay alive until it ends)
+    dev, stray = device_ms(timed)
+    for case in cases:
+        kern, libd = (dev[case["case"] + s] for s in (":kernel", ":library"))
+        case.update(device_ms=kern["ms"], library_device_ms=libd["ms"],
+                    kernels_per_call=kern["kernels_per_call"],
+                    library_kernels_per_call=libd["kernels_per_call"],
+                    profiler_stray_kernels=stray)
+        emit({"phase": "kernel", "kernel": "int4_matmul", **case})
+    for case in cases:
+        # one kernel a call: no split-K partials, no second pass. Every
+        # kernel in a case's range is the int4 kernel, at most one a call
+        # (fewer only where the profiler dropped an event)
+        names = dev[case["case"] + ":kernel"]["kernel_names"]
+        if not (0 < case["kernels_per_call"] <= 1 and names
+                and all("int4_mma_kernel" in k for k in names)):
+            raise AssertionError(f"device_ms[{case['case']}]: "
+                                 f"{case['kernels_per_call']} kernels a call: "
+                                 f"{names}")
+    del timed
     torch.cuda.empty_cache()
     return cases
 
@@ -754,9 +792,13 @@ def profile_request(model, req, tid):
 
 
 # the port's own kernels (csrc/*.cu, each in an anonymous namespace), as
-# the profiler names them: "(anonymous namespace)::<name>[<D>](...)"
+# the profiler names them: "(anonymous namespace)::<name>[<args>](...)",
+# where the template arguments are integers, bools or int4's tile
+# "(anonymous namespace)::Cfg<integers>" (PyTorch's anonymous-namespace
+# kernels take types)
 PORT_KERNEL = re.compile(
-    r"(?:^|\s)\(anonymous namespace\)::(\w+(<\d+(, \d+)*>)?)\(")
+    r"(?:^|\s)\(anonymous namespace\)::(\w+(?:<(?:[\d ,]|true|false|"
+    r"\(anonymous namespace\)::\w+<[\d ,]+>)+>)?)\(")
 
 
 def device_summary(prof, wall_ms):
@@ -774,8 +816,9 @@ def device_summary(prof, wall_ms):
     for k, (t, n) in by_name.items():
         m = PORT_KERNEL.search(k)
         if m:
-            pt, pn = port.get(m.group(1), (0.0, 0))
-            port[m.group(1)] = (pt + t, pn + n)
+            name = m.group(1).replace("(anonymous namespace)::", "")
+            pt, pn = port.get(name, (0.0, 0))
+            port[name] = (pt + t, pn + n)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_kernels": sum(n for _, n in by_name.values()),

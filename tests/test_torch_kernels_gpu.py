@@ -197,11 +197,17 @@ def _int4_weights(rng, dev, K, N):
     return wp, scale
 
 
-@pytest.mark.parametrize("M_", [1, 3, 17, 129])
-@pytest.mark.parametrize("N", [200, 32096])
-def test_int4_kernel_matches_plain(cuda, M_, N):
+# (M, K, N): decode and short prompts (16-row tiles), the byte-staged
+# width 200, lm_head's 32096, the chat prefill (B4 x L640), and groups of
+# 96 rows (K 192), which the kernel pads to 128 with zeros
+INT4 = [(m, 11008, n) for m in (1, 3, 17, 129) for n in (200, 32096)] \
+    + [(2560, 4096, 11008), (5, 192, 64), (129, 192, 200)]
+
+
+@pytest.mark.parametrize("M_,K,N", INT4,
+                         ids=[f"m{m}_k{k}_n{n}" for m, k, n in INT4])
+def test_int4_kernel_matches_plain(cuda, M_, K, N):
     rng = np.random.default_rng(M_ * 7 + N)
-    K = 11008
     wp, scale = _int4_weights(rng, cuda, K, N)
     x = _bf16(rng, cuda, M_, K)
     n = Q.int4_matmul.launches
@@ -215,16 +221,18 @@ def test_int4_kernel_matches_plain(cuda, M_, N):
 
 @pytest.mark.parametrize("N", [4096, 201])
 def test_int4_kernel_rows_are_batch_invariant(cuda, N):
-    """Row i of an M = 17 call is bit-identical to the M = 1 call on
-    that row (and to the row inside an M = 4 call)."""
+    """Every row of an M = 4, 17, 129 or 640 call (16-row and 64-row
+    tiles, several column tiles) is bit-identical to the M = 1 call on
+    that row, and so are the rows of an M = 4 call that starts at row 3.
+    N 201 takes the byte-staged weights."""
     rng = np.random.default_rng(N)
     wp, scale = _int4_weights(rng, cuda, 4096, N)
-    x = _bf16(rng, cuda, 17, 4096)
-    full = Q.int4_matmul(x, wp, scale)
-    four = Q.int4_matmul(x[3:7], wp, scale)
-    for i in range(17):
-        assert torch.equal(Q.int4_matmul(x[i:i + 1], wp, scale)[0], full[i])
-    assert torch.equal(four, full[3:7])
+    x = _bf16(rng, cuda, 640, 4096)
+    alone = torch.stack([Q.int4_matmul(x[i:i + 1], wp, scale)[0]
+                         for i in range(640)])
+    for m in (4, 17, 129, 640):
+        assert torch.equal(Q.int4_matmul(x[:m], wp, scale), alone[:m]), m
+    assert torch.equal(Q.int4_matmul(x[3:7], wp, scale), alone[3:7])
 
 
 def test_int4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -237,6 +245,10 @@ def test_int4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         Q.int4_matmul(x, wp.to(torch.uint8), scale)    # not int8
     with pytest.raises(ValueError):
         Q.int4_matmul(_bf16(rng, cuda, 512, 2).t(), wp, scale)  # strided
+    with pytest.raises(ValueError):                    # row stride 516
+        Q.int4_matmul(_bf16(rng, cuda, 2, 516)[:, :512], wp, scale)
+    with pytest.raises(ValueError):                    # 8-byte aligned x
+        Q.int4_matmul(_bf16(rng, cuda, 2, 520)[:, 4:516], wp, scale)
     with pytest.raises(ValueError):                    # K % (2 G) != 0
         Q.int4_matmul(x[:, :384], wp[:192], scale[:3])
 

@@ -92,3 +92,50 @@ def test_int4_linear_loads_a_jax_packed_tree():
 def test_group_size_matches_jax():
     for cin in (64, 128, 256, 4096, 11008, 96):
         assert Q.group_size(cin) == J.group_size(cin)
+
+
+def _args(M=2, K=512, N=64, x=None, wp=None, scale=None):
+    """CPU tensors of the kernel's argument layout, one of them swapped."""
+    g = torch.Generator().manual_seed(M * K + N)
+    wp0, s0 = Q.pack_int4(torch.randn(K, N, generator=g) * 0.05)
+    x0 = torch.randn(M, K, generator=g).to(torch.bfloat16)
+    return (x0 if x is None else x(x0), wp0 if wp is None else wp(wp0),
+            s0 if scale is None else scale(s0))
+
+
+# what the CUDA wrapper refuses before a launch, checked on CPU tensors
+BAD_INT4_ARGS = {
+    "x_float32": (TypeError, dict(x=lambda t: t.float())),
+    "scale_float32": (TypeError, dict(scale=lambda t: t.float())),
+    "wp_uint8": (TypeError, dict(wp=lambda t: t.view(torch.uint8))),
+    "x_3d": (ValueError, dict(x=lambda t: t[None])),
+    "k_mismatch": (ValueError, dict(x=lambda t: t[:, :256])),
+    "k_not_multiple_of_2g": (ValueError, dict(      # K 384, G 128
+        x=lambda t: t[:, :384], wp=lambda t: t[:192].contiguous(),
+        scale=lambda t: t[:3].contiguous())),
+    "group_of_8": (ValueError, dict(                # 64 groups of 8 rows
+        scale=lambda t: t.repeat_interleave(16, 0))),
+    "x_column_strided": (ValueError, dict(
+        x=lambda t: t.t().contiguous().t())),
+    "x_row_stride_not_8": (ValueError, dict(
+        x=lambda t: torch.cat([t, t[:, :4]], 1)[:, :512])),
+    "x_misaligned": (ValueError, dict(
+        x=lambda t: torch.cat([t[:, :8], t], 1)[:, 4:516])),
+    "wp_strided": (ValueError, dict(
+        wp=lambda t: torch.cat([t, t], 1)[:, :64])),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_INT4_ARGS))
+def test_check_args_rejects_what_the_kernel_does_not_take(case):
+    err, swap = BAD_INT4_ARGS[case]
+    x, wp, scale = _args(**swap)
+    with pytest.raises(err):
+        Q._check_args(x, wp, scale)
+
+
+def test_check_args_takes_the_kernel_layout():
+    x, wp, scale = _args(M=3)
+    assert Q._check_args(x, wp, scale) == (3, 512, 64, 128)
+    big = torch.zeros(3, 520, dtype=torch.bfloat16)   # row stride 520
+    assert Q._check_args(big[:, 8:520], wp, scale) == (3, 512, 64, 128)

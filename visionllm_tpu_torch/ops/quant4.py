@@ -9,14 +9,19 @@ viewed as int8; one bf16 scale per (group of G input rows, output column).
 `int4_matmul` launches the hand-written CUDA kernel
 (`csrc/int4_matmul.cu`, which replaces the Pallas `_int4_kernel`) for CUDA
 tensors, or raises; it runs its plain version `int4_matmul_plain` only for
-tensors on the CPU. Unlike the JAX package, the kernel takes any output
-width, so `lm_head` (32096 columns) runs it too.
+tensors on the CPU. The kernel is one launch a call: each block walks all
+of K for its output tile (no split-K, no partial buffer), dequantizes
+each packed group in shared memory and runs the products on the tensor
+cores (`mma.sync`), taking the groups, their k-steps and the two scale
+FMAs in the same order for every tile shape, so a row's result does not
+depend on M. Unlike the JAX package, the kernel takes any output width,
+so `lm_head` (32096 columns) runs it too.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
+import functools
 from typing import Optional
 
 import torch
@@ -25,10 +30,6 @@ import torch.nn as nn
 from visionllm_tpu_torch.kernels.build import check, library
 
 GROUP = 128           # input rows per scale group (shrinks for tiny dims)
-# the kernel splits K into slices so that a decode call (one row tile)
-# still fills the card: about this many blocks of 512 columns
-_TARGET_BLOCKS = 264
-_BLOCK_COLS = 512
 # the plain version bounds its [rows, groups, N] fp32 partials to about
 # this many elements per chunk of rows
 _PLAIN_CHUNK_ELEMS = 1 << 28
@@ -99,14 +100,6 @@ def int4_matmul_plain(x: torch.Tensor, wp: torch.Tensor,
     return torch.cat(outs, 0).reshape(*lead, cout)
 
 
-def _n_slices(K: int, N: int, G: int) -> int:
-    """Split-K slice count of the kernel: from K and N only (so the order
-    of a row's sums never depends on M)."""
-    ngh = K // (2 * G)
-    col_tiles = -(-N // _BLOCK_COLS)
-    return max(1, min(ngh, math.ceil(_TARGET_BLOCKS / col_tiles)))
-
-
 def _check_args(x, wp, scale):
     if x.dim() != 2 or wp.dim() != 2 or scale.dim() != 2:
         raise ValueError("int4_matmul: x, wp and scale must be 2-D")
@@ -127,14 +120,29 @@ def _check_args(x, wp, scale):
         raise ValueError(f"int4_matmul: scale {tuple(scale.shape)} does "
                          f"not fit wp {tuple(wp.shape)}")
     G = K // n_groups
-    if K % (2 * G) or not 1 <= G <= GROUP:
+    if K % (2 * G) or G % 16 or not 16 <= G <= GROUP:
         raise ValueError(f"int4_matmul: K={K} must be a multiple of 2*G "
-                         f"with G={G} <= {GROUP}")
+                         f"with G={G} a multiple of 16 up to {GROUP}")
     if x.stride(1) != 1 or not wp.is_contiguous() \
             or not scale.is_contiguous():
         raise ValueError("int4_matmul: x needs a unit column stride; wp "
                          "and scale must be contiguous")
+    # the kernel copies x in 16-byte chunks
+    if x.stride(0) % 8 or x.data_ptr() % 16:
+        raise ValueError(f"int4_matmul: x needs a row stride that is a "
+                         f"multiple of 8 elements (got {x.stride(0)}) and "
+                         f"a 16-byte aligned pointer")
     return M, K, N, G
+
+
+@functools.cache
+def _entry():
+    """The kernel's C entry, its ctypes signature bound once."""
+    fn = library("int4_matmul").int4_matmul_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    return fn
 
 
 def int4_matmul(x: torch.Tensor, wp: torch.Tensor,
@@ -152,15 +160,9 @@ def int4_matmul(x: torch.Tensor, wp: torch.Tensor,
                            "that does not require grad")
     M, K, N, G = _check_args(x, wp, scale)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
-    n_slices = _n_slices(K, N, G)
-    part = torch.empty(n_slices, M, N, dtype=torch.float32, device=x.device)
-    fn = library("int4_matmul").int4_matmul_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    check(fn(x.data_ptr(), x.stride(0), wp.data_ptr(), scale.data_ptr(),
-             part.data_ptr(), out.data_ptr(), M, K, N, G, n_slices,
-             torch.cuda.current_stream(x.device).cuda_stream),
+    check(_entry()(x.data_ptr(), x.stride(0), wp.data_ptr(),
+                   scale.data_ptr(), out.data_ptr(), M, K, N, G,
+                   torch.cuda.current_stream(x.device).cuda_stream),
           "int4_matmul_bf16")
     int4_matmul.launches += 1
     return out
