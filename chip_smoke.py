@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels flash_bwd,msda_bwd   # checks alone
 
 Phases, each printing one JSON line:
 
@@ -16,13 +17,15 @@ Phases, each printing one JSON line:
              call computing the same function (yardstick only; the port
              never calls it); a backward kernel is held against autograd
              of the plain forward, output by output. The flash forward
-             also runs the chat prefill (B4 L640) and a causal L2048. The
-             flash-forward and int4 cases print `device_ms` and
-             `library_device_ms`: device time per call from
-             torch.profiler's kernel events, beside `ms` (CUDA events
-             around back-to-back calls, which for a short kernel include
-             the wrapper's host time), and fail unless a wrapper call is
-             one kernel;
+             also runs the chat prefill (B4 L640) and a causal L2048.
+             Every case prints `device_ms` (and `library_device_ms` where
+             a library call computes the same function): device time per
+             call from torch.profiler's kernel events, one profiler
+             context per check, beside `ms` (CUDA events around
+             back-to-back calls, which for a short kernel include the
+             wrapper's host time); the phase fails unless a flash-forward
+             or int4 call is one kernel and a flash backward call
+             `FLASH_BWD_KERNELS`;
 4. slice   - the det path: builds `VisionLLMWithTools` at full width
              (CLIP-L/336 24 layers, LLaMA-7B 32 layers, Grounding-DINO
              with Swin-T at 512 px) in bf16 with seeded random weights,
@@ -70,6 +73,7 @@ check raises, so the script exits nonzero and prints no ok line.
 
 from __future__ import annotations
 
+import argparse
 import base64
 import functools
 import gc
@@ -143,6 +147,9 @@ TRAIN_DET = 640
 TRAIN_TARGETS = 20
 TRAIN_STEPS = 5
 TRAIN_REL_TOL = 5e-2
+# kernels one `flash_attention_bwd` call launches: Di = rowsum(dO * O),
+# then one grid of the dQ and dK/dV blocks
+FLASH_BWD_KERNELS = 2
 
 
 def emit(obj):
@@ -172,19 +179,22 @@ def cuda_ms(fn, n=20, warmup=3):
     return start.elapsed_time(end) / n
 
 
-def device_ms(fns, n=20, warmup=3, gap_s=0.005):
+def device_ms(fns, n=20, warmup=3, gap_s=0.05):
     """Device time per call of each fn of `fns` (label -> fn), from one
     torch.profiler context (the profiler has lost a context's device
     events once a process had opened a dozen): each fn's n back-to-back
     calls, ended by a synchronize, run inside a `record_function` range
-    of its label, `gap_s` apart; each CUDA kernel counts for the range nearest
-    to its start if it starts within gap_s / 4 of it (the device's clock
-    may sit a few µs off the host's). A range of one warm-up kernel comes
-    first: the profiler once dropped the first kernel of a context.
+    of its label, `gap_s` apart; each CUDA kernel counts for the range
+    nearest to its start if it starts within gap_s / 2 of it. The
+    device's clock may sit off the host's, by over 1.25 ms in one context
+    (64 kernels of a 5 ms gap's ranges fell outside them): with ranges 50
+    ms apart any offset under 25 ms still finds each kernel its range. A
+    range of one warm-up kernel comes first: the profiler once dropped
+    the first kernel of a context.
     Returns per label the summed device ms over n, the kernels counted per
-    call and their names, and the number of kernels that fell in no
-    range. Unlike `cuda_ms` it leaves out the host's time between
-    launches."""
+    call and each kernel name's device ms per call, and the number of
+    kernels that fell in no range. Unlike `cuda_ms` it leaves out the
+    host's time between launches."""
     warm = "device_ms:warm-up"
     for fn in fns.values():
         for _ in range(warmup):
@@ -206,23 +216,47 @@ def device_ms(fns, n=20, warmup=3, gap_s=0.005):
     windows = {e.name: e.time_range for e in events
                if e.name in labels and e.device_type == DeviceType.CPU}
     us, count, stray = dict.fromkeys(labels, 0.0), dict.fromkeys(labels, 0), 0
-    names = {label: set() for label in labels}
+    names = {label: {} for label in labels}     # kernel name -> device us
     for e in events:
         if e.device_type != DeviceType.CUDA or e.name in labels:
             continue                        # the ranges' own annotations
         t = e.time_range.start
         dist, label = min((max(w.start - t, t - w.end, 0), label)
                           for label, w in windows.items())
-        if dist > gap_s * 1e6 / 4:
+        if dist > gap_s * 1e6 / 2:
             stray += 1
             continue
         us[label] += e.device_time_total
         count[label] += 1
-        names[label].add(e.name)
+        names[label][e.name] = names[label].get(e.name, 0.0) + \
+            e.device_time_total
     return {label: {"ms": us[label] / 1e3 / n,
                     "kernels_per_call": count[label] / n,
-                    "kernel_names": sorted(names[label])}
+                    "ms_by_kernel": {k: t / 1e3 / n for k, t in
+                                     sorted(names[label].items())}}
             for label in fns}, stray
+
+
+def device_ms_update(cases, timed):
+    """`device_ms` (and, where `timed` has a ":library" label for the
+    case, `library_device_ms`) of every case from one profiler context,
+    with the kernels a call launches on each side and their names."""
+    dev, stray = device_ms(timed)
+    for case in cases:
+        kern = dev[case["case"] + ":kernel"]
+        case.update(device_ms=kern["ms"],
+                    kernels_per_call=kern["kernels_per_call"],
+                    kernel_names=[k[:90] for k in kern["ms_by_kernel"]],
+                    profiler_stray_kernels=stray)
+        if len(kern["ms_by_kernel"]) > 1:
+            case["device_ms_by_kernel"] = {
+                k[:90]: t for k, t in kern["ms_by_kernel"].items()}
+        libd = dev.get(case["case"] + ":library")
+        if libd is not None:
+            case.update(library_device_ms=libd["ms"],
+                        library_kernels_per_call=libd["kernels_per_call"],
+                        library_kernel_names=[k[:90] for k in
+                                              libd["ms_by_kernel"]])
 
 
 def host_ms(fn, n=N_TIMED):
@@ -340,16 +374,12 @@ def check_attention(g):
             "flops": flops, "bytes": nbytes}
         timed[name + ":kernel"], timed[name + ":library"] = kernel, lib
         cases.append(case)
-    dev, stray = device_ms(timed)
+    device_ms_update(cases, timed)
     for case in cases:
-        kern, libd = (dev[case["case"] + s] for s in (":kernel", ":library"))
         # every wrapper call launches one kernel: each must be counted
-        if kern["kernels_per_call"] != 1:
+        if case["kernels_per_call"] != 1:
             raise AssertionError(f"device_ms[{case['case']}]: "
-                                 f"{kern['kernels_per_call']} kernels a call")
-        case.update(device_ms=kern["ms"], library_device_ms=libd["ms"],
-                    library_kernels_per_call=libd["kernels_per_call"],
-                    profiler_stray_kernels=stray)
+                                 f"{case['kernels_per_call']} kernels a call")
         emit({"phase": "kernel", "kernel": "flash_attn_fwd", **case})
     return cases
 
@@ -385,7 +415,7 @@ def msda_valid_corners(shapes, loc):
 
 
 def check_msda(g):
-    cases = []
+    cases, timed = [], {}
     for name, Q, det in (("encoder", None, DET_SIZE),
                          ("decoder", 900, DET_SIZE),
                          ("train_encoder", None, TRAIN_DET),
@@ -401,25 +431,32 @@ def check_msda(g):
         nbytes = (2 * value.numel() + 4 * loc.numel() + 4 * attw.numel()
                   + 2 * got.numel())
         b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+        kernel = functools.partial(M.ms_deform_attn, value, shapes, loc,
+                                   attw)
         case = {
             "case": name, "shape": {"S": value.shape[1], "Q": loc.shape[1],
                                     "H": 8, "D": D, "L": 4, "P": 4},
             "max_abs_err": err,
-            "ms": cuda_ms(lambda: M.ms_deform_attn(value, shapes, loc, attw)),
+            "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(lambda: M.ms_deform_attn_plain(
                 value, shapes, loc, attw), n=5),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "flops": flops, "bytes": nbytes}
-        emit({"phase": "kernel", "kernel": "ms_deform_attn_fwd", **case})
+        timed[name + ":kernel"] = kernel
         cases.append(case)
+    device_ms_update(cases, timed)
+    for case in cases:
+        emit({"phase": "kernel", "kernel": "ms_deform_attn_fwd", **case})
     return cases
 
 
 def check_attention_bwd(g):
     """The flash backward kernel against autograd of the plain forward,
     at the forward's cases; the library yardstick is the backward of
-    `scaled_dot_product_attention`."""
-    cases = []
+    `scaled_dot_product_attention` through `torch.autograd.grad`. Every
+    case's device time comes from one profiler context, which also counts
+    the kernels a call launches on each side."""
+    cases, timed = [], {}
     for name, q, k, v, causal, seg in attention_cases(g):
         B, L, H, D = q.shape
         Hkv = k.shape[2]
@@ -446,12 +483,8 @@ def check_attention_bwd(g):
         else:
             lib_out = F.scaled_dot_product_attention(qh, kh, vh,
                                                      attn_mask=mask)
-        dout_h = dout.transpose(1, 2)
-
-        def lib():
-            return torch.autograd.grad(lib_out, (qh, kh, vh), dout_h,
-                                       retain_graph=True)
-
+        lib = functools.partial(torch.autograd.grad, lib_out, (qh, kh, vh),
+                                dout.transpose(1, 2), retain_graph=True)
         for n, a, b in zip(("dq", "dk", "dv"), lib(), want):
             check_close(f"sdpa_bwd[{name}].{n}", a.transpose(1, 2), b)
         pairs = sum(attention_pairs(L, causal, seg)) * H
@@ -459,28 +492,39 @@ def check_attention_bwd(g):
         nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel() + \
             (0 if seg is None else seg.numel() * 4)
         b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        kernel = functools.partial(A.flash_attention_bwd, q, k, v, out, dout,
+                                   lse, causal=causal, segment_ids=seg)
         case = {
             "case": name, "shape": [B, L, H, Hkv, D], "causal": causal,
             "segment_ids": seg is not None, "max_abs_err": max(errs.values()),
             "max_abs_err_by_output": errs,
-            "ms": cuda_ms(lambda: A.flash_attention_bwd(
-                q, k, v, out, dout, lse, causal=causal, segment_ids=seg)),
+            "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(lambda: A.flash_attention_bwd_plain(
                 q, k, v, dout, causal=causal, segment_ids=seg), n=5),
             "library_ms": cuda_ms(lib),
             "library": "scaled_dot_product_attention backward",
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
             "bytes": nbytes}
-        emit({"phase": "kernel", "kernel": "flash_attn_bwd", **case})
+        timed[name + ":kernel"], timed[name + ":library"] = kernel, lib
         cases.append(case)
-        del lib_out
+    device_ms_update(cases, timed)
+    del timed                     # and with it the SDPA graphs
+    for case in cases:
+        # every wrapper call launches the design's kernels, and only them
+        if case["kernels_per_call"] != FLASH_BWD_KERNELS or not all(
+                "flash_bwd" in n for n in case["kernel_names"]):
+            raise AssertionError(f"device_ms[{case['case']}]: "
+                                 f"{case['kernels_per_call']} kernels a call "
+                                 f"({case['kernel_names']}), not "
+                                 f"{FLASH_BWD_KERNELS}")
+        emit({"phase": "kernel", "kernel": "flash_attn_bwd", **case})
     return cases
 
 
 def check_msda_bwd(g):
     """The MSDA backward kernel against autograd of the plain forward at
     the 640 px train shapes (no single PyTorch call computes it)."""
-    cases = []
+    cases, timed = [], {}
     for name, Q in (("train_encoder", None), ("train_decoder", 1100)):
         value, shapes, loc, attw = msda_inputs(g, Q, TRAIN_DET)
         Q = loc.shape[1]
@@ -500,28 +544,33 @@ def check_msda_bwd(g):
         nbytes = (2 * 2 * value.numel() + 2 * 4 * loc.numel()
                   + 2 * 4 * attw.numel() + 2 * gout.numel())
         b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+        kernel = functools.partial(M.ms_deform_attn_bwd, value, shapes, loc,
+                                   attw, gout)
         case = {
             "case": name, "shape": {"S": value.shape[1], "Q": Q, "H": 8,
                                     "D": D, "L": 4, "P": 4},
             "max_abs_err": max(errs.values()),
             "max_abs_err_by_output": errs,
             "valid_corners": valid, "atomic_adds": valid * D,
-            "ms": cuda_ms(lambda: M.ms_deform_attn_bwd(
-                value, shapes, loc, attw, gout)),
+            "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(lambda: M.ms_deform_attn_bwd_plain(
                 value, shapes, loc, attw, gout), n=3, warmup=1),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "flops": flops, "bytes": nbytes}
-        emit({"phase": "kernel", "kernel": "ms_deform_attn_bwd", **case})
+        timed[name + ":kernel"] = kernel
         cases.append(case)
+    device_ms_update(cases, timed)
+    for case in cases:
+        emit({"phase": "kernel", "kernel": "ms_deform_attn_bwd", **case})
     return cases
 
 
 def check_gathers():
     """The two gather probes' kernels against their plain versions at the
     probe's shapes (exact), with `torch.gather` / `torch.index_select` as
-    the library yardsticks."""
-    lane, row = [], []
+    the library yardsticks; device times of both probes from one profiler
+    context."""
+    lane, row, timed = [], [], {}
     for E in probes.LANE_EXTENTS:
         v, idx = probes.lane_inputs(E, "cuda")
         idx64 = idx.long()
@@ -533,14 +582,17 @@ def check_gathers():
             raise AssertionError(f"lane_gather[{E}] differs from plain")
         nbytes = 3 * 4 * v.numel()
         b_ms, b_by = bound(nbytes, 0, FP32_FLOPS)
+        kernel = functools.partial(G.lane_gather, v, idx)
+        lib = functools.partial(torch.gather, v, 1, idx64)
         case = {"case": f"extent_{E}", "shape": list(v.shape),
                 "max_abs_err": err,
-                "ms": cuda_ms(lambda: G.lane_gather(v, idx)),
+                "ms": cuda_ms(kernel),
                 "plain_ms": cuda_ms(lambda: G.lane_gather_plain(v, idx)),
-                "library_ms": cuda_ms(lambda: torch.gather(v, 1, idx64)),
+                "library_ms": cuda_ms(lib),
                 "library": "torch.gather", "bound_ms": b_ms,
                 "bound_by": b_by, "bytes": nbytes}
-        emit({"phase": "kernel", "kernel": "lane_gather", **case})
+        timed[case["case"] + ":kernel"] = kernel
+        timed[case["case"] + ":library"] = lib
         lane.append(case)
     for n in (8192, probes.N):
         table, idx = probes.row_inputs(n, "cuda")
@@ -555,8 +607,10 @@ def check_gathers():
             # 4 MB table sits in L2 for the repeated row reads)
             nbytes = 2 * table.numel() + 4 * n + 2 * got.numel()
             b_ms, b_by = bound(nbytes, 0, BF16_TENSOR_FLOPS)
-            ms = cuda_ms(lambda: G.row_gather(table, idx, rpb))
-            lib_ms = cuda_ms(lambda: torch.index_select(table, 0, idx))
+            kernel = functools.partial(G.row_gather, table, idx, rpb)
+            lib = functools.partial(torch.index_select, table, 0, idx)
+            ms = cuda_ms(kernel)
+            lib_ms = cuda_ms(lib)
             case = {"case": f"n{n}_rpb{rpb}", "shape": [n, *table.shape],
                     "max_abs_err": err, "ms": ms,
                     "plain_ms": cuda_ms(lambda: G.row_gather_plain(table,
@@ -565,8 +619,14 @@ def check_gathers():
                     "rows_per_s": n / (ms * 1e-3),
                     "library_rows_per_s": n / (lib_ms * 1e-3),
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
-            emit({"phase": "kernel", "kernel": "row_gather", **case})
+            timed[case["case"] + ":kernel"] = kernel
+            timed[case["case"] + ":library"] = lib
             row.append(case)
+    device_ms_update(lane + row, timed)
+    for case in lane:
+        emit({"phase": "kernel", "kernel": "lane_gather", **case})
+    for case in row:
+        emit({"phase": "kernel", "kernel": "row_gather", **case})
     return lane, row
 
 
@@ -632,19 +692,14 @@ def check_int4(g):
         cases.append(case)
     # device time per call, all cases in one profiler session (the
     # rotated copies stay alive until it ends)
-    dev, stray = device_ms(timed)
+    device_ms_update(cases, timed)
     for case in cases:
-        kern, libd = (dev[case["case"] + s] for s in (":kernel", ":library"))
-        case.update(device_ms=kern["ms"], library_device_ms=libd["ms"],
-                    kernels_per_call=kern["kernels_per_call"],
-                    library_kernels_per_call=libd["kernels_per_call"],
-                    profiler_stray_kernels=stray)
         emit({"phase": "kernel", "kernel": "int4_matmul", **case})
     for case in cases:
         # one kernel a call: no split-K partials, no second pass. Every
         # kernel in a case's range is the int4 kernel, at most one a call
         # (fewer only where the profiler dropped an event)
-        names = dev[case["case"] + ":kernel"]["kernel_names"]
+        names = case["kernel_names"]
         if not (0 < case["kernels_per_call"] <= 1 and names
                 and all("int4_mma_kernel" in k for k in names)):
             raise AssertionError(f"device_ms[{case['case']}]: "
@@ -1361,12 +1416,31 @@ def kernel_entry(name, source, replaces, launches, cases, main_case):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "main_case": main_case,
-            **{k: main[k] for k in ("device_ms", "library_device_ms")
+            **{k: main[k] for k in ("device_ms", "kernels_per_call",
+                                    "library_device_ms",
+                                    "library_kernels_per_call")
                if k in main},
             "cases": cases}
 
 
-def main() -> int:
+# the kernel phase's checks by name, for `--kernels`
+KERNEL_CHECKS = {"flash_fwd": check_attention,
+                 "flash_bwd": check_attention_bwd,
+                 "msda_fwd": check_msda, "msda_bwd": check_msda_bwd,
+                 "int4": check_int4, "gathers": lambda g: check_gathers()}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--kernels", help="comma-separated kernel checks to run alone, of "
+        f"{', '.join(KERNEL_CHECKS)}: the device and build phases, those "
+        "checks, the nvidia-smi line, and no model phase and no ok line")
+    args = parser.parse_args(argv)
+    only = args.kernels.split(",") if args.kernels else []
+    unknown = set(only) - set(KERNEL_CHECKS)
+    if unknown:
+        parser.error(f"unknown kernel checks {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1380,10 +1454,16 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "kernels": list(build.KERNELS),
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if "registers" in ln or "spill" in ln
+                        or "Function properties" in ln]
                     for k, v in build.build_log.items()}})
 
     g = torch.Generator(device="cuda").manual_seed(0)
+    if only:
+        for name in only:
+            KERNEL_CHECKS[name](g)
+        print(smi, flush=True)
+        return 0
     attn_cases = check_attention(g)
     attn_bwd_cases = check_attention_bwd(g)
     msda_cases = check_msda(g)

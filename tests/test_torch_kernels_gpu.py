@@ -275,6 +275,23 @@ def test_flash_bwd_kernel_matches_autograd_of_plain(cuda, name):
         _close(g, w)
 
 
+@pytest.mark.parametrize("name", ["causal_d128", "gqa", "segments",
+                                  "lq100_lk300", "long_d128"])
+def test_flash_bwd_kernel_is_deterministic(cuda, name):
+    """Two backward calls on the same inputs give bit-identical dq, dk and
+    dv: no atomics, every sum in a fixed order (GQA's over the group's
+    heads too)."""
+    q, k, v, dout, seg, causal = _flash_case(name, 100, cuda, True)
+    B, L, H, _ = q.shape
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=cuda)
+    out = A._launch_fwd(q, k, v, causal, seg, lse)
+    runs = [A.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                  segment_ids=seg) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("Q", [1100, 37, 1])
 def test_msda_bwd_kernel_matches_autograd_of_plain(cuda, Q):
     rng = np.random.default_rng(200 + Q)

@@ -208,10 +208,11 @@ def flash_attention_bwd_plain(q, k, v, dout, *, causal=False,
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=False,
                         segment_ids=None):
-    """(dq, dk, dv) through the backward kernel `csrc/flash_attn_bwd.cu`,
-    given the forward's output `out` and row logsumexp `lse` (fp32
-    [B, H, Lq]). CPU tensors take `flash_attention_bwd_plain` (which needs
-    neither `out` nor `lse`)."""
+    """(dq, dk, dv) through the backward kernels `csrc/flash_attn_bwd.cu`
+    (Di = rowsum(dO * O) into a scratch buffer, then one grid of the dQ
+    and dK/dV blocks: two launches, one count), given the forward's output
+    `out` and row logsumexp `lse` (fp32 [B, H, Lq]). CPU tensors take
+    `flash_attention_bwd_plain` (which needs neither `out` nor `lse`)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
                                          segment_ids=segment_ids)
@@ -225,8 +226,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=False,
     if lse.dtype != torch.float32 or lse.shape != (B, H, Lq):
         raise ValueError(f"flash_attention_bwd: lse must be fp32 "
                          f"{(B, H, Lq)}")
-    q, k, v, out, dout, lse = (t.contiguous()
-                               for t in (q, k, v, out, dout, lse))
+    # the kernels read out and dout by 16-byte copies, as q, k and v
+    q, k, v, out, dout, lse = (
+        t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+            memory_format=torch.contiguous_format)
+        for t in (q, k, v, out, dout, lse))
     seg = _segments_on(q, segment_ids)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     di = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
