@@ -25,7 +25,11 @@ Phases, each printing one JSON line:
              back-to-back calls, which for a short kernel include the
              wrapper's host time); the phase fails unless a flash-forward
              or int4 call is one kernel and a flash backward call
-             `FLASH_BWD_KERNELS`;
+             `FLASH_BWD_KERNELS`. The MSDA cases add inputs of the model's
+             own sampling, captured from a warm det request and a train
+             step (`captured_*`; each capture builds its model), and time
+             the grid_sample composition (`composite_*`) where no single
+             library call computes MSDA;
 4. slice   - the det path: builds `VisionLLMWithTools` at full width
              (CLIP-L/336 24 layers, LLaMA-7B 32 layers, Grounding-DINO
              with Swin-T at 512 px) in bf16 with seeded random weights,
@@ -238,9 +242,10 @@ def device_ms(fns, n=20, warmup=3, gap_s=0.05):
 
 
 def device_ms_update(cases, timed):
-    """`device_ms` (and, where `timed` has a ":library" label for the
-    case, `library_device_ms`) of every case from one profiler context,
-    with the kernels a call launches on each side and their names."""
+    """`device_ms` (and, where `timed` has a ":library" or ":composite"
+    label for the case, `library_device_ms` or `composite_device_ms`) of
+    every case from one profiler context, with the kernels a call launches
+    on each side and their names."""
     dev, stray = device_ms(timed)
     for case in cases:
         kern = dev[case["case"] + ":kernel"]
@@ -251,6 +256,10 @@ def device_ms_update(cases, timed):
         if len(kern["ms_by_kernel"]) > 1:
             case["device_ms_by_kernel"] = {
                 k[:90]: t for k, t in kern["ms_by_kernel"].items()}
+        comp = dev.get(case["case"] + ":composite")
+        if comp is not None:
+            case.update(composite_device_ms=comp["ms"],
+                        composite_kernels_per_call=comp["kernels_per_call"])
         libd = dev.get(case["case"] + ":library")
         if libd is not None:
             case.update(library_device_ms=libd["ms"],
@@ -399,6 +408,112 @@ def msda_inputs(g, Q=None, det=DET_SIZE):
     return value, shapes, loc, attw
 
 
+def msda_uniform_cases(g, bwd):
+    """(name, value, shapes, loc, attw[, grad_out]) at the main-path
+    shapes, locations spread uniformly over (and past) every map: the
+    512 px det request's encoder and decoder (forward only) and the 640 px
+    train step's."""
+    specs = [("train_encoder", None, TRAIN_DET),
+             ("train_decoder", 1100, TRAIN_DET)]
+    if not bwd:
+        specs = [("encoder", None, DET_SIZE),
+                 ("decoder", 900, DET_SIZE)] + specs
+    for name, Q, det in specs:
+        value, shapes, loc, attw = msda_inputs(g, Q, det)
+        if bwd:
+            gout = torch.randn(1, loc.shape[1], 256, generator=g,
+                               device="cuda").to(torch.bfloat16)
+            yield name, value, shapes, loc, attw, gout
+        else:
+            yield name, value, shapes, loc, attw
+
+
+class MSDARecorder:
+    """Wraps an MSDA wrapper (forward or backward) and keeps a copy of the
+    arguments of its first encoder call (Q == S) and its first decoder
+    call, then calls it. Its `launches` is the wrapped wrapper's, which
+    the kernel path counts through the name this object replaces."""
+
+    def __init__(self, fn, prefix):
+        self.fn, self.prefix, self.calls = fn, prefix, {}
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, value, shapes, loc, attw, *rest):
+        kind = "encoder" if loc.shape[1] == value.shape[1] else "decoder"
+        if self.prefix + kind not in self.calls:
+            self.calls[self.prefix + kind] = tuple(
+                t.detach().clone() if torch.is_tensor(t) else t
+                for t in (value, shapes, loc, attw, *rest))
+        return self.fn(value, shapes, loc, attw, *rest)
+
+
+def captured_msda_fwd():
+    """The MSDA inputs of the model's own sampling: the first encoder and
+    decoder call of a warm det request (the slice phase's model, seed 0,
+    and first request), recorded around `M.ms_deform_attn`."""
+    cfg = vllm_7b_det_config()
+    tid = SpecialTokenIds.synthetic()
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    ids, images, aug = make_requests(
+        cfg, tid, torch.Generator(device="cuda").manual_seed(1))[0]
+    rec = MSDARecorder(M.ms_deform_attn, "captured_det_")
+    with torch.no_grad():
+        model.infer_det(ids, images, aug, tid)            # warm
+        with mock.patch.object(M, "ms_deform_attn", rec):
+            model.infer_det(ids, images, aug, tid)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [(name, *args) for name, args in sorted(rec.calls.items())]
+
+
+def captured_msda_bwd():
+    """The MSDA backward's inputs in the model's own train step (the train
+    phase's model, batch and first step): the first encoder and decoder
+    call of the backward, with the grad_out that reaches it, recorded
+    around `M.ms_deform_attn_bwd`."""
+    cfg, tid, model, state, step = build_train()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batch = train_batch(cfg, tid, g)
+    rec = MSDARecorder(M.ms_deform_attn_bwd, "captured_train_")
+    with mock.patch.object(M, "ms_deform_attn_bwd", rec):
+        step(state, batch, generator=g)
+    del model, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [(name, *args) for name, args in sorted(rec.calls.items())]
+
+
+def msda_composite(value, shapes, loc, attw):
+    """MSDA composed of PyTorch calls as Deformable DETR's
+    `ms_deform_attn_core_pytorch` does it: one `F.grid_sample(bilinear,
+    zeros, align_corners=False)` per level on [B H, D, h, w] maps and an
+    attention-weighted sum, in fp32 -> [B, Q, H D] fp32. A yardstick
+    only: the port never calls it."""
+    B, S, H, D = value.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    grids = 2 * loc - 1
+    sampled, pos = [], 0
+    for lvl, (h, w) in enumerate(shapes):
+        v = value[:, pos:pos + h * w].float().permute(0, 2, 3, 1).reshape(
+            B * H, D, h, w)
+        pos += h * w
+        grid = grids[:, :, :, lvl].transpose(1, 2).reshape(B * H, Q, P, 2)
+        sampled.append(F.grid_sample(v, grid, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=False))  # [BH, D, Q, P]
+    a = attw.transpose(1, 2).reshape(B * H, 1, Q, L * P)
+    out = (torch.stack(sampled, -2).flatten(-2) * a).sum(-1)
+    return out.reshape(B, H * D, Q).transpose(1, 2)
+
+
 def msda_valid_corners(shapes, loc):
     """Corner samples inside the map: what this input's gathers need."""
     n = 0
@@ -414,17 +529,43 @@ def msda_valid_corners(shapes, loc):
     return n
 
 
+def msda_shape(value, loc):
+    B, S, H, D = value.shape
+    return {"B": B, "S": S, "Q": loc.shape[1], "H": H, "D": D,
+            "L": loc.shape[3], "P": loc.shape[4]}
+
+
+def check_msda_calls(cases, kernel_name, want_kernels):
+    """Each MSDA case's call launches only the design's kernels:
+    `want_kernels` kernels a call at most (fewer only where the profiler
+    dropped an event), all of them the port's or memsets."""
+    for case in cases:
+        names = case["kernel_names"]
+        if not (0 < case["kernels_per_call"] <= want_kernels and all(
+                kernel_name in n or "cast_bf16_kernel" in n
+                or "Memset" in n for n in names)):
+            raise AssertionError(f"device_ms[{case['case']}]: "
+                                 f"{case['kernels_per_call']} kernels a call: "
+                                 f"{names}")
+
+
 def check_msda(g):
+    """The MSDA forward kernel against the plain version at the main-path
+    shapes, on uniform locations and on the inputs captured from a det
+    request; each output also bit-identical across two calls. The
+    grid_sample composition is the yardstick (`composite_*`)."""
     cases, timed = [], {}
-    for name, Q, det in (("encoder", None, DET_SIZE),
-                         ("decoder", 900, DET_SIZE),
-                         ("train_encoder", None, TRAIN_DET),
-                         ("train_decoder", 1100, TRAIN_DET)):
-        value, shapes, loc, attw = msda_inputs(g, Q, det)
+    inputs = list(msda_uniform_cases(g, bwd=False)) + captured_msda_fwd()
+    for name, value, shapes, loc, attw in inputs:
         got = M.ms_deform_attn(value, shapes, loc, attw)
+        again = M.ms_deform_attn(value, shapes, loc, attw)
         want = M.ms_deform_attn_plain(value, shapes, loc, attw)
+        comp = functools.partial(msda_composite, value, shapes, loc, attw)
         torch.cuda.synchronize()
         err = check_close(f"ms_deform_attn[{name}]", got, want)
+        if not torch.equal(got, again):
+            raise AssertionError(f"ms_deform_attn[{name}]: two calls differ")
+        comp_err = check_close(f"msda_composite[{name}]", comp(), want)
         D = value.shape[3]
         n_loc = attw.numel()
         flops = 2 * D * msda_valid_corners(shapes, loc) + 20 * n_loc
@@ -434,19 +575,23 @@ def check_msda(g):
         kernel = functools.partial(M.ms_deform_attn, value, shapes, loc,
                                    attw)
         case = {
-            "case": name, "shape": {"S": value.shape[1], "Q": loc.shape[1],
-                                    "H": 8, "D": D, "L": 4, "P": 4},
-            "max_abs_err": err,
+            "case": name, "shape": msda_shape(value, loc),
+            "max_abs_err": err, "repeat_bit_identical": True,
             "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(lambda: M.ms_deform_attn_plain(
                 value, shapes, loc, attw), n=5),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "composite_ms": cuda_ms(comp),
+            "composite_max_abs_err": comp_err,
+            "composite": "F.grid_sample per level + weighted sum",
+            "bound_ms": b_ms, "bound_by": b_by,
             "flops": flops, "bytes": nbytes}
-        timed[name + ":kernel"] = kernel
+        timed[name + ":kernel"], timed[name + ":composite"] = kernel, comp
         cases.append(case)
     device_ms_update(cases, timed)
+    del timed, inputs
     for case in cases:
         emit({"phase": "kernel", "kernel": "ms_deform_attn_fwd", **case})
+    check_msda_calls(cases, "msda_fwd", 1)
     return cases
 
 
@@ -523,19 +668,41 @@ def check_attention_bwd(g):
 
 def check_msda_bwd(g):
     """The MSDA backward kernel against autograd of the plain forward at
-    the 640 px train shapes (no single PyTorch call computes it)."""
+    the 640 px train shapes, on uniform locations and on the inputs (and
+    grad_out) captured from a train step; grad_loc and grad_attw
+    bit-identical across two calls, grad_value's spread across them
+    reported (fp32 atomics). The yardstick is autograd of the grid_sample
+    composition (`composite_*`)."""
     cases, timed = [], {}
-    for name, Q in (("train_encoder", None), ("train_decoder", 1100)):
-        value, shapes, loc, attw = msda_inputs(g, Q, TRAIN_DET)
-        Q = loc.shape[1]
-        gout = torch.randn(1, Q, 256, generator=g, device="cuda").to(
-            torch.bfloat16)
+    inputs = list(msda_uniform_cases(g, bwd=True)) + captured_msda_bwd()
+    names = ("grad_value", "grad_loc", "grad_attw")
+    for name, value, shapes, loc, attw, gout in inputs:
         got = M.ms_deform_attn_bwd(value, shapes, loc, attw, gout)
+        again = M.ms_deform_attn_bwd(value, shapes, loc, attw, gout)
         want = M.ms_deform_attn_bwd_plain(value, shapes, loc, attw, gout)
         torch.cuda.synchronize()
         errs = {n: check_close(f"ms_deform_attn_bwd[{name}].{n}", a, b)
-                for n, a, b in zip(("grad_value", "grad_loc", "grad_attw"),
-                                   got, want)}
+                for n, a, b in zip(names, got, want)}
+        for n, a, b in zip(names[1:], got[1:], again[1:]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"ms_deform_attn_bwd[{name}].{n}: two "
+                                     "calls differ")
+        spread = (got[0].float() - again[0].float()).abs()
+        ins = [value.float().requires_grad_(), loc.clone().requires_grad_(),
+               attw.clone().requires_grad_()]
+        comp_out = msda_composite(ins[0], shapes, ins[1], ins[2])
+        comp = functools.partial(torch.autograd.grad, comp_out, ins,
+                                 gout.float(), retain_graph=True)
+        # grad_loc jumps where a location crosses a cell edge, and
+        # grid_sample's pixel ((2 t - 1 + 1) W - 1) / 2 rounds otherwise
+        # than t W - 0.5 there: its grad_loc error is reported, not held
+        comp_got = comp()
+        comp_errs = {n: (a.float() - b.float()).abs().max().item()
+                     for n, a, b in zip(names, comp_got, want)}
+        for i in (0, 2):
+            check_close(f"msda_composite_bwd[{name}].{names[i]}",
+                        comp_got[i], want[i])
+        del comp_got
         D = value.shape[3]
         valid = msda_valid_corners(shapes, loc)
         # per valid corner and channel: the value-gradient product and
@@ -547,21 +714,29 @@ def check_msda_bwd(g):
         kernel = functools.partial(M.ms_deform_attn_bwd, value, shapes, loc,
                                    attw, gout)
         case = {
-            "case": name, "shape": {"S": value.shape[1], "Q": Q, "H": 8,
-                                    "D": D, "L": 4, "P": 4},
+            "case": name, "shape": msda_shape(value, loc),
             "max_abs_err": max(errs.values()),
             "max_abs_err_by_output": errs,
-            "valid_corners": valid, "atomic_adds": valid * D,
+            "grad_value_repeat_max_abs_diff": spread.max().item(),
+            "grad_value_repeat_elements_differing":
+                int((spread > 0).sum().item()),
+            "valid_corners": valid, "vector_reductions": valid * D // 4,
             "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(lambda: M.ms_deform_attn_bwd_plain(
                 value, shapes, loc, attw, gout), n=3, warmup=1),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "composite_ms": cuda_ms(comp),
+            "composite_max_abs_err_by_output": comp_errs,
+            "composite": "autograd of F.grid_sample per level + weighted sum",
+            "bound_ms": b_ms, "bound_by": b_by,
             "flops": flops, "bytes": nbytes}
-        timed[name + ":kernel"] = kernel
+        timed[name + ":kernel"], timed[name + ":composite"] = kernel, comp
         cases.append(case)
     device_ms_update(cases, timed)
+    del timed, inputs
     for case in cases:
         emit({"phase": "kernel", "kernel": "ms_deform_attn_bwd", **case})
+    # the memset of the fp32 scratch, the kernel, the cast to bf16
+    check_msda_calls(cases, "msda_bwd", 3)
     return cases
 
 
@@ -977,17 +1152,24 @@ def plain_backwards():
     return stack
 
 
-def run_train():
-    torch.cuda.reset_peak_memory_stats()
+def build_train():
+    """The train phase's model (seed 0), optimizer, state and step: the
+    stage-1 frozen `vllm_7b_det_config()`."""
     cfg = vllm_7b_det_config()
     tid = SpecialTokenIds.synthetic()
-    t = time.perf_counter()
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     # reference stage 1: vision encoder and LLM frozen
     frozen = frozen_predicate(TrainConfig(freeze_llm=True), cfg)
     tx = build_optimizer(OptimizerConfig(total_steps=1000), model, frozen)
     state = TrainState.create(model, tx, frozen)
     step = make_det_train_step(model, tx, tid, frozen)
+    return cfg, tid, model, state, step
+
+
+def run_train():
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    cfg, tid, model, state, step = build_train()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     n_params = sum(p.numel() for p in model.parameters())
@@ -1418,7 +1600,8 @@ def kernel_entry(name, source, replaces, launches, cases, main_case):
             "library_ms": main["library_ms"], "main_case": main_case,
             **{k: main[k] for k in ("device_ms", "kernels_per_call",
                                     "library_device_ms",
-                                    "library_kernels_per_call")
+                                    "library_kernels_per_call",
+                                    "composite_ms", "composite_device_ms")
                if k in main},
             "cases": cases}
 
@@ -1497,7 +1680,7 @@ def main(argv=None) -> int:
             ("ms_deform_attn_fwd",
              "visionllm_tpu_torch/csrc/ms_deform_attn_fwd.cu",
              "visionllm_tpu/ops/ms_deform_attn.py:212", msda_cases,
-             "encoder"),
+             "captured_det_encoder"),
             ("int4_matmul", "visionllm_tpu_torch/csrc/int4_matmul.cu",
              "visionllm_tpu/ops/quant4.py:112", int4_cases,
              "decode_m4_4096x11008"),
@@ -1510,7 +1693,7 @@ def main(argv=None) -> int:
              "visionllm_tpu_torch/csrc/ms_deform_attn_bwd.cu",
              "visionllm_tpu/ops/ms_deform_attn.py:212 (the gradient of "
              "_msda_kernel's op, autodiff of :99 and :314)", msda_bwd_cases,
-             "train_encoder"),
+             "captured_train_encoder"),
             ("lane_gather", "visionllm_tpu_torch/csrc/gather_probes.cu",
              "tools/msda_kernel_attempts.py:34", lane_cases, "extent_256"),
             ("row_gather", "visionllm_tpu_torch/csrc/gather_probes.cu",

@@ -191,6 +191,119 @@ def test_msda_kernel_far_and_nonfinite_locations_are_zero(cuda):
     assert torch.count_nonzero(got) == 0
 
 
+# (D, level shapes, P) of the generic kernel instance (the specialised one
+# is D 32, L 4, P 4): a sample group of 8, 2, 3 and 5 threads (D 64, 16,
+# 24, 40), odd level sizes, and a head row wider than a warp's 32 chunks
+MSDA_GENERIC = {
+    "d64_l1_p2": (64, ((13, 17),), 2),
+    "d16_l3_p3": (16, ((7, 9), (5, 3), (1, 1)), 3),
+    "d24_l2_p5": (24, ((6, 11), (3, 6)), 5),
+    "d40_l8_p1": (40, ((9, 9), (8, 7), (6, 5), (5, 4), (4, 3), (3, 2),
+                       (2, 2), (1, 1)), 1),
+    "d264_l2_p3": (264, ((5, 6), (2, 3)), 3),
+}
+
+
+def _msda_case(rng, dev, D, shapes, P, Q=29, B=2, H=3):
+    S = sum(h * w for h, w in shapes)
+    L = len(shapes)
+    value = _bf16(rng, dev, B, S, H, D)
+    loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (B, Q, H, L, P, 2))
+                           .astype(np.float32)).to(dev)
+    attw = torch.from_numpy(rng.random((B, Q, H, L, P)).astype(np.float32)
+                            ).to(dev)
+    gout = _bf16(rng, dev, B, Q, H * D)
+    return value, loc, attw, gout
+
+
+@pytest.mark.parametrize("name", list(MSDA_GENERIC))
+def test_msda_generic_instance_matches_plain(cuda, name):
+    """The generic instance (any D that is a multiple of 8, any L <= 8 and
+    P), forward and backward, one launch a call each."""
+    D, shapes, P = MSDA_GENERIC[name]
+    rng = np.random.default_rng(list(MSDA_GENERIC).index(name) + 300)
+    value, loc, attw, gout = _msda_case(rng, cuda, D, shapes, P)
+    n, nb = M.ms_deform_attn.launches, M.ms_deform_attn_bwd.launches
+    got = M.ms_deform_attn(value, shapes, loc, attw)
+    gots = M.ms_deform_attn_bwd(value, shapes, loc, attw, gout)
+    assert (M.ms_deform_attn.launches, M.ms_deform_attn_bwd.launches) \
+        == (n + 1, nb + 1)
+    want = M.ms_deform_attn_plain(value, shapes, loc, attw)
+    wants = M.ms_deform_attn_bwd_plain(value, shapes, loc, attw, gout)
+    torch.cuda.synchronize()
+    _close(got, want)
+    for g, w in zip(gots, wants):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close(g, w)
+
+
+@pytest.mark.parametrize("D,shapes,P,Q,B", [
+    (32, SHAPES, 4, 2100, 2),
+    (16, ((40, 40), (20, 20), (9, 11), (5, 5)), 3, 2049, 1),
+    (32, ((3, 3), (1, 1)), 1, 4000, 1)],
+    ids=["specialised_b2", "generic", "all_coarse"])
+def test_msda_bwd_privatised_matches_plain(cuda, D, shapes, P, Q, B):
+    """Calls with 2048 queries or more sum the coarse levels' grad_value
+    rows in shared memory per (batch, head, query tile) and add them to
+    the output once per block: the same gradients as the plain backward,
+    at a batch of two, a generic shape, and one whose every level is
+    coarse (a level smaller than a sample group's reach)."""
+    rng = np.random.default_rng(Q)
+    value, loc, attw, gout = _msda_case(rng, cuda, D, shapes, P, Q=Q, B=B,
+                                        H=8)
+    n = M.ms_deform_attn_bwd.launches
+    gots = M.ms_deform_attn_bwd(value, shapes, loc, attw, gout)
+    assert M.ms_deform_attn_bwd.launches == n + 1
+    wants = M.ms_deform_attn_bwd_plain(value, shapes, loc, attw, gout)
+    torch.cuda.synchronize()
+    for g, w in zip(gots, wants):
+        _close(g, w)
+
+
+def test_msda_kernels_take_misaligned_views(cuda):
+    """A value view 2 bytes past a 16-byte boundary (and locations 4
+    bytes past one) breaks the kernels' vector loads: the wrapper copies
+    it, and both kernels still match the plain version."""
+    rng = np.random.default_rng(11)
+    value, loc, attw, gout = _msda_case(rng, cuda, 32, SHAPES, 4, Q=40,
+                                        B=1, H=8)
+    vbuf = torch.empty(value.numel() + 1, dtype=value.dtype, device=cuda)
+    vbuf[1:] = value.flatten()
+    lbuf = torch.empty(loc.numel() + 1, dtype=loc.dtype, device=cuda)
+    lbuf[1:] = loc.flatten()
+    value_v, loc_v = vbuf[1:].view(value.shape), lbuf[1:].view(loc.shape)
+    assert value_v.data_ptr() % 16 and loc_v.data_ptr() % 16
+    got = M.ms_deform_attn(value_v, SHAPES, loc_v, attw)
+    gots = M.ms_deform_attn_bwd(value_v, SHAPES, loc_v, attw, gout)
+    torch.cuda.synchronize()
+    _close(got, M.ms_deform_attn_plain(value, SHAPES, loc, attw))
+    for g, w in zip(gots, M.ms_deform_attn_bwd_plain(value, SHAPES, loc,
+                                                     attw, gout)):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("D,shapes,P,Q", [
+    (32, SHAPES, 4, 900), (*MSDA_GENERIC["d16_l3_p3"], 900),
+    (32, SHAPES, 4, 5440)], ids=["specialised", "generic", "privatised"])
+def test_msda_kernels_repeat(cuda, D, shapes, P, Q):
+    """Two calls on the same inputs: the forward bit-identical (a fixed
+    order of sums); in the backward grad_loc and grad_attw bit-identical,
+    and grad_value, summed by fp32 atomics in an order that changes from
+    run to run, only within the kernels' tolerance of each other (not
+    bitwise)."""
+    rng = np.random.default_rng(12)
+    value, loc, attw, gout = _msda_case(rng, cuda, D, shapes, P, Q=Q,
+                                        B=1, H=8)
+    outs = [M.ms_deform_attn(value, shapes, loc, attw) for _ in range(2)]
+    grads = [M.ms_deform_attn_bwd(value, shapes, loc, attw, gout)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*outs)
+    _close(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+    assert torch.equal(grads[0][2], grads[1][2])
+
+
 def _int4_weights(rng, dev, K, N):
     w = torch.from_numpy(rng.normal(0, 0.05, (K, N)).astype(np.float32))
     wp, scale = Q.pack_int4(w.to(dev))

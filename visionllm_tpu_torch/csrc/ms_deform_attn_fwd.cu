@@ -9,81 +9,103 @@
 // align_corners=False). Locations and weights are fp32; the sum is fp32.
 //
 // Bound on an H100: the op is a data-dependent gather. At the 512 px det
-// shapes (S = 5440, H = 8, D = 32, L = 4, P = 4) the bf16 value table is
-// 2.8 MB per image, far inside the 50 MB L2, so the 4 x L x P gathers of
-// 64-byte rows per (b, q, h) hit L2: the kernel is bound by gather and
-// instruction issue, not by device-memory bytes (the unique bytes are
-// value + loc + attw + out, read or written once).
+// shapes (S = 5440, H = 8, D = 32, L = 4, P = 4) the unique bytes (value,
+// loc, attw, out, each once) are 14 MB, 4.2 us at 3.35 TB/s; the gathered
+// bytes are 4 corners x L x P rows of 64 bytes per (b, q, h), ~178 MB,
+// and they come from L1 and L2 (the 2.8 MB value table sits in the 50 MB
+// L2). So load latency and instruction issue set the pace, not bytes.
 //
-// Design: one warp per (b, q, h), lane = channel of the head dim, so the
-// four corner reads of a sample are 64-byte coalesced row reads across
-// the warp. Every lane computes the (same) corner geometry from the fp32
-// location, so loc / attw reads are warp-wide broadcasts. Validity is
-// decided on the float coordinates before any int conversion, so far
-// out-of-range or non-finite locations contribute zero. Level shapes and
-// start offsets are passed by value as small int arrays.
+// Design (msda_layout.cuh): one warp per (b, q, h) item. A thread owns 8
+// channels and reads a corner as one 16-byte load; the D / 8 threads of
+// a sample group cover a head row, and the warp holds 32 / (D / 8) sample
+// groups (8 at D = 32), so the L x P samples of an item take a few rounds
+// (2 at L = P = 4). A thread loads its sample's location and weight
+// itself (the group's threads read the same addresses, so a warp's loads
+// are one 64-byte and one 32-byte transaction a round), computes that sample's geometry once, and in the specialised instance
+// issues every corner load of every round before the first FMA: two
+// memory latencies per item. Validity is decided on the float coordinates
+// before any int conversion, so far out-of-range or non-finite locations
+// contribute zero. The per-group partial sums are added across the groups
+// by shuffles in a fixed order (the output is bit-identical from run to
+// run), rounded to bf16 once, and each thread of group 0 writes one
+// 16-byte chunk.
+//
+// A block holds 8 items in (b, q, h) order: one query's 8 heads at H 8,
+// whose samples fall near one another (blocks of 8 queries of one head
+// measured slower on an H100 at the encoders, no faster at the decoders).
+//
+// Instances: <D 32, L 4, P 4> (Grounding-DINO's encoder and decoder),
+// compiled with every loop bound constant; <0, 0, 0> takes any D that is
+// a multiple of 8, L <= 8 and any P at run time, one round at a time.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "msda_layout.cuh"
 
 namespace {
 
-constexpr int MAX_LEVELS = 8;
-constexpr int WARPS = 8;
+using namespace msda;
 
-struct Levels {
-  int h[MAX_LEVELS];
-  int w[MAX_LEVELS];
-  int start[MAX_LEVELS];
-};
-
+template <int kD, int kL, int kP>
 __global__ void __launch_bounds__(32 * WARPS)
 msda_fwd_kernel(const __nv_bfloat16* __restrict__ value,
                 const float* __restrict__ loc,
                 const float* __restrict__ attw,
                 __nv_bfloat16* __restrict__ out, Levels lv, int Q, int S,
-                int H, int D, int L, int P, long long n_items) {
-  const int lane = threadIdx.x;
-  const long long item = static_cast<long long>(blockIdx.x) * WARPS + threadIdx.y;
+                int H, int D_, int L_, int P_, long long n_items) {
+  using K = Instance<kD, kL, kP>;
+  const int D = kD ? kD : D_, L = kL ? kL : L_, P = kP ? kP : P_;
+  __shared__ LevelGeom geom[MAX_LEVELS];
+  load_levels(geom, lv, L);
+  const long long item =
+      static_cast<long long>(blockIdx.x) * WARPS + threadIdx.y;
   if (item >= n_items) return;
+  const Lanes ln = lanes(D);
+  const int LP = L * P;
+  const int rounds = (LP + ln.slots - 1) / ln.slots;
   const int h = static_cast<int>(item % H);
   const long long b = item / H / Q;
-  const long long row = static_cast<long long>(H) * D;  // value row stride
-  const __nv_bfloat16* vb = value + b * S * row + h * D;
-  const float* lp = loc + item * L * P * 2;
-  const float* wp = attw + item * L * P;
+  const long long row = static_cast<long long>(H) * D;   // value row stride
+  const float2* lp = reinterpret_cast<const float2*>(loc) + item * LP;
+  const float* wp = attw + item * LP;
 
-  for (int d0 = 0; d0 < D; d0 += 32) {
-    const int d = d0 + lane;
-    const bool active = d < D;
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const int Hl = lv.h[l], Wl = lv.w[l];
-      const float fH = static_cast<float>(Hl), fW = static_cast<float>(Wl);
-      const __nv_bfloat16* vl = vb + lv.start[l] * row;
-      for (int p = 0; p < P; ++p) {
-        const float x = lp[(l * P + p) * 2] * fW - 0.5f;
-        const float y = lp[(l * P + p) * 2 + 1] * fH - 0.5f;
-        const float a = wp[l * P + p];
-        const float x0 = floorf(x), y0 = floorf(y);
-        const float fx = x - x0, fy = y - y0;
+  for (int c0 = 0; c0 < ln.chunks; c0 += 32) {
+    const int c = c0 + ln.c;
+    const bool active = ln.slot < ln.slots && c < ln.chunks;
+    const __nv_bfloat16* vb = value + (b * S * H + h) * D + c * 8;
+    float acc[8];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int dx = c & 1, dy = c >> 1;
-          const float xi = x0 + dx, yi = y0 + dy;
-          const bool valid = xi >= 0.f && xi <= fW - 1.f && yi >= 0.f &&
-                             yi <= fH - 1.f;
-          if (valid && active) {
-            const float wgt = (dx ? fx : 1.f - fx) * (dy ? fy : 1.f - fy);
-            const long long idx = static_cast<long long>(yi) * Wl +
-                                  static_cast<long long>(xi);
-            acc = fmaf(a * wgt, __bfloat162float(vl[idx * row + d]), acc);
-          }
-        }
+    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+    for (int r0 = 0; r0 < rounds; r0 += K::kRB) {
+      // every location, then every corner load of the rounds, then FMAs
+      Sample sm[K::kRB];
+      uint4 v[K::kRB][4];
+#pragma unroll
+      for (int j = 0; j < K::kRB; ++j) {
+        const int s = (r0 + j) * ln.slots + ln.slot;
+        sm[j] = sample_at(geom, lp, wp, s, ln.slot < ln.slots && s < LP, P);
       }
+#pragma unroll
+      for (int j = 0; j < K::kRB; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          v[j][q] = load_corner(vb, row, active ? sm[j].cell[q] : -1);
+#pragma unroll
+      for (int j = 0; j < K::kRB; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float x[8];
+          unpack8(v[j][q], x);
+          const float w = sm[j].a * corner_weight(sm[j], q);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[k] = fmaf(w, x[k], acc[k]);
+        }
     }
-    if (active) out[item * D + d] = __float2bfloat16(acc);
+    // the other groups into group 0, halving the span: a fixed order
+    for (int off = ln.slots / 2; off >= 1; off /= 2)
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        acc[k] += __shfl_down_sync(0xffffffffu, acc[k], off * ln.cg);
+    if (ln.slot == 0 && c < ln.chunks)
+      *reinterpret_cast<uint4*>(out + item * D + c * 8) = pack8(acc);
   }
 }
 
@@ -91,29 +113,29 @@ msda_fwd_kernel(const __nv_bfloat16* __restrict__ value,
 
 // shapes: host array [L][2] of (height, width); value [B, S, H, D] bf16,
 // loc [B, Q, H, L, P, 2] f32, attw [B, Q, H, L, P] f32, out [B, Q, H * D]
-// bf16, all contiguous.
+// bf16, all contiguous and 16-byte aligned; D a multiple of 8.
 extern "C" int ms_deform_attn_fwd_bf16(const void* value, const void* loc,
                                        const void* attw, void* out,
                                        const int* shapes, int B, int S, int Q,
                                        int H, int D, int L, int P,
                                        void* stream) {
-  if (L <= 0 || L > MAX_LEVELS) return static_cast<int>(cudaErrorInvalidValue);
-  Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start != S) return static_cast<int>(cudaErrorInvalidValue);
+  msda::Levels lv;
+  if (!msda::make_levels(lv, shapes, S, D, L, P))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long n_items = static_cast<long long>(B) * Q * H;
   if (n_items == 0) return static_cast<int>(cudaSuccess);
-  dim3 block(32, WARPS);
-  dim3 grid(static_cast<unsigned>((n_items + WARPS - 1) / WARPS));
-  msda_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(loc),
-      static_cast<const float*>(attw), static_cast<__nv_bfloat16*>(out), lv, Q,
-      S, H, D, L, P, n_items);
+  dim3 block(32, msda::WARPS);
+  dim3 grid(static_cast<unsigned>((n_items + msda::WARPS - 1) / msda::WARPS));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* v = static_cast<const __nv_bfloat16*>(value);
+  const auto* l = static_cast<const float*>(loc);
+  const auto* a = static_cast<const float*>(attw);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (D == 32 && L == 4 && P == 4)
+    msda_fwd_kernel<32, 4, 4><<<grid, block, 0, s>>>(v, l, a, o, lv, Q, S, H,
+                                                     D, L, P, n_items);
+  else
+    msda_fwd_kernel<0, 0, 0><<<grid, block, 0, s>>>(v, l, a, o, lv, Q, S, H,
+                                                    D, L, P, n_items);
   return static_cast<int>(cudaGetLastError());
 }

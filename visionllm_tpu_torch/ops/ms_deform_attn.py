@@ -10,8 +10,11 @@ out-of-bounds corners contribute zero. Locations, weights and the sum
 are fp32 whatever the value dtype.
 
 `ms_deform_attn` launches the CUDA kernel `csrc/ms_deform_attn_fwd.cu`
-(which replaces the Pallas TPU kernel `_msda_kernel`) for CUDA tensors,
-at any size, or raises; it runs the plain version only for CPU tensors.
+(which replaces the Pallas TPU kernel `_msda_kernel`) for CUDA tensors
+or raises; it runs the plain version only for CPU tensors. The kernels
+read 8 channels of a value row as one 16-byte load, so the head dim D
+must be a multiple of 8 (`_check_args` raises otherwise), and an input
+whose pointer is not 16-byte aligned is copied first.
 Under grad mode, with an input that requires grad, it is the autograd
 function `MSDeformAttnFn`, whose backward launches
 `csrc/ms_deform_attn_bwd.cu` through `ms_deform_attn_bwd`: the gradients
@@ -109,12 +112,23 @@ def _check_args(value, spatial_shapes, loc, attw):
         raise ValueError(f"ms_deform_attn: locations {tuple(loc.shape)} / "
                          f"weights {tuple(attw.shape)} do not match value "
                          f"{tuple(value.shape)} and {L} levels")
+    if D % 8:
+        raise ValueError(f"ms_deform_attn: head dim {D} is not a multiple "
+                         "of 8 (the kernels load 8 channels at once)")
     if sum(h * w for h, w in spatial_shapes) != S:
         raise ValueError(f"ms_deform_attn: spatial_shapes {spatial_shapes} "
                          f"do not sum to S={S}")
     for t in (loc, attw):
         if t.device != value.device:
             raise ValueError("ms_deform_attn: inputs on different devices")
+
+
+def _aligned(t):
+    """t contiguous, copied if its pointer is not 16-byte aligned (the
+    kernels read value, dOut and the fp32 inputs by vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format)
 
 
 def _shapes_arg(spatial_shapes):
@@ -168,9 +182,9 @@ def ms_deform_attn(value: torch.Tensor,
         return ms_deform_attn_plain(value, spatial_shapes,
                                     sampling_locations, attention_weights)
     _check_args(value, spatial_shapes, sampling_locations, attention_weights)
-    args = (value.contiguous(), tuple(tuple(int(x) for x in hw)
-                                      for hw in spatial_shapes),
-            sampling_locations.contiguous(), attention_weights.contiguous())
+    args = (_aligned(value), tuple(tuple(int(x) for x in hw)
+                                   for hw in spatial_shapes),
+            _aligned(sampling_locations), _aligned(attention_weights))
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (value, sampling_locations,
                                       attention_weights)):
@@ -195,8 +209,12 @@ def ms_deform_attn_bwd_plain(value, spatial_shapes, sampling_locations,
 def ms_deform_attn_bwd(value, spatial_shapes, sampling_locations,
                        attention_weights, grad_out):
     """(grad_value bf16, grad_locations f32, grad_weights f32) through the
-    backward kernel `csrc/ms_deform_attn_bwd.cu`; `grad_out` is
-    [B, Q, H * D] bf16. CPU tensors take `ms_deform_attn_bwd_plain`."""
+    backward kernel `csrc/ms_deform_attn_bwd.cu` (a memset of the fp32
+    grad_value scratch, the kernel, a cast to bf16: three launches, one
+    count); `grad_out` is [B, Q, H * D] bf16. grad_value is summed by
+    fp32 atomics, so repeats may differ in its last bits; grad_locations
+    and grad_weights are bit-identical. CPU tensors take
+    `ms_deform_attn_bwd_plain`."""
     if value.device.type == "cpu":
         return ms_deform_attn_bwd_plain(value, spatial_shapes,
                                         sampling_locations,
@@ -208,7 +226,7 @@ def ms_deform_attn_bwd(value, spatial_shapes, sampling_locations,
     if grad_out.dtype != torch.bfloat16 or grad_out.shape != (B, Q, H * D):
         raise ValueError(f"ms_deform_attn_bwd: grad_out must be bf16 "
                          f"{(B, Q, H * D)}")
-    value, loc, attw, grad_out = (t.contiguous() for t in (
+    value, loc, attw, grad_out = (_aligned(t) for t in (
         value, sampling_locations, attention_weights, grad_out))
     gv32 = torch.empty(B, S, H, D, dtype=torch.float32, device=value.device)
     gv = torch.empty_like(value)
