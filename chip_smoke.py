@@ -25,11 +25,14 @@ Phases, each printing one JSON line:
              back-to-back calls, which for a short kernel include the
              wrapper's host time); the phase fails unless a flash-forward
              or int4 call is one kernel and a flash backward call
-             `FLASH_BWD_KERNELS`. The MSDA cases add inputs of the model's
-             own sampling, captured from a warm det request and a train
-             step (`captured_*`; each capture builds its model), and time
-             the grid_sample composition (`composite_*`) where no single
-             library call computes MSDA;
+             `FLASH_BWD_KERNELS`. The flash forward adds the LLaMA
+             prefills of the perception phase's detect and pose prompts.
+             The MSDA cases add inputs of the model's own sampling,
+             captured from a warm det request, a detect request's encoder
+             and a pose request's post-expansion decoder at the 800 px
+             test scale, and a train step (`captured_*`; each capture
+             builds its model), and time the grid_sample composition
+             (`composite_*`) where no single library call computes MSDA;
 4. slice   - the det path: builds `VisionLLMWithTools` at full width
              (CLIP-L/336 24 layers, LLaMA-7B 32 layers, Grounding-DINO
              with Swin-T at 512 px) in bf16 with seeded random weights,
@@ -40,20 +43,38 @@ Phases, each printing one JSON line:
              times a request and its stages;
 5. profile - one more det request under torch.profiler: device kernel
              time, the device's idle share, the kernels that take the
-             most and each kernel of the port's own (as in phases 7, 9);
-6. serve   - the chat path, after the det model is freed: `build_core`
-             of the 7B chat config with `quant="int4"` at full width,
-             `ChatService(max_batch=4, max_prompt=640, max_new_tokens=32)`
-             with the port's `SimpleTokenizer`; 4 image requests from
-             threads (one generate call), the first of them again alone, a
-             text-only request with a history, and the first again over
-             HTTP. Checks the answers, the launch counters (int4 225 per
-             forward, flash 56 per generate call), holds the prefill and
-             every decode step's logits against a plain run teacher-forced
-             on the kernel run's tokens, and times TTFT, a decode step and
-             tok/s;
-7. serve_profile - one decode step under torch.profiler;
-8. train   - the det training step, after the chat model is freed: the
+             most and each kernel of the port's own (as in phases 7, 9,
+             11);
+6. perception - the perception front door, after the det model is
+             freed: `vllm_7b_perception_config()` (the det path's model
+             plus UniPose with Swin-T, 68 body points, 50 groups) at full
+             width in bf16, one `Predictor` and a `ChatService` sharing
+             its core behind `make_server(..., predictor=...)`. Three
+             uint8 images (480x640, 640x480, 500x500: the 800x1088,
+             1088x800 and 800x800 buckets of the 800 px test scale) each
+             answer detect, ground and pose (`PERCEPTION_REQUESTS`)
+             directly and over HTTP on 127.0.0.1: the replies must be
+             identical, finite and of the expected shapes, and every
+             request must launch flash 56 and MSDA 12 times. Each
+             request's raw tool outputs (before the post-processing's
+             top-k) are held against the plain versions on the kernel
+             run's proposal and group choices; then the warm request
+             times and the phase's peak memory;
+7. perception_profile - one detect and one pose request under
+             torch.profiler;
+8. serve   - the chat path, after the perception model is freed:
+             `build_core` of the 7B chat config with `quant="int4"` at
+             full width, `ChatService(max_batch=4, max_prompt=640,
+             max_new_tokens=32)` with the port's `SimpleTokenizer`; 4
+             image requests from threads (one generate call), the first
+             of them again alone, a text-only request with a history,
+             and the first again over HTTP. Checks the answers, the
+             launch counters (int4 225 per forward, flash 56 per generate
+             call), holds the prefill and every decode step's logits
+             against a plain run teacher-forced on the kernel run's
+             tokens, and times TTFT, a decode step and tok/s;
+9. serve_profile - one decode step under torch.profiler;
+10. train  - the det training step, after the chat model is freed: the
              stage-1 frozen `vllm_7b_det_config()` at full width and
              depth (LLaMA 32 layers, CLIP 24, Grounding-DINO with Swin-T
              at 640 px, CDN with dn_number 100, 12544 mask points) in
@@ -66,8 +87,8 @@ Phases, each printing one JSON line:
              frozen parameters bit-identical, and per step flash fwd 56,
              flash bwd 32, MSDA fwd 12, MSDA bwd 12 launches; step ms,
              peak memory, the loss trace;
-9. train_profile - one more step under torch.profiler;
-10. probes - the gather probes' entry point
+11. train_profile - one more step under torch.profiler;
+12. probes - the gather probes' entry point
              (`visionllm_tpu_torch/tools/msda_kernel_attempts.py`).
 
 Then it prints the `{"kernels": [...]}` line, the card's name and power
@@ -103,8 +124,12 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from visionllm_tpu_torch import constants as C
 from visionllm_tpu_torch.config import (LLMConfig, OptimizerConfig,
                                         vllm_7b_chat_config,
-                                        vllm_7b_det_config)
+                                        vllm_7b_det_config,
+                                        vllm_7b_perception_config)
 from visionllm_tpu_torch.generation import _tool_kind, advance_tool_state
+from visionllm_tpu_torch.infer import (COCO_KEYPOINT_NAMES, Predictor,
+                                       det_prompt, grd_prompt, pose_prompt,
+                                       prompt_ids)
 from visionllm_tpu_torch.kernels import build
 from visionllm_tpu_torch.models.composite import build_core, build_model
 from visionllm_tpu_torch.models.llama import KVCache
@@ -113,7 +138,8 @@ from visionllm_tpu_torch.ops import attention as A
 from visionllm_tpu_torch.ops import gather as G
 from visionllm_tpu_torch.ops import ms_deform_attn as M
 from visionllm_tpu_torch.ops import quant4 as Q
-from visionllm_tpu_torch.serve import ChatService, _Request, make_server
+from visionllm_tpu_torch.serve import (ChatService, _Request, make_server,
+                                       perception_json)
 from visionllm_tpu_torch.tools import msda_kernel_attempts as probes
 from visionllm_tpu_torch.train.runner import TrainConfig, frozen_predicate
 from visionllm_tpu_torch.train.train_step import (TrainState, build_optimizer,
@@ -154,6 +180,21 @@ TRAIN_REL_TOL = 5e-2
 # kernels one `flash_attention_bwd` call launches: Di = rowsum(dO * O),
 # then one grid of the dQ and dK/dV blocks
 FLASH_BWD_KERNELS = 2
+# the perception phase: uint8 images that the det test transform resizes
+# to (800, 1333) keep-ratio and pads to the 800x1088, 1088x800 and 800x800
+# buckets; each answers detect (3 classes, masks), ground (one
+# expression, mask) and pose (the 17 COCO keypoints), every top-k result
+# kept (threshold 0). Raw tool outputs of the kernel run vs the plain run
+# on the kernel run's top-k choices: relative Frobenius error
+PERCEPTION_IMAGES = ((480, 640, 3), (640, 480, 3), (500, 500, 3))
+PERCEPTION_REQUESTS = {
+    "detect": ("/v1/detect", dict(classes=["person", "dog", "bicycle"],
+                                  threshold=0.0, topk=20, with_mask=True)),
+    "ground": ("/v1/ground", dict(expression="the person on the left",
+                                  with_mask=True)),
+    "pose": ("/v1/pose", dict(threshold=0.0, topk=20)),
+}
+PERCEPTION_REL_TOL = 5e-2
 
 
 def emit(obj):
@@ -319,6 +360,8 @@ def attention_cases(g, more=False):
         specs += [("chat_prefill_b4", SERVE_BATCH, SERVE_PROMPT, 32, 32, 128,
                    True, None),
                   ("long_l2048", 1, 2048, 32, 32, 128, True, None)]
+        specs += [(f"{task}_prefill", 1, L, 32, 32, 128, True, None)
+                  for task, L in perception_prompt_lengths().items()]
     for name, B, L, H, Hkv, D, causal, sg in specs:
         yield name, rnd(B, L, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D), \
             causal, sg
@@ -428,14 +471,20 @@ def msda_uniform_cases(g, bwd):
             yield name, value, shapes, loc, attw
 
 
+def encoder_or_decoder(value, loc):
+    return "encoder" if loc.shape[1] == value.shape[1] else "decoder"
+
+
 class MSDARecorder:
     """Wraps an MSDA wrapper (forward or backward) and keeps a copy of the
-    arguments of its first encoder call (Q == S) and its first decoder
-    call, then calls it. Its `launches` is the wrapped wrapper's, which
-    the kernel path counts through the name this object replaces."""
+    arguments of its first call of each kind that `kinds(value, loc)`
+    names (by default its first encoder call, Q == S, and its first
+    decoder call; None skips a call), then calls it. Its `launches` is
+    the wrapped wrapper's, which the kernel path counts through the name
+    this object replaces."""
 
-    def __init__(self, fn, prefix):
-        self.fn, self.prefix, self.calls = fn, prefix, {}
+    def __init__(self, fn, prefix, kinds=encoder_or_decoder):
+        self.fn, self.prefix, self.kinds, self.calls = fn, prefix, kinds, {}
 
     @property
     def launches(self):
@@ -446,8 +495,8 @@ class MSDARecorder:
         self.fn.launches = n
 
     def __call__(self, value, shapes, loc, attw, *rest):
-        kind = "encoder" if loc.shape[1] == value.shape[1] else "decoder"
-        if self.prefix + kind not in self.calls:
+        kind = self.kinds(value, loc)
+        if kind is not None and self.prefix + kind not in self.calls:
             self.calls[self.prefix + kind] = tuple(
                 t.detach().clone() if torch.is_tensor(t) else t
                 for t in (value, shapes, loc, attw, *rest))
@@ -455,23 +504,44 @@ class MSDARecorder:
 
 
 def captured_msda_fwd():
-    """The MSDA inputs of the model's own sampling: the first encoder and
-    decoder call of a warm det request (the slice phase's model, seed 0,
-    and first request), recorded around `M.ms_deform_attn`."""
-    cfg = vllm_7b_det_config()
+    """The MSDA inputs of the model's own sampling, recorded around
+    `M.ms_deform_attn`: the first encoder and decoder call of a warm det
+    request (the slice phase's requests, 512 px), the encoder call of a
+    detect request at the 800 px test scale and the first post-expansion
+    decoder call of a pose request (Q = groups x (1 + body points), box
+    references), both through the Predictor on the perception phase's
+    first image. One model serves all three: the perception config with
+    seed 0, whose core and Grounding-DINO draw the det config's weights
+    (`init_weights` draws the tools in order, UniPose last)."""
+    cfg = vllm_7b_perception_config()
     tid = SpecialTokenIds.synthetic()
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     ids, images, aug = make_requests(
         cfg, tid, torch.Generator(device="cuda").manual_seed(1))[0]
-    rec = MSDARecorder(M.ms_deform_attn, "captured_det_")
+    pred = Predictor(cfg, model, SimpleTokenizer(), device="cuda")
+    img = perception_images()[0]
+    path, body = PERCEPTION_REQUESTS["detect"]
+    n_pose = cfg.unipose.num_groups * (cfg.unipose.num_body_points + 1)
+    recs = [MSDARecorder(M.ms_deform_attn, "captured_det_"),
+            MSDARecorder(M.ms_deform_attn, "captured_perception_",
+                         lambda v, loc: "encoder" if loc.shape[1] == v.shape[1]
+                         else None),
+            MSDARecorder(M.ms_deform_attn, "captured_pose_",
+                         lambda v, loc: "decoder" if loc.shape[1] == n_pose
+                         else None)]
+    runs = [lambda: model.infer_det(ids, images, aug, tid),
+            lambda: perception_call(pred, "detect", img),
+            lambda: perception_call(pred, "pose", img)]
     with torch.no_grad():
-        model.infer_det(ids, images, aug, tid)            # warm
-        with mock.patch.object(M, "ms_deform_attn", rec):
-            model.infer_det(ids, images, aug, tid)
-    del model
+        for rec, run in zip(recs, runs):
+            run()                                         # warm
+            with mock.patch.object(M, "ms_deform_attn", rec):
+                run()
+    del model, pred
     gc.collect()
     torch.cuda.empty_cache()
-    return [(name, *args) for name, args in sorted(rec.calls.items())]
+    return [(name, *args) for rec in recs
+            for name, args in sorted(rec.calls.items())]
 
 
 def captured_msda_bwd():
@@ -552,8 +622,9 @@ def check_msda_calls(cases, kernel_name, want_kernels):
 def check_msda(g):
     """The MSDA forward kernel against the plain version at the main-path
     shapes, on uniform locations and on the inputs captured from a det
-    request; each output also bit-identical across two calls. The
-    grid_sample composition is the yardstick (`composite_*`)."""
+    request and from perception requests at 800 px; each output also
+    bit-identical across two calls. The grid_sample composition is the
+    yardstick (`composite_*`)."""
     cases, timed = [], {}
     inputs = list(msda_uniform_cases(g, bwd=False)) + captured_msda_fwd()
     for name, value, shapes, loc, attw in inputs:
@@ -1059,7 +1130,221 @@ def device_summary(prof, wall_ms):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: the det training step at full width and depth
+# phases 6-7: the perception front door at full width, 800 px
+# ---------------------------------------------------------------------------
+
+def perception_images():
+    """The perception phase's uint8 images (numpy seed 3)."""
+    rng = np.random.RandomState(3)
+    return [rng.randint(0, 256, sh, np.uint8) for sh in PERCEPTION_IMAGES]
+
+
+def perception_call(pred, task, img):
+    """The direct Predictor call of a perception request."""
+    body = PERCEPTION_REQUESTS[task][1]
+    if task == "detect":
+        return pred.detect(img, body["classes"], threshold=body["threshold"],
+                           topk=body["topk"], with_mask=body["with_mask"])
+    if task == "ground":
+        return pred.ground(img, body["expression"],
+                           with_mask=body["with_mask"])
+    return pred.pose(img, threshold=body["threshold"], topk=body["topk"])
+
+
+def perception_prompt(task, num_embs=4):
+    body = PERCEPTION_REQUESTS[task][1]
+    if task == "detect":
+        return det_prompt(body["classes"], num_embs)
+    if task == "ground":
+        return grd_prompt(body["expression"], num_embs)
+    return pose_prompt(COCO_KEYPOINT_NAMES, "person", num_embs)
+
+
+def perception_prompt_lengths():
+    """Tokens of the detect and pose prompts (right-padded to 32) that the
+    LLaMA prefill of a perception request attends over."""
+    return {task: len(prompt_ids(SimpleTokenizer(),
+                                 *perception_prompt(task)))
+            for task in ("detect", "pose")}
+
+
+def check_perception_reply(task, reply, hw):
+    """Shapes and finiteness of one reply (JSON lists) to an image of
+    height and width `hw`."""
+    topk = PERCEPTION_REQUESTS[task][1].get("topk")
+    if task == "ground":
+        vals = [*reply["box"], reply["score"]]
+        ok = len(reply["box"]) == 4 and 0.0 <= reply["score"] <= 1.0 and \
+            reply["mask"]["size"] == list(hw)
+    elif task == "detect":
+        vals = [*reply["scores"], *np.ravel(reply["boxes"])]
+        ok = (len(reply["scores"]) == len(reply["masks"]) == topk
+              and all(m["size"] == list(hw) for m in reply["masks"])
+              and np.shape(reply["boxes"]) == (topk, 4))
+    else:
+        vals = [*reply["scores"], *np.ravel(reply["keypoints"])]
+        ok = np.shape(reply["keypoints"]) == (topk, 17, 3) and \
+            reply["keypoint_names"] == COCO_KEYPOINT_NAMES
+    if not (ok and np.isfinite(vals).all()):
+        raise AssertionError(f"{task}: bad reply {str(reply)[:300]}")
+
+
+def rel_err(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def compare_perception_plain(pred, task, img):
+    """The raw tool outputs of one request (before any top-k of the
+    post-processing) with the kernels, against the same request with the
+    plain versions on the kernel run's proposal (and, for pose, group)
+    choices: relative Frobenius error of the text queries and of each
+    output over its valid text columns."""
+    model, tid = pred.model, pred.tid
+    arr = pred._prepare(img, *perception_prompt(task))
+    ids, images, aug, pm = pred._model_args(arr)
+
+    def run(choices=None):
+        tq, mask = text_queries(model, ids, images, tid)
+        if task == "pose":
+            out = model.unipose(aug, tq[:, :1], mask[:, :1], tq[:, 1:],
+                                mask[:, 1:], pixel_mask=pm,
+                                **(choices or {}))
+            return tq, mask[:, :1], out, ("pred_logits", "pred_boxes",
+                                          "pred_keypoints")
+        out = model.gdino(aug, tq, mask, pixel_mask=pm, **(choices or {}))
+        return tq, mask, out, ("logits", "pred_boxes", "pred_masks")
+
+    tq_k, cols, out_k, keys = run()
+    choices = {k: out_k[k] for k in ("topk_idx", "group_idx") if k in out_k}
+    with plain_versions():
+        tq_p, _, out_p, _ = run(choices)
+    errs = {"text_queries": rel_err(tq_k, tq_p)}
+    for k in keys:
+        a, b = out_k[k], out_p[k]
+        if k in ("logits", "pred_logits"):     # the valid text columns
+            n = cols.shape[1]
+            a, b = a[..., :n][..., cols[0]], b[..., :n][..., cols[0]]
+        errs[k] = rel_err(a, b)
+    return errs
+
+
+def run_perception():
+    """The perception phase: see the module docstring."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = vllm_7b_perception_config()
+    t = time.perf_counter()
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    tok = SimpleTokenizer()
+    pred = Predictor(cfg, model, tok, device="cuda")
+    # the chat service shares the core: one copy of the 7B weights
+    svc = ChatService(cfg, model.core, tok,
+                      image_size=cfg.vis_encoder.image_size, device="cuda")
+    srv = make_server(svc, host="127.0.0.1", port=0, predictor=pred)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    images = perception_images()
+    per_req = {"flash_attn_fwd": cfg.vis_encoder.num_layers
+               + cfg.llm.num_layers,
+               "ms_deform_attn_fwd": cfg.gdino.encoder_layers
+               + cfg.gdino.decoder_layers}
+    per_req_pose = dict(per_req, ms_deform_attn_fwd=cfg.unipose.encoder_layers
+                        + cfg.unipose.decoder_layers)
+
+    # the main path, with the launch counts taken around it alone
+    A.flash_attention.launches = 0
+    M.ms_deform_attn.launches = 0
+    calls, replies = [], {}
+    with torch.no_grad():
+        for i, img in enumerate(images):
+            for task, (path, body) in PERCEPTION_REQUESTS.items():
+                for via in ("direct", "http"):
+                    f0, m0 = A.flash_attention.launches, \
+                        M.ms_deform_attn.launches
+                    t0 = time.perf_counter()
+                    if via == "direct":
+                        reply = json.loads(json.dumps(perception_json(
+                            perception_call(pred, task, img))))
+                    else:
+                        reply = post_json(url + path, {
+                            "image_b64": base64.b64encode(
+                                img.tobytes()).decode(),
+                            "image_shape": list(img.shape), **body})
+                    calls.append({
+                        "image": i, "task": task, "via": via,
+                        "wall_ms": (time.perf_counter() - t0) * 1e3,
+                        "flash_attn_fwd": A.flash_attention.launches - f0,
+                        "ms_deform_attn_fwd": M.ms_deform_attn.launches - m0})
+                    replies[i, task, via] = reply
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches,
+                "ms_deform_attn_fwd": M.ms_deform_attn.launches}
+    for c in calls:
+        want = per_req_pose if c["task"] == "pose" else per_req
+        if any(c[k] != want[k] for k in want):
+            raise AssertionError(f"launches of {c} != {want}")
+    for (i, task, via), reply in replies.items():
+        if via == "http" and reply != replies[i, task, "direct"]:
+            raise AssertionError(f"image {i} {task}: the HTTP reply differs "
+                                 "from the direct call's")
+        check_perception_reply(task, reply, images[i].shape[:2])
+
+    # raw tool outputs against the plain versions, every request
+    errs = {}
+    with torch.no_grad():
+        for i, img in enumerate(images):
+            for task in PERCEPTION_REQUESTS:
+                errs[f"{i}:{task}"] = e = compare_perception_plain(pred, task,
+                                                                   img)
+                if not max(e.values()) <= PERCEPTION_REL_TOL:
+                    raise AssertionError(f"image {i} {task} kernel vs plain "
+                                         f"{e} > {PERCEPTION_REL_TOL}")
+
+    # warm request times (direct calls, host clock, synced)
+    with torch.no_grad():
+        req_ms = {task: host_ms(lambda: perception_call(pred, task,
+                                                        images[0]))
+                  for task in PERCEPTION_REQUESTS}
+    prompts = {task: len(prompt_ids(tok, *perception_prompt(task)))
+               for task in PERCEPTION_REQUESTS}
+    buckets = [list(pred._prepare(img, "<image>\nq", "a")["image_aug"]
+                    .shape[1:3]) for img in images]
+    emit({"phase": "perception", "config": "vllm_7b_perception_config()",
+          "images": [list(sh) for sh in PERCEPTION_IMAGES],
+          "buckets": buckets, "requests": PERCEPTION_REQUESTS,
+          "prompt_tokens": prompts, "build_model_s": build_s,
+          "params": sum(p.numel() for p in model.parameters()),
+          "calls": calls, "launches": launches,
+          "launches_per_request": {"detect/ground": per_req,
+                                   "pose": per_req_pose},
+          "http_equals_direct": True,
+          "plain_rel_err": errs, "plain_rel_tol": PERCEPTION_REL_TOL,
+          "request_ms_median": req_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for task in ("detect", "pose"):
+        profile_perception(pred, task, images[0])
+    srv.shutdown()
+    srv.server_close()
+    svc.close()
+    return launches
+
+
+def profile_perception(pred, task, img):
+    """One warm perception request (the direct call) under torch.profiler."""
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        perception_call(pred, task, img)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    emit({"phase": "perception_profile", "task": task,
+          **device_summary(prof, wall_ms)})
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: the det training step at full width and depth
 # ---------------------------------------------------------------------------
 
 def train_batch(cfg, tid, g):
@@ -1295,7 +1580,7 @@ def profile_train_step(step, state, batch, g):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the gather probes' entry point
+# phase 12: the gather probes' entry point
 # ---------------------------------------------------------------------------
 
 def run_probes():
@@ -1312,7 +1597,7 @@ def run_probes():
 
 
 # ---------------------------------------------------------------------------
-# phases 6-7: int4 chat serving at full width
+# phases 8-9: int4 chat serving at full width
 # ---------------------------------------------------------------------------
 
 def serve_requests():
@@ -1656,6 +1941,9 @@ def main(argv=None) -> int:
     det = run_slice()
     gc.collect()
     torch.cuda.empty_cache()
+    perception = run_perception()
+    gc.collect()
+    torch.cuda.empty_cache()
     chat = run_serve()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1664,7 +1952,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     probe = run_probes()
     # each path's counts were read around that path's run alone
-    by_path = {"det": det, "train": train, "probes": probe, "chat": chat}
+    by_path = {"det": det, "perception": perception, "train": train,
+               "probes": probe, "chat": chat}
 
     def launches(name):
         per = {p: c[name] for p, c in by_path.items() if name in c}

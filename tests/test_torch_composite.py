@@ -55,8 +55,8 @@ def models():
             jax.random.PRNGKey(0))["params"]
     params = jax.tree.map(np.asarray, params)
 
-    tmodel = build_model(tiny_test_config(), device="cpu",
-                         dtype=torch.float32)
+    tmodel = build_model(tiny_test_config(use_unipose=False, unipose=None),
+                         device="cpu", dtype=torch.float32)
     load_jax_params(tmodel, params)
 
     @jax.jit

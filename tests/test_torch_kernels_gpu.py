@@ -181,6 +181,41 @@ def test_msda_kernel_matches_plain(cuda, Q):
     _close(got, want)
 
 
+# the 800 px test scale's levels (the 800x1088 bucket at Swin-T strides
+# 8-64, S = 18071) and its two new query counts: the encoder (Q = S) and
+# UniPose's post-expansion decoder (50 groups x (1 box + 68 keypoints) =
+# 3450 queries), whose locations come from 4-d box references as in
+# `DeformableAttention`
+PERCEPTION_SHAPES = ((100, 136), (50, 68), (25, 34), (13, 17))
+
+
+@pytest.mark.parametrize("case", ["perception_encoder", "pose_decoder"])
+def test_msda_kernel_matches_plain_at_perception_shapes(cuda, case):
+    rng = np.random.default_rng(18071 if case == "perception_encoder"
+                                else 3450)
+    S = sum(h * w for h, w in PERCEPTION_SHAPES)
+    value = _bf16(rng, cuda, 1, S, 8, 32)
+    if case == "perception_encoder":
+        loc = rng.uniform(-0.2, 1.2, (1, S, 8, 4, 4, 2))
+    else:
+        Q = 3450
+        ref = np.concatenate([rng.uniform(0.0, 1.0, (1, Q, 2)),
+                              rng.uniform(0.01, 0.5, (1, Q, 2))], -1)
+        off = 2.0 * rng.standard_normal((1, Q, 8, 4, 4, 2))
+        loc = (ref[:, :, None, None, None, :2]
+               + off / 4 * ref[:, :, None, None, None, 2:] * 0.5)
+    loc = torch.from_numpy(loc.astype(np.float32)).to(cuda)
+    logits = torch.from_numpy(rng.standard_normal(
+        loc.shape[:3] + (16,)).astype(np.float32)).to(cuda)
+    attw = torch.softmax(logits, -1).reshape(loc.shape[:5])
+    n = M.ms_deform_attn.launches
+    got = M.ms_deform_attn(value, PERCEPTION_SHAPES, loc, attw)
+    assert M.ms_deform_attn.launches == n + 1
+    want = M.ms_deform_attn_plain(value, PERCEPTION_SHAPES, loc, attw)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
 def test_msda_kernel_far_and_nonfinite_locations_are_zero(cuda):
     value = torch.ones(2, 5 * 7, 2, 64, device=cuda, dtype=torch.bfloat16)
     loc = torch.full((2, 3, 2, 1, 2, 2), 1e9, device=cuda)

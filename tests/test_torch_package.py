@@ -1,6 +1,6 @@
 """Guards of the PyTorch port's boundaries: it imports nothing of JAX,
-flax or the JAX package, and its entry point does not quietly fall back
-to the CPU."""
+flax, Pillow or the JAX package, and its entry points do not quietly
+fall back to the CPU."""
 
 import ast
 import os
@@ -12,7 +12,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "visionllm_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "visionllm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "visionllm_tpu")
 
 
 def _port_sources():
@@ -44,7 +44,7 @@ def test_source_imports_nothing_of_jax(path):
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'PIL'):\n"
         "    sys.modules[m] = None\n"
         "import visionllm_tpu_torch as pkg\n"
         "for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
@@ -112,3 +112,20 @@ def test_int4_wrapper_on_cpu_runs_plain_version_in_bf16():
     assert out.shape == (3, 40) and out.dtype == torch.bfloat16
     assert quant4.int4_matmul.launches == n        # no kernel launched
     assert torch.equal(out, quant4.int4_matmul_plain(x, wp, scale))
+
+
+def test_perception_entry_points_without_device_raise_on_cpu_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from visionllm_tpu_torch.config import tiny_test_config
+    from visionllm_tpu_torch.infer import Predictor
+    from visionllm_tpu_torch.models.composite import build_model
+    from visionllm_tpu_torch.utils.simple_tokenizer import SimpleTokenizer
+    cfg = tiny_test_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(cfg, None, SimpleTokenizer())
+    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(cfg, model, SimpleTokenizer())
+    pred = Predictor(cfg, model, SimpleTokenizer(), device="cpu")
+    assert pred.device.type == "cpu"

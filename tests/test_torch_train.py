@@ -179,7 +179,7 @@ def setup():
     params = jax.jit(lambda r: jmodel.init(r, jbatch, jtid))(
         jax.random.PRNGKey(0))["params"]
     params = jax.tree.map(np.asarray, params)
-    cfg = tiny_test_config()
+    cfg = tiny_test_config(use_unipose=False, unipose=None)
     tid = SpecialTokenIds.synthetic()
     tmodel = build_model(cfg, device="cpu", dtype=torch.float32)
     load_jax_params(tmodel, params)

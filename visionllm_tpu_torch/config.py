@@ -1,6 +1,7 @@
-"""Config dataclasses of the det, chat and det-training paths (own copies
-of the JAX package's `VisionEncoderConfig`, `LLMConfig`, `GDinoConfig`,
-`VisionLLMConfig`, `tiny_test_config` and, from
+"""Config dataclasses of the det, perception, chat and det-training paths
+(own copies of the JAX package's `VisionEncoderConfig`, `LLMConfig`,
+`GDinoConfig`, `UniPoseConfig`, `VisionLLMConfig`, `tiny_test_config`
+and, from
 `visionllm_tpu/train/train_step.py`, `OptimizerConfig`, cut to the fields
 this port reads; defaults and the tiny dims are the same)."""
 
@@ -119,8 +120,41 @@ class GDinoConfig:
 
 
 @dataclass(frozen=True)
+class UniPoseConfig:
+    """UniPose keypoint decoder."""
+
+    backbone: str = "swin_tiny"
+    d_model: int = 256
+    num_queries: int = 900
+    encoder_layers: int = 6
+    decoder_layers: int = 6
+    num_heads: int = 8
+    num_feature_levels: int = 4
+    num_points: int = 4
+    ffn_dim: int = 2048
+    text_dim: int = 4096
+    num_box_decoder_layers: int = 2
+    num_body_points: int = 68         # max keypoints per instance
+    num_groups: int = 50              # pose groups after box->kpt expansion
+    # vision sine-position-embedding temperature (the DINO-family 20)
+    pe_temperature: float = 20.0
+    max_obj_patches: int = 100
+    max_kpt_patches: int = 100
+    # losses
+    class_loss_coef: float = 2.0
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    keypoint_loss_coef: float = 10.0
+    oks_loss_coef: float = 4.0
+    focal_alpha: float = 0.25
+    aux_loss: bool = True
+    dn_number: int = 100
+
+
+@dataclass(frozen=True)
 class VisionLLMConfig:
-    """Top-level composition config of the det path."""
+    """Top-level composition config of the det, perception and chat
+    paths."""
 
     vis_encoder: VisionEncoderConfig = field(default_factory=VisionEncoderConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
@@ -129,6 +163,8 @@ class VisionLLMConfig:
     num_embs_gen: int = 64
     use_gdino: bool = False
     gdino: Optional[GDinoConfig] = None
+    use_unipose: bool = False
+    unipose: Optional[UniPoseConfig] = None
     max_num_patches: int = 100
 
 
@@ -141,6 +177,24 @@ def vllm_7b_det_config(**overrides: Any) -> VisionLLMConfig:
         vl_bridge_type="mlp2x_gelu",
         use_gdino=True,
         gdino=GDinoConfig(),
+    )
+    base.update(overrides)
+    return VisionLLMConfig(**base)
+
+
+def vllm_7b_perception_config(**overrides: Any) -> VisionLLMConfig:
+    """The 7B flagship's perception tools: the JAX `vllm_7b_config(
+    use_sd=False, use_ip2p=False, use_region_encoder=False)`, field for
+    field: CLIP-ViT-L/336 + `mlp2x_gelu` + Vicuna-7B (vocab 32096) +
+    Grounding-DINO and UniPose, each with Swin-T at its defaults."""
+    base = dict(
+        vis_encoder=VisionEncoderConfig(),
+        llm=LLMConfig(vocab_size=32096),
+        vl_bridge_type="mlp2x_gelu",
+        use_gdino=True,
+        gdino=GDinoConfig(),
+        use_unipose=True,
+        unipose=UniPoseConfig(),
     )
     base.update(overrides)
     return VisionLLMConfig(**base)
@@ -177,6 +231,11 @@ def tiny_test_config(**overrides: Any) -> VisionLLMConfig:
             d_model=32, num_queries=20, encoder_layers=1, decoder_layers=2,
             num_heads=4, ffn_dim=64, text_dim=64, mask_dim=32, dn_number=4,
             num_mask_points=64),
+        use_unipose=True,
+        unipose=UniPoseConfig(
+            d_model=32, num_queries=20, encoder_layers=1, decoder_layers=3,
+            num_heads=4, ffn_dim=64, text_dim=64, num_body_points=4,
+            num_groups=5, max_obj_patches=8, max_kpt_patches=8),
         num_embs_gen=8,
         max_num_patches=10,
     )

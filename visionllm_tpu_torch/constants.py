@@ -1,7 +1,8 @@
 """Special tokens and tool kinds of the super-link routing protocol (copy
-of the JAX package's `constants.py` values that the det and chat paths
-use). The token strings must match the reference checkpoint's."""
+of the JAX package's `constants.py` values that the det, perception and
+chat paths use). The token strings must match the reference checkpoint's."""
 
+IGNORE_INDEX = -100
 IMAGE_TOKEN_INDEX = -200
 
 # all special tokens added to the tokenizer, in the reference's order

@@ -1,15 +1,17 @@
-"""Host-side multimodal utilities: CLIP image preprocessing and
+"""Host-side multimodal utilities: image resizing, CLIP preprocessing and
 prompt <-> token plumbing (counterpart of `visionllm_tpu/data/mm_utils.py`:
-`expand2square`, `clip_preprocess`, `tokenizer_image_token`,
-`expand_image_tokens`, `find_stop`).
+`expand2square`, `resize_image`, `clip_preprocess`,
+`tokenizer_image_token`, `expand_image_tokens`, `find_stop`).
 
-The JAX package resizes with Pillow's bicubic resampler (or its native
-copy of it). The port does without Pillow: `resize_bicubic` repeats
-Pillow's 8-bit algorithm in numpy - the antialiased bicubic filter
-(a = -0.5, support widened by the downscale factor), coefficients
-normalized per output pixel and rounded to 22-bit fixed point, a width
-pass then a height pass, each rounded and clamped to uint8 - so it gives
-Pillow's pixels.
+The JAX package resizes with Pillow (or its native copy of Pillow's
+resampler). The port does without Pillow: `resize_image` repeats
+Pillow's 8-bit algorithm in numpy - the antialiased bicubic (a = -0.5)
+or triangle (bilinear) filter, support widened by the downscale factor,
+weights normalized per output pixel and rounded to 22-bit fixed point, a
+width pass then a height pass, each rounded and clamped to uint8 - and
+its nearest-neighbour stepping, so it gives Pillow's pixels.
+`resize_float` is Pillow's bilinear resize of a float32 ("F") image,
+which keeps the weights in double precision.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from visionllm_tpu_torch.constants import IMAGE_TOKEN_INDEX
 # CLIP normalization constants (CLIPImageProcessor defaults)
 CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)
+# ImageNet normalization (det/pose image branch)
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
 
 def expand2square(img: np.ndarray, background: Sequence[float]) -> np.ndarray:
@@ -56,34 +61,53 @@ def _bicubic(x: float) -> float:
     return 0.0
 
 
-def _coeffs(in_size: int, out_size: int):
-    """Per output pixel: ksize source indices and fixed-point weights."""
+def _triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+# Pillow's resampling filters: (filter, support)
+_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_triangle, 1.0)}
+
+
+def _coeffs(in_size: int, out_size: int, method: str):
+    """Per output pixel: ksize source indices (clamped; their weights are
+    0) and the weights normalized to sum 1, in double precision."""
+    filt, support = _FILTERS[method]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = support * filterscale
     ss = 1.0 / filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     idx = np.zeros((out_size, ksize), np.int64)
-    kk = np.zeros((out_size, ksize), np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = [_bicubic((x + xmin - center + 0.5) * ss)
-             for x in range(xmax)]
+        w = [filt((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = 0.0
         for v in w:
             ww += v
         for x, v in enumerate(w):
-            v = v / ww if ww != 0.0 else v
-            v *= 1 << _PRECISION_BITS
-            kk[xx, x] = int(v - 0.5) if v < 0 else int(v + 0.5)
+            kk[xx, x] = v / ww if ww != 0.0 else v
         idx[xx] = np.minimum(xmin + np.arange(ksize), in_size - 1)
     return idx, kk
 
 
-def _resample(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
-    idx, kk = _coeffs(img.shape[axis], out_size)
+def _fixed_point(kk: np.ndarray) -> np.ndarray:
+    """Weights rounded half away from zero to 22-bit fixed point."""
+    v = kk * (1 << _PRECISION_BITS)
+    return np.where(v < 0, -np.floor(0.5 - v), np.floor(v + 0.5)).astype(
+        np.int64)
+
+
+def _resample_u8(img: np.ndarray, axis: int, out_size: int, method: str
+                 ) -> np.ndarray:
+    """One pass over int64 pixels in [0, 255]: the fixed-point sum with
+    Pillow's rounding offset, then the clamp to [0, 255]."""
+    idx, kk = _coeffs(img.shape[axis], out_size, method)
+    kk = _fixed_point(kk)
     shape = [1] * img.ndim
     shape[axis] = out_size
     acc = np.full(1, 1 << (_PRECISION_BITS - 1), np.int64)
@@ -94,14 +118,67 @@ def _resample(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
                     np.where(acc <= 0, 0, acc >> _PRECISION_BITS))
 
 
-def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """uint8 HWC -> uint8 [size[0], size[1], C], Pillow's bicubic."""
-    x = img.astype(np.int64)
+def _resample_f32(img: np.ndarray, axis: int, out_size: int, method: str
+                  ) -> np.ndarray:
+    """One pass over float32 pixels ("F" mode): a double sum over the
+    taps in order, rounded to float32."""
+    idx, kk = _coeffs(img.shape[axis], out_size, method)
+    shape = [1] * img.ndim
+    shape[axis] = out_size
+    acc = np.zeros(1, np.float64)
+    for t in range(idx.shape[1]):
+        acc = acc + np.take(img, idx[:, t], axis=axis).astype(np.float64) \
+            * kk[:, t].reshape(shape)
+    return acc.astype(np.float32)
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Pillow's nearest neighbour: the source coordinate starts at half a
+    step and advances by the step in double precision, truncated."""
+    step = in_size / out_size
+    pos = step * 0.5
+    out = np.empty(out_size, np.int64)
+    for i in range(out_size):
+        out[i] = int(pos)
+        pos += step
+    return out
+
+
+def resize_image(img: np.ndarray, size: Tuple[int, int],
+                 method: str = "bilinear") -> np.ndarray:
+    """HW or HWC resize to `size` (h, w) with Pillow's pixels, as the JAX
+    `resize_image` gives them: a uint8 image (any other dtype is first
+    cast to uint8, as the JAX package does before Pillow) through
+    Pillow's 8-bit path, a width pass then a height pass for "bilinear"
+    and "bicubic", each rounded and clamped; "nearest" picks rows and
+    columns."""
+    x = img if img.dtype == np.uint8 else img.astype(np.uint8)
+    if method == "nearest":
+        x = x[_nearest_index(x.shape[0], size[0])] \
+            if x.shape[0] != size[0] else x
+        x = x[:, _nearest_index(x.shape[1], size[1])] \
+            if x.shape[1] != size[1] else x
+        return x.copy()
+    if method not in _FILTERS:
+        raise ValueError(f"unknown resize method {method!r}")
+    x = x.astype(np.int64)
     if x.shape[1] != size[1]:
-        x = _resample(x, 1, size[1])
+        x = _resample_u8(x, 1, size[1], method)
     if x.shape[0] != size[0]:
-        x = _resample(x, 0, size[0])
+        x = _resample_u8(x, 0, size[0], method)
     return x.astype(np.uint8)
+
+
+def resize_float(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """float32 [H, W] -> float32 [size[0], size[1]]: Pillow's bilinear
+    resize of an "F"-mode image (double weights, no fixed point), width
+    pass then height pass."""
+    x = np.asarray(img, np.float32)
+    if x.shape[1] != size[1]:
+        x = _resample_f32(x, 1, size[1], "bilinear")
+    if x.shape[0] != size[0]:
+        x = _resample_f32(x, 0, size[0], "bilinear")
+    return x
 
 
 def clip_preprocess(img: np.ndarray, image_size: int = 336,
@@ -111,7 +188,7 @@ def clip_preprocess(img: np.ndarray, image_size: int = 336,
     mode "resize": plain resize."""
     if mode == "pad":
         img = expand2square(img, (CLIP_MEAN * 255).astype(np.uint8))
-    img = resize_bicubic(img, (image_size, image_size))
+    img = resize_image(img, (image_size, image_size), "bicubic")
     x = img.astype(np.float32) / 255.0
     return (x - CLIP_MEAN) / CLIP_STD
 

@@ -96,6 +96,9 @@ _PARAM_INIT = {
     "text_param": ("const", 1e-4),
     "level_embed": ("normal", 1.0),
     "query_position_embeddings": ("normal", 1.0),
+    "tgt_embed": ("normal", 1.0),
+    "hw": ("normal", 1.0),
+    "hw_append": ("normal", 1.0),
 }
 
 

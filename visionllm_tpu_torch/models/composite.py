@@ -1,7 +1,7 @@
-"""Composite model: VisionLLM core + Grounding-DINO in one module tree,
-with the det-VQA inference entry `infer_det` and the det training forward
-`forward_det` (counterpart of `visionllm_tpu/models/composite.py:73-97`,
-`:158-166`).
+"""Composite model: VisionLLM core + Grounding-DINO + UniPose in one
+module tree, with the det-VQA inference entry `infer_det`, the pose
+inference entry `infer_pose` and the det training forward `forward_det`
+(counterpart of `visionllm_tpu/models/composite.py:73-97`, `:158-180`).
 
 `build_model` is the entry point: it builds the model on CUDA unless the
 caller names another device, in the requested dtype (bf16 by default, as
@@ -25,19 +25,33 @@ from visionllm_tpu_torch.config import VisionLLMConfig
 from visionllm_tpu_torch.device import resolve_device
 from visionllm_tpu_torch.models.common import init_weights
 from visionllm_tpu_torch.models.grounding_dino.model import GroundingDino
+from visionllm_tpu_torch.models.unipose.model import UniPose
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
 from visionllm_tpu_torch.ops.quant4 import quantize_llm_int4
 from visionllm_tpu_torch.train.losses import lm_cross_entropy
 
 
 class VisionLLMWithTools(nn.Module):
+    """The core with the tools `cfg` turns on: `gdino` (`use_gdino`) for
+    det, grounding and segmentation, `unipose` (`use_unipose`) for pose.
+    An entry point raises when its tool is missing."""
+
     def __init__(self, cfg: VisionLLMConfig):
         super().__init__()
-        if not cfg.use_gdino:
-            raise ValueError("the det path needs use_gdino=True")
+        if not (cfg.use_gdino or cfg.use_unipose):
+            raise ValueError("the composite needs a tool: use_gdino=True "
+                             "or use_unipose=True")
         self.cfg = cfg
         self.core = VisionLLM(cfg)
-        self.gdino = GroundingDino(cfg.gdino)
+        self.gdino = GroundingDino(cfg.gdino) if cfg.use_gdino else None
+        self.unipose = UniPose(cfg.unipose) if cfg.use_unipose else None
+
+    def _tool(self, name: str) -> nn.Module:
+        tool = getattr(self, name)
+        if tool is None:
+            raise ValueError(f"this model has no {name} tool (use_{name}="
+                             "False)")
+        return tool
 
     @torch.no_grad()
     def infer_det(self, input_ids: torch.Tensor, images: torch.Tensor,
@@ -49,10 +63,29 @@ class VisionLLMWithTools(nn.Module):
 
         input_ids [B, L]; images [N, H, W, 3] CLIP pixels (NHWC);
         images_aug [B, H', W', 3] det pixels (NHWC)."""
+        gdino = self._tool("gdino")
         out = self.core(input_ids, images, tid, compute_logits=False)
         tq, tq_mask = self.core.extract_text_query(out["hidden"], input_ids,
                                                    tid)
-        return self.gdino(images_aug, tq, tq_mask, pixel_mask=pixel_mask)
+        return gdino(images_aug, tq, tq_mask, pixel_mask=pixel_mask)
+
+    @torch.no_grad()
+    def infer_pose(self, input_ids: torch.Tensor, images: torch.Tensor,
+                   images_aug: torch.Tensor, tid: SpecialTokenIds,
+                   num_obj_patches: int,
+                   pixel_mask: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """Pose given a ready prompt that carries [DET][EMB..] blocks for
+        the object classes, then one [POSE][EMB..] block per keypoint:
+        the first `num_obj_patches` text queries are UniPose's object
+        queries, the rest its keypoint queries."""
+        unipose = self._tool("unipose")
+        out = self.core(input_ids, images, tid, compute_logits=False)
+        tq, tq_mask = self.core.extract_text_query(out["hidden"], input_ids,
+                                                   tid)
+        n = num_obj_patches
+        return unipose(images_aug, tq[:, :n], tq_mask[:, :n], tq[:, n:],
+                       tq_mask[:, n:], pixel_mask=pixel_mask)
 
     def forward_det(self, batch: Dict[str, torch.Tensor],
                     tid: SpecialTokenIds,
@@ -73,7 +106,7 @@ class VisionLLMWithTools(nn.Module):
                    * (1.0 - out["ignore_flag"]))
         tq, tq_mask = self.core.extract_text_query(
             out["hidden"], batch["input_ids"], tid)
-        det = self.gdino(batch["images_aug"], tq, tq_mask,
+        det = self._tool("gdino")(batch["images_aug"], tq, tq_mask,
                          pixel_mask=batch.get("pixel_mask"),
                          targets=batch.get("targets") if dn_noise is not None
                          else None,

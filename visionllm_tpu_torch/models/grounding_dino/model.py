@@ -82,6 +82,39 @@ def _downsample_mask(pixel_mask: torch.Tensor, hw) -> torch.Tensor:
     return m[:, 0] > 0.5
 
 
+def encoder_proposals(enc_output: torch.Tensor, valid_mask: torch.Tensor,
+                      spatial_shapes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Anchor-like proposals per encoder token, shared by Grounding-DINO
+    and UniPose: (enc_output with the tokens that are padding or whose
+    anchor leaves (0.01, 0.99) zeroed, proposal logits [B, S, 4] fp32,
+    +inf at those tokens)."""
+    B = enc_output.shape[0]
+    dev = enc_output.device
+    props = []
+    pos = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        m = valid_mask[:, pos:pos + h * w].reshape(B, h, w)
+        valid_h = m[:, :, 0].sum(1).float()
+        valid_w = m[:, 0, :].sum(1).float()
+        gy, gx = torch.meshgrid(
+            torch.arange(h, dtype=torch.float32, device=dev),
+            torch.arange(w, dtype=torch.float32, device=dev),
+            indexing="ij")
+        grid = torch.stack([gx, gy], dim=-1)[None]
+        scale = torch.stack([valid_w, valid_h], dim=-1).reshape(B, 1, 1, 2)
+        grid = (grid + 0.5) / scale
+        wh = torch.full_like(grid, 0.05 * (2.0 ** lvl))
+        props.append(torch.cat([grid, wh], -1).reshape(B, -1, 4))
+        pos += h * w
+    proposals = torch.cat(props, dim=1)
+    prop_valid = ((proposals > 0.01) & (proposals < 0.99)).all(
+        -1, keepdim=True)
+    proposals = torch.log(proposals / (1 - proposals))
+    bad = (~valid_mask[..., None]) | (~prop_valid)
+    return (enc_output.masked_fill(bad, 0.0),
+            proposals.masked_fill(bad, float("inf")))
+
+
 class GDinoEncoderLayer(nn.Module):
     def __init__(self, cfg: GDinoConfig):
         super().__init__()
@@ -194,33 +227,9 @@ class GroundingDino(nn.Module):
         self.patch2query = MLP(cfg.text_dim, d, d, 3)
 
     def gen_proposals(self, enc_output, valid_mask, spatial_shapes):
-        """Anchor-like proposals per encoder token: (object_query
-        [B, S, C], proposal logits [B, S, 4] fp32)."""
-        B = enc_output.shape[0]
-        dev = enc_output.device
-        props = []
-        pos = 0
-        for lvl, (h, w) in enumerate(spatial_shapes):
-            m = valid_mask[:, pos:pos + h * w].reshape(B, h, w)
-            valid_h = m[:, :, 0].sum(1).float()
-            valid_w = m[:, 0, :].sum(1).float()
-            gy, gx = torch.meshgrid(
-                torch.arange(h, dtype=torch.float32, device=dev),
-                torch.arange(w, dtype=torch.float32, device=dev),
-                indexing="ij")
-            grid = torch.stack([gx, gy], dim=-1)[None]
-            scale = torch.stack([valid_w, valid_h], dim=-1).reshape(B, 1, 1, 2)
-            grid = (grid + 0.5) / scale
-            wh = torch.full_like(grid, 0.05 * (2.0 ** lvl))
-            props.append(torch.cat([grid, wh], -1).reshape(B, -1, 4))
-            pos += h * w
-        proposals = torch.cat(props, dim=1)
-        prop_valid = ((proposals > 0.01) & (proposals < 0.99)).all(
-            -1, keepdim=True)
-        proposals = torch.log(proposals / (1 - proposals))
-        bad = (~valid_mask[..., None]) | (~prop_valid)
-        proposals = proposals.masked_fill(bad, float("inf"))
-        oq = enc_output.masked_fill(bad, 0.0)
+        """(object_query [B, S, C], proposal logits [B, S, 4] fp32)."""
+        oq, proposals = encoder_proposals(enc_output, valid_mask,
+                                          spatial_shapes)
         return self.enc_output_norm(self.enc_output(oq)), proposals
 
     def forward(self, pixel_values: torch.Tensor, text_query: torch.Tensor,

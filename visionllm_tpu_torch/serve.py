@@ -1,6 +1,7 @@
-"""Chat serving: `ChatService` with request micro-batching and a minimal
-HTTP front (counterpart of `visionllm_tpu/serve.py` in its dispatch-loop
-mode).
+"""Chat serving: `ChatService` with request micro-batching, and a minimal
+HTTP front for chat and perception (counterpart of
+`visionllm_tpu/serve.py` in its dispatch-loop mode, with its perception
+endpoints).
 
 * `ChatService` owns a built `VisionLLM` core, a tokenizer and the greedy
   generate loop of `generation.py`. Prompts are LEFT-padded to
@@ -19,10 +20,26 @@ Endpoints (`make_server`)
       body: {"prompt": str, "image_b64": str | null (raw RGB uint8),
              "image_shape": [H, W, 3], "max_new_tokens": int | null,
              "history": [...] | null}
+  POST /v1/detect    -> Predictor.detect: {"scores", "labels", "boxes",
+                        "class_names"[, "masks": [RLE, ...]]}
+      body: {"image_b64", "image_shape", "classes": [str, ...],
+             "threshold"?, "topk"?, "with_mask"?}
+  POST /v1/ground    -> Predictor.ground: {"box", "score"[, "mask": RLE]}
+      body: {"image_b64", "image_shape", "expression": str, "with_mask"?}
+  POST /v1/pose      -> Predictor.pose: {"scores", "boxes", "keypoints",
+                        "keypoint_names"}
+      body: {"image_b64", "image_shape", "keypoint_names"?, "threshold"?,
+             "topk"?}
+
+The perception endpoints need `make_server(..., predictor=Predictor)`
+(400 without one). One lock serialises the predictor's calls, and at
+most 32 perception requests wait or run at once: the next is shed with a
+503, as /v1/generate sheds when its queue is full. Floats are rounded to
+5 decimals; masks are COCO-compressed RLE (`ops/rle.py`).
 
 Not ported (they raise NotImplementedError): continuous-batching slots,
-speculative decoding, sampling, session KV reuse, region prompts,
-streaming and the perception endpoints.
+speculative decoding, sampling, session KV reuse, region prompts and
+streaming.
 """
 
 from __future__ import annotations
@@ -47,6 +64,7 @@ from visionllm_tpu_torch.data.mm_utils import (clip_preprocess,
 from visionllm_tpu_torch.device import resolve_device
 from visionllm_tpu_torch.generation import build_generate_fn
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
+from visionllm_tpu_torch.ops.rle import rle_encode
 
 
 class Overloaded(RuntimeError):
@@ -283,9 +301,30 @@ class ChatService:
         return results
 
 
+def perception_json(out: dict) -> dict:
+    """A Predictor result as the perception endpoints send it: masks as
+    COCO RLE, integer arrays as lists, float arrays rounded to 5
+    decimals."""
+    res = {}
+    for k, v in out.items():
+        if k == "masks":
+            res[k] = [rle_encode(m) for m in v]
+        elif k == "mask":
+            res[k] = rle_encode(v)
+        elif isinstance(v, np.ndarray):
+            res[k] = (v.tolist() if np.issubdtype(v.dtype, np.integer)
+                      else np.round(v.astype(np.float64), 5).tolist())
+        else:
+            res[k] = v
+    return res
+
+
 class _Handler(BaseHTTPRequestHandler):
     service: ChatService = None     # set by make_server
     model_name: str = "visionllm_tpu_torch"
+    predictor = None
+    predictor_lock: threading.Lock = None
+    predictor_sem: threading.BoundedSemaphore = None
 
     def log_message(self, fmt, *args):   # quiet by default
         pass
@@ -307,24 +346,59 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._reply(404, {"error": "not found"})
 
+    @staticmethod
+    def _read_image(req: dict, required: bool = False
+                    ) -> Optional[np.ndarray]:
+        if req.get("image_b64"):
+            raw = base64.b64decode(req["image_b64"])
+            return np.frombuffer(raw, np.uint8).reshape(
+                tuple(req["image_shape"]))
+        if required:
+            raise KeyError("image_b64")
+        return None
+
+    def _perception(self, req: dict) -> dict:
+        """POST /v1/{detect,ground,pose} -> the predictor, JSON-safe."""
+        if self.predictor is None:
+            raise ValueError("the perception endpoints need a perception "
+                             "server (make_server(..., predictor=...))")
+        img = self._read_image(req, required=True)
+        # at most N perception requests wait or run; shed the next
+        if not self.predictor_sem.acquire(blocking=False):
+            raise Overloaded("perception queue full")
+        try:
+            return self._perception_locked(req, img)
+        finally:
+            self.predictor_sem.release()
+
+    def _perception_locked(self, req: dict, img: np.ndarray) -> dict:
+        p = self.predictor
+        with self.predictor_lock:
+            if self.path == "/v1/detect":
+                out = p.detect(img, [str(c) for c in req["classes"]],
+                               threshold=float(req.get("threshold", 0.3)),
+                               topk=int(req.get("topk", 100)),
+                               with_mask=bool(req.get("with_mask")))
+            elif self.path == "/v1/ground":
+                out = p.ground(img, str(req["expression"]),
+                               with_mask=bool(req.get("with_mask")))
+            else:
+                out = p.pose(img, keypoint_names=req.get("keypoint_names"),
+                             threshold=float(req.get("threshold", 0.3)),
+                             topk=int(req.get("topk", 20)))
+        return perception_json(out)
+
     def do_POST(self):
-        if self.path != "/v1/generate":
+        if self.path in ("/v1/detect", "/v1/ground", "/v1/pose"):
+            handle = self._perception
+        elif self.path == "/v1/generate":
+            handle = self._generate
+        else:
             self._reply(404, {"error": "not found"})
             return
         try:
             n = int(self.headers.get("Content-Length", 0))
-            req = json.loads(self.rfile.read(n) or b"{}")
-            image = None
-            if req.get("image_b64"):
-                raw = base64.b64decode(req["image_b64"])
-                image = np.frombuffer(raw, np.uint8).reshape(
-                    tuple(req["image_shape"]))
-            out = self.service.generate(
-                req["prompt"], image,
-                max_new_tokens=req.get("max_new_tokens"),
-                history=req.get("history"),
-                logprobs=bool(req.get("logprobs")))
-            self._reply(200, out)
+            self._reply(200, handle(json.loads(self.rfile.read(n) or b"{}")))
         except (KeyError, ValueError, TypeError) as e:
             self._reply(400, {"error": f"bad request: {e}"})
         except Overloaded as e:
@@ -332,11 +406,22 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:                          # noqa: BLE001
             self._reply(500, {"error": str(e)[:500]})
 
+    def _generate(self, req: dict) -> dict:
+        return self.service.generate(
+            req["prompt"], self._read_image(req),
+            max_new_tokens=req.get("max_new_tokens"),
+            history=req.get("history"),
+            logprobs=bool(req.get("logprobs")))
+
 
 def make_server(service: ChatService, host: str = "127.0.0.1",
-                port: int = 8000, model_name: str = "visionllm_tpu_torch"
-                ) -> ThreadingHTTPServer:
-    """Build (but do not start) the HTTP server."""
+                port: int = 8000, model_name: str = "visionllm_tpu_torch",
+                predictor=None) -> ThreadingHTTPServer:
+    """Build (but do not start) the HTTP server; with `predictor` (an
+    `infer.Predictor`) it also serves the perception endpoints."""
     handler = type("Handler", (_Handler,),
-                   {"service": service, "model_name": model_name})
+                   {"service": service, "model_name": model_name,
+                    "predictor": predictor,
+                    "predictor_lock": threading.Lock(),
+                    "predictor_sem": threading.BoundedSemaphore(32)})
     return ThreadingHTTPServer((host, port), handler)
