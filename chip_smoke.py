@@ -32,7 +32,10 @@ Phases, each printing one JSON line:
              and a pose request's post-expansion decoder at the 800 px
              test scale, and a train step (`captured_*`; each capture
              builds its model), and time the grid_sample composition
-             (`composite_*`) where no single library call computes MSDA;
+             (`composite_*`) where no single library call computes MSDA.
+             The lane gather adds seeded random indices (out-of-range
+             ones too) at [8, 57344], [8, 57343] and a two-CTA extent,
+             each case with the cluster size it launched;
 4. slice   - the det path: builds `VisionLLMWithTools` at full width
              (CLIP-L/336 24 layers, LLaMA-7B 32 layers, Grounding-DINO
              with Swin-T at 512 px) in bf16 with seeded random weights,
@@ -811,32 +814,51 @@ def check_msda_bwd(g):
     return cases
 
 
+# lane-gather cases beside the probe's (reversed indices): seeded random
+# indices in [-2, E + 2) at the probe's largest extent, at an odd one, and
+# just past one CTA a row (a two-CTA cluster with a ragged second slice)
+LANE_RANDOM = (57344, 57343, 1028)
+
+
+def lane_random_inputs(E, R=8):
+    rng = np.random.default_rng(E)
+    v = torch.from_numpy(rng.standard_normal((R, E)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-2, E + 2, (R, E)).astype(np.int32))
+    return v.cuda(), idx.cuda()
+
+
 def check_gathers():
     """The two gather probes' kernels against their plain versions at the
     probe's shapes (exact), with `torch.gather` / `torch.index_select` as
     the library yardsticks; device times of both probes from one profiler
-    context."""
+    context. Each lane case records the cluster it launched."""
     lane, row, timed = [], [], {}
-    for E in probes.LANE_EXTENTS:
-        v, idx = probes.lane_inputs(E, "cuda")
-        idx64 = idx.long()
+    inputs = [(f"extent_{E}", probes.lane_inputs(E, "cuda"))
+              for E in probes.LANE_EXTENTS]
+    inputs += [(f"random_{E}", lane_random_inputs(E)) for E in LANE_RANDOM]
+    for name, (v, idx) in inputs:
+        E = v.shape[1]
+        idx64 = idx.clamp(0, E - 1).long()
         got = G.lane_gather(v, idx)
         want = G.lane_gather_plain(v, idx)
         torch.cuda.synchronize()
-        err = check_close(f"lane_gather[{E}]", got, want)
+        err = check_close(f"lane_gather[{name}]", got, want)
         if not torch.equal(got, want):
-            raise AssertionError(f"lane_gather[{E}] differs from plain")
+            raise AssertionError(f"lane_gather[{name}] differs from plain")
         nbytes = 3 * 4 * v.numel()
         b_ms, b_by = bound(nbytes, 0, FP32_FLOPS)
         kernel = functools.partial(G.lane_gather, v, idx)
         lib = functools.partial(torch.gather, v, 1, idx64)
-        case = {"case": f"extent_{E}", "shape": list(v.shape),
+        plan = G.lane_gather_plan(E)
+        case = {"case": name, "shape": list(v.shape),
+                "cluster": plan["cluster"], "chunk": plan["chunk"],
+                "active_clusters": plan["active"],
                 "max_abs_err": err,
                 "ms": cuda_ms(kernel),
                 "plain_ms": cuda_ms(lambda: G.lane_gather_plain(v, idx)),
                 "library_ms": cuda_ms(lib),
                 "library": "torch.gather", "bound_ms": b_ms,
-                "bound_by": b_by, "bytes": nbytes}
+                "bound_us": b_ms * 1e3, "bound_by": b_by, "bytes": nbytes}
         timed[case["case"] + ":kernel"] = kernel
         timed[case["case"] + ":library"] = lib
         lane.append(case)

@@ -503,17 +503,53 @@ def test_int4_raises_under_grad(cuda):
         assert Q.int4_matmul(x, wp, scale).shape == (2, 64)
 
 
-@pytest.mark.parametrize("R,E", [(8, 128), (8, 256), (3, 1000), (2, 57344)])
-def test_lane_gather_kernel_matches_plain(cuda, R, E):
+# (R, E, reversed): random indices in [-2, E + 2) unless reversed. 1025
+# and 1028 are just past one CTA a row: a two-CTA cluster with a ragged
+# second slice, by scalar (odd E) and by 16-byte accesses.
+LANE = [(8, 128, False), (8, 256, False), (3, 1000, False),
+        (2, 57344, False), (8, 57344, False), (8, 57343, False),
+        (8, 1025, False), (8, 1028, False), (8, 57344, True)]
+
+
+@pytest.mark.parametrize("R,E,rev", LANE)
+def test_lane_gather_kernel_matches_plain(cuda, R, E, rev):
     rng = np.random.default_rng(E)
     v = torch.from_numpy(rng.standard_normal((R, E)).astype(np.float32)
                          ).to(cuda)
-    idx = torch.from_numpy(rng.integers(-2, E + 2, (R, E)).astype(np.int32)
-                           ).to(cuda)
+    if rev:
+        idx = torch.arange(E - 1, -1, -1, dtype=torch.int32,
+                           device=cuda).expand(R, E).contiguous()
+    else:
+        idx = torch.from_numpy(rng.integers(-2, E + 2, (R, E)).astype(
+            np.int32)).to(cuda)
     n = G.lane_gather.launches
     got = G.lane_gather(v, idx)
     assert G.lane_gather.launches == n + 1
     assert torch.equal(got, G.lane_gather_plain(v, idx))
+    if rev:
+        assert torch.equal(got, v.flip(1))
+
+
+def test_lane_gather_misaligned_rows(cuda):
+    """Rows 4 bytes off a 16-byte boundary take the scalar accesses."""
+    R, E = 8, 4096
+    rng = np.random.default_rng(1)
+    flat = torch.from_numpy(rng.standard_normal(R * E + 1).astype(
+        np.float32)).to(cuda)
+    v = flat[1:].view(R, E)
+    idx = torch.from_numpy(rng.integers(-2, E + 2, (R, E)).astype(np.int32)
+                           ).to(cuda)
+    assert v.is_contiguous() and v.data_ptr() % 16 == 4
+    assert torch.equal(G.lane_gather(v, idx), G.lane_gather_plain(v, idx))
+
+
+def test_lane_gather_cluster_sizes(cuda):
+    """One CTA a row up to 1024 floats, two just past it, 16 at the
+    probe's largest extent; each shape fits on the card."""
+    got = {E: G.lane_gather_plan(E) for E in (128, 1024, 1025, 57344)}
+    assert [got[E]["cluster"] for E in got] == [1, 1, 2, 16]
+    assert got[1025]["chunk"] == 516
+    assert all(p["active"] >= 1 for p in got.values())
 
 
 @pytest.mark.parametrize("rpb,n", [(8, 8192), (64, 1000), (64, 131072),

@@ -10,12 +10,17 @@ plumbing it uses) against the JAX package on the CPU, in fp32, at
 * conversation prompts and `tokenizer_image_token` are identical, and
   `clip_preprocess` is within one uint8 level of the JAX one (in fact
   equal: both run Pillow's fixed-point bicubic);
-* the HTTP front answers /healthz, /v1/generate and /metrics.
+* the HTTP front answers /healthz, /v1/generate and /metrics;
+* /v1/generate refuses sampling, sessions, streams and region prompts
+  with the JAX server's status and words, and reads temperature 0,
+  top_p and seed as the JAX server does;
+* a closed `ChatService` raises instead of leaving a caller waiting.
 """
 
 import base64
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -30,11 +35,13 @@ from visionllm_tpu.config import tiny_test_config as jax_tiny_config
 from visionllm_tpu.data import mm_utils as jmm
 from visionllm_tpu.models.visionllm import SpecialTokenIds as JaxTid
 from visionllm_tpu.models.visionllm import VisionLLM as JaxCore
+from visionllm_tpu.ops.rle import rle_encode as jax_rle_encode
 from visionllm_tpu.serve import ChatService as JaxChatService
+from visionllm_tpu.serve import make_server as jax_make_server
 from visionllm_tpu_torch.config import tiny_test_config
 from visionllm_tpu_torch.data import mm_utils as tmm
 from visionllm_tpu_torch.models.composite import build_core
-from visionllm_tpu_torch.serve import ChatService, make_server
+from visionllm_tpu_torch.serve import ChatService, _Request, make_server
 from visionllm_tpu_torch.utils.convert import load_jax_params
 from visionllm_tpu_torch.utils.simple_tokenizer import SimpleTokenizer
 
@@ -180,11 +187,135 @@ def test_http_front(services):
 
 
 def test_modes_not_ported_raise(services):
-    _, tsvc = services
+    jsvc, tsvc = services
     for kw in (dict(spec_k=2), dict(slots=2), dict(sampling=True),
                dict(sessions=2)):
         with pytest.raises(NotImplementedError):
             ChatService(tsvc.cfg, tsvc.core, tsvc.tokenizer, device="cpu",
                         **kw)
-    with pytest.raises(NotImplementedError):
+    # a config without a region encoder refuses regions as JAX does
+    with pytest.raises(ValueError) as want:
+        jsvc.generate("what is <regions>", regions=[[0, 0, 4, 4]])
+    with pytest.raises(ValueError) as got:
         tsvc.generate("what is <regions>", regions=[[0, 0, 4, 4]])
+    assert str(got.value) == str(want.value)
+    assert "has no RegionEncoder" in str(got.value)
+
+
+@pytest.fixture(scope="module")
+def servers(services):
+    """The JAX and the port's HTTP servers over the tiny services."""
+    jsvc, tsvc = services
+    srvs = [jax_make_server(jsvc, port=0), make_server(tsvc, port=0)]
+    for srv in srvs:
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    yield [f"http://127.0.0.1:{srv.server_address[1]}" for srv in srvs]
+    for srv in srvs:
+        srv.shutdown()
+        srv.server_close()
+
+
+_MASK = np.zeros((4, 4), np.uint8)
+_MASK[1:3, :2] = 1
+
+# bodies a greedy dispatch-loop server without sessions or a region
+# encoder refuses; the last two check that the checks run in JAX's order
+REFUSED = {
+    "sampling": {"temperature": 0.7},
+    "stream": {"stream": True},
+    "session": {"session": "s1"},
+    "region_boxes": {"region_boxes": [[0, 0, 4, 4]]},
+    "region_masks": {"region_masks": [jax_rle_encode(_MASK)]},
+    "stream_and_sampling": {"stream": True, "temperature": 0.7},
+    "sampling_and_session": {"temperature": 0.7, "session": "s1"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_generate_refuses_like_jax(servers, name):
+    body = {"prompt": "hello there", **REFUSED[name]}
+    (jcode, jbody), (tcode, tbody) = [_post(url + "/v1/generate", body)
+                                      for url in servers]
+    assert jcode == 400, jbody
+    assert (tcode, tbody["error"]) == (jcode, jbody["error"])
+
+
+def test_generate_greedy_fields_like_jax(servers):
+    body = {"prompt": "hello there", "temperature": 0, "top_p": 0.9,
+            "seed": 3}
+    (jcode, jbody), (tcode, tbody) = [_post(url + "/v1/generate", body)
+                                      for url in servers]
+    assert (jcode, tcode) == (200, 200), (jbody, tbody)
+    assert tbody["ids"] == jbody["ids"]
+    assert tbody["text"] == jbody["text"]
+
+
+def _in_thread(fn, timeout=10.0):
+    """Run fn in a thread joined with `timeout`; returns (result or
+    raised exception, seconds). Fails if the thread is still alive."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:      # noqa: BLE001 - handed back
+            box["out"] = e
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(timeout)
+    assert not th.is_alive(), f"still waiting after {timeout} s"
+    return box["out"], time.perf_counter() - t0
+
+
+def _fresh_service(tsvc):
+    return ChatService(tsvc.cfg, tsvc.core, tsvc.tokenizer,
+                       image_size=tsvc.image_size, device="cpu",
+                       batch_window_ms=1.0, **SERVE)
+
+
+def test_generate_after_close_raises(services):
+    svc = _fresh_service(services[1])
+    _in_thread(svc.close)
+    err, secs = _in_thread(lambda: svc.generate("hello there"))
+    assert isinstance(err, RuntimeError), err
+    assert str(err) == "ChatService is closed"
+    assert secs < 5.0
+
+
+def test_request_behind_close_sentinel_gets_error(services):
+    """A request that sits behind the close() sentinel (queued by hand
+    here: `_submit` refuses once closed) is failed, not left waiting;
+    the request in flight at close() still gets its answer."""
+    svc = _fresh_service(services[1])
+    entered, gate = threading.Event(), threading.Event()
+    run = svc._run
+
+    def gated_run(batch):
+        entered.set()
+        gate.wait(10)
+        return run(batch)
+
+    svc._run = gated_run
+    box = {}
+    first = threading.Thread(
+        target=lambda: box.update(out=svc.generate("hello there")),
+        daemon=True)
+    first.start()
+    assert entered.wait(10), "the dispatcher took no request"
+    closer = threading.Thread(target=svc.close, daemon=True)
+    closer.start()
+    deadline = time.perf_counter() + 10
+    while svc._queue.qsize() == 0:      # wait for the sentinel
+        assert time.perf_counter() < deadline, "close() put no sentinel"
+        time.sleep(0.01)
+    behind = _Request(np.asarray([1, 5, 6], np.int32), None)
+    svc._queue.put_nowait(behind)
+    gate.set()
+    assert behind.event.wait(10), "request behind the sentinel still waits"
+    assert isinstance(behind.error, RuntimeError)
+    first.join(10)
+    closer.join(10)
+    assert not first.is_alive() and not closer.is_alive()
+    assert box["out"]["num_tokens"] >= 1

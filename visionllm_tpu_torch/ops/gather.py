@@ -4,8 +4,10 @@ hand-written CUDA kernels of `csrc/gather_probes.cu`:
 
 * `lane_gather(v, idx)`: `out[r, e] = v[r, idx[r, e]]` (the JAX
   `take_along_axis(v, idx, axis=1)` of `attempt_a_dynamic_gather`), f32
-  `v` [R, E], int32 `idx` [R, E]; each row is staged in shared memory, so
-  E may reach `MAX_LANE_EXTENT`.
+  `v` [R, E], int32 `idx` [R, E]; each row is spread over the shared
+  memory of a thread-block cluster of up to 16 CTAs and gathered through
+  distributed shared memory (`lane_gather_plan` gives the cluster size),
+  for E up to `MAX_LANE_EXTENT`.
 * `row_gather(table, idx, rows_per_block)`: `out[i] = table[idx[i]]` (the
   `jnp.take(table, idx, axis=0)` of `attempt_b_dma_gather` and of the
   baseline), bf16 `table` [S, W] with W a multiple of 8, int32 `idx` [n].
@@ -23,7 +25,9 @@ import torch
 
 from visionllm_tpu_torch.kernels.build import check, library
 
-MAX_SMEM_BYTES = 232448        # dynamic shared memory a block may opt into
+# the lane gather's largest extent: a row in one block's shared memory,
+# as the first kernel held it (the clustered kernel keeps the limit)
+MAX_SMEM_BYTES = 232448
 MAX_LANE_EXTENT = MAX_SMEM_BYTES // 4
 
 
@@ -60,6 +64,18 @@ def lane_gather(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 lane_gather.launches = 0
+
+
+def lane_gather_plan(E: int) -> dict:
+    """The lane-gather kernel's launch shape at extent E on the current
+    card: CTAs per row (`cluster`), floats each CTA stages (`chunk`), and
+    the clusters of that shape that fit on the card at once (`active`)."""
+    fn = library("gather_probes").lane_gather_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    out = [ctypes.c_int() for _ in range(3)]
+    check(fn(E, *[ctypes.byref(o) for o in out]), "lane_gather_plan")
+    return dict(zip(("cluster", "chunk", "active"), (o.value for o in out)))
 
 
 def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

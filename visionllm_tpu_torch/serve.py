@@ -19,7 +19,11 @@ Endpoints (`make_server`)
   POST /v1/generate  -> {"text", "num_tokens", "ids", "latency_s"}
       body: {"prompt": str, "image_b64": str | null (raw RGB uint8),
              "image_shape": [H, W, 3], "max_new_tokens": int | null,
-             "history": [...] | null}
+             "history": [...] | null, "temperature"?, "top_p"?, "seed"?,
+             "session"?, "stream"?, "region_boxes"?, "region_masks"?}
+      The last fields are read as the JAX server reads them; the modes
+      this server lacks (sampling, sessions, streaming, region prompts)
+      answer 400 with the JAX server's message.
   POST /v1/detect    -> Predictor.detect: {"scores", "labels", "boxes",
                         "class_names"[, "masks": [RLE, ...]]}
       body: {"image_b64", "image_shape", "classes": [str, ...],
@@ -37,9 +41,12 @@ most 32 perception requests wait or run at once: the next is shed with a
 503, as /v1/generate sheds when its queue is full. Floats are rounded to
 5 decimals; masks are COCO-compressed RLE (`ops/rle.py`).
 
-Not ported (they raise NotImplementedError): continuous-batching slots,
-speculative decoding, sampling, session KV reuse, region prompts and
-streaming.
+Not ported: continuous-batching slots, speculative decoding, sampling
+and session KV reuse (the constructor raises NotImplementedError for
+each). A request for sampling, a session, a stream or region prompts is
+refused with the ValueError the JAX service raises in the same mode.
+`close()` stops the service: a later `generate` raises RuntimeError, and
+no queued request is left waiting.
 """
 
 from __future__ import annotations
@@ -64,7 +71,7 @@ from visionllm_tpu_torch.data.mm_utils import (clip_preprocess,
 from visionllm_tpu_torch.device import resolve_device
 from visionllm_tpu_torch.generation import build_generate_fn
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
-from visionllm_tpu_torch.ops.rle import rle_encode
+from visionllm_tpu_torch.ops.rle import rle_decode, rle_encode
 
 
 class Overloaded(RuntimeError):
@@ -132,24 +139,34 @@ class ChatService:
                       "batches_total": 0, "steps_total": 0}
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(
             maxsize=max_queue)
+        # `closed` and every put of a request change under this lock, so
+        # no request is queued behind the close() sentinel
+        self._lock = threading.Lock()
+        self._closed = False
         self._dispatcher = threading.Thread(target=self._dispatch_loop,
                                             daemon=True)
         self._dispatcher.start()
 
     def close(self):
-        """Stop the dispatcher thread and drop the core reference."""
+        """Stop the dispatcher thread and drop the core reference. Later
+        `generate` calls raise RuntimeError."""
+        with self._lock:
+            self._closed = True
         self._queue.put(None)
         self._dispatcher.join(timeout=30)
         self.core = self.generate_fn = None
 
     def _submit(self, req: _Request) -> None:
-        try:
-            self._queue.put_nowait(req)
-        except queue.Full:
-            self.stats["errors_total"] += 1
-            raise Overloaded(
-                f"request queue full ({self._queue.maxsize} waiting)"
-            ) from None
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("ChatService is closed")
+            try:
+                self._queue.put_nowait(req)
+            except queue.Full:
+                self.stats["errors_total"] += 1
+                raise Overloaded(
+                    f"request queue full ({self._queue.maxsize} waiting)"
+                ) from None
 
     def metrics(self) -> dict:
         s = dict(self.stats)
@@ -196,14 +213,35 @@ class ChatService:
             img = clip_preprocess(image, self.image_size, "pad")
         return np.asarray(ids, np.int32)[-self.max_prompt:], img, conv
 
+    def _check_regions(self, regions: Optional[List]) -> None:
+        """The JAX service's first region check: a config without a
+        region encoder refuses region prompts."""
+        if regions is None:
+            return
+        if not getattr(self.cfg, "use_region_encoder", False):
+            raise ValueError("this model config has no RegionEncoder "
+                             "(use_region_encoder=False)")
+        raise NotImplementedError("region prompts are not ported")
+
     def generate(self, prompt: str, image: Optional[np.ndarray] = None,
                  max_new_tokens: Optional[int] = None,
                  history: Optional[List] = None,
-                 logprobs: bool = False, regions: Optional[List] = None
-                 ) -> dict:
-        if regions is not None:
-            raise NotImplementedError("region prompts are not ported (the "
-                                      "port has no region encoder)")
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 seed: Optional[int] = None,
+                 logprobs: bool = False,
+                 session: Optional[str] = None,
+                 regions: Optional[List] = None) -> dict:
+        """Greedy generation. `top_p` and `seed` are read only when
+        sampling, so at temperature 0 they change nothing, as in JAX.
+        Sampling and sessions are refused with the JAX service's words."""
+        if temperature > 0:
+            raise ValueError("temperature > 0 requires a sampling "
+                             "server (ChatService(sampling=True) / "
+                             "serve --sampling)")
+        if session is not None:
+            raise ValueError("session KV reuse requires a session "
+                             "server (serve --slots N --sessions M)")
+        self._check_regions(regions)
         ids, img, conv = self._encode(prompt, image, history)
         req = _Request(ids, img)
         t0 = time.perf_counter()
@@ -230,12 +268,27 @@ class ChatService:
                                for x in req.logprobs[:len(tokens)]]
         return out
 
+    def generate_stream(self, prompt: str,
+                        image: Optional[np.ndarray] = None, *,
+                        history: Optional[List] = None,
+                        max_new_tokens: Optional[int] = None,
+                        temperature: float = 0.0, top_p: float = 1.0,
+                        seed: Optional[int] = None,
+                        session: Optional[str] = None,
+                        regions: Optional[List] = None):
+        """Streaming needs continuous-batching slots, which this service
+        does not have: raises the JAX service's ValueError for a server
+        without slots, before any token (the HTTP layer answers 400)."""
+        raise ValueError("streaming requires continuous batching "
+                         "(slots > 0)")
+
     # ---- batching dispatcher (one thread owns the device) ----
 
     def _dispatch_loop(self):
         while True:
             first = self._queue.get()
             if first is None:               # close() sentinel
+                self._fail_queued()
                 return
             batch = [first]
             deadline = time.perf_counter() + self.batch_window_s
@@ -261,6 +314,18 @@ class ChatService:
             finally:
                 for r in batch:
                     r.event.set()
+
+    def _fail_queued(self):
+        """After the sentinel: any request still queued gets the closed
+        error, so no caller waits on an event nothing would set."""
+        while True:
+            try:
+                r = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if r is not None:
+                r.error = RuntimeError("ChatService is closed")
+                r.event.set()
 
     def _pack(self, batch: List[_Request]):
         """The fixed-shape [max_batch] inputs of one generate call:
@@ -407,11 +472,27 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(500, {"error": str(e)[:500]})
 
     def _generate(self, req: dict) -> dict:
-        return self.service.generate(
-            req["prompt"], self._read_image(req),
-            max_new_tokens=req.get("max_new_tokens"),
-            history=req.get("history"),
-            logprobs=bool(req.get("logprobs")))
+        """POST /v1/generate, reading the fields the JAX server reads."""
+        prompt = req["prompt"]
+        image = self._read_image(req)
+        regions = None
+        if req.get("region_boxes") or req.get("region_masks"):
+            regions = [np.asarray(b, np.float32)
+                       for b in req.get("region_boxes") or ()]
+            regions += [rle_decode(m["counts"], *m["size"]).astype(
+                np.float32) for m in req.get("region_masks") or ()]
+        kw = dict(history=req.get("history"),
+                  max_new_tokens=req.get("max_new_tokens"),
+                  temperature=float(req.get("temperature", 0.0)),
+                  top_p=float(req.get("top_p", 1.0)),
+                  seed=req.get("seed"), session=req.get("session"),
+                  regions=regions)
+        if req.get("stream"):
+            # refused before any header goes out: a 400
+            self.service.generate_stream(prompt, image, **kw)
+        return self.service.generate(prompt, image,
+                                     logprobs=bool(req.get("logprobs")),
+                                     **kw)
 
 
 def make_server(service: ChatService, host: str = "127.0.0.1",

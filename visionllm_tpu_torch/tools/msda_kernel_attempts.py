@@ -3,9 +3,9 @@ counterpart of the JAX tool `tools/msda_kernel_attempts.py`.
 
   A. `attempt_a`: the lane gather `take_along_axis(v, idx, axis=1)` of an
      f32 [8, extent] block with reversed indices. Mosaic rejects extents
-     beyond one 128-lane vreg; the port's kernel stages each row in shared
-     memory, so the probe also runs an extent near a block's shared-memory
-     limit.
+     beyond one 128-lane vreg; the port's kernel spreads each row over a
+     thread-block cluster's shared memory, so the probe also runs an
+     extent near the kernel's limit (`gather.MAX_LANE_EXTENT`).
   B. `attempt_b(rpb, n)`: the row gather `table[idx]` of a bf16
      [16384, 128] table (256-byte quad rows of the MSDA quad layout) at
      `rpb` rows per block: checked against the plain version and timed in
