@@ -17,7 +17,10 @@ Phases, each printing one JSON line:
              call computing the same function (yardstick only; the port
              never calls it); a backward kernel is held against autograd
              of the plain forward, output by output. The flash forward
-             also runs the chat prefill (B4 L640) and a causal L2048.
+             also runs the chat prefill (B4 L640), a causal L2048 and a
+             slot service's B1 L640 prefill with left-pad segments; the
+             int4 GEMM adds the slots phase's M 8 (a tick) and M 256 (a
+             chunk window).
              Every case prints `device_ms` (and `library_device_ms` where
              a library call computes the same function): device time per
              call from torch.profiler's kernel events, one profiler
@@ -77,7 +80,42 @@ Phases, each printing one JSON line:
              against a plain run teacher-forced on the kernel run's
              tokens, and times TTFT, a decode step and tok/s;
 9. serve_profile - one decode step under torch.profiler;
-10. train  - the det training step, after the chat model is freed: the
+10. slots  - continuous batching on the serve phase's int4 core (no second
+             7B model), with the port's `RoundTripTokenizer` (generated
+             ids survive the text round trip, so a session's history can
+             match its cached prefix). Service A is `ChatService(slots=8,
+             prefill_chunk=256, decode_span=4, sessions=2, max_prompt=640,
+             max_new_tokens=32)` (prompts round up to 768, slot_max_len
+             1288): 12 requests from threads in 3 waves 150 ms apart
+             (admissions land mid-decode, the backlog fills), one more
+             over HTTP with "stream": true, and a two-turn session with an
+             image. Service B is `ChatService(slots=4, sampling=True,
+             max_prompt=640, max_new_tokens=32)`: 4 concurrent requests,
+             two seeded at temperature 0.7 and top_p 0.9, one at
+             temperature 0, one at top_p 1e-6. Checks: each request's
+             tokens equal the same request decoded alone; every request's
+             prefill and decode logits, teacher-forced through the slot
+             engine on the service's tokens, within LOGIT_REL_TOL of the
+             plain versions; a chunked admission's first-token logits and
+             the session extension's within LOGIT_REL_TOL of a B1 prefill
+             (of the whole conversation for the session, which must report
+             `session_reused`); the SSE deltas joined equal the blocking
+             answer; greedy rows equal their greedy answers alone, a seed
+             alone twice and in the batch gives the same tokens, sampled
+             tokens lie in the nucleus of the kernel run's logits and of
+             the plain run's up to NUCLEUS_SLACK; the launches are int4
+             225 per LLM forward (span forwards a tick) and flash 24 per
+             chunked and 56 per B1 admission; after close() with live
+             slots every waiting call raises within CLOSE_WAIT_S. Then
+             service A's engine on a fresh state: ms a tick with 8 live
+             slots at span 1 and 4 (aggregate tok/s), the longest gap
+             between ticks while a slot is refilled by a chunked or a B1
+             admission; the TTFT of requests admitted mid-decode; slot
+             occupancy and peak memory;
+11. slots_profile - one span-1 tick with 8 live slots under
+             torch.profiler (printed before the slots line, which
+             carries service B's results);
+12. train  - the det training step, after the chat model is freed: the
              stage-1 frozen `vllm_7b_det_config()` at full width and
              depth (LLaMA 32 layers, CLIP 24, Grounding-DINO with Swin-T
              at 640 px, CDN with dn_number 100, 12544 mask points) in
@@ -90,8 +128,8 @@ Phases, each printing one JSON line:
              frozen parameters bit-identical, and per step flash fwd 56,
              flash bwd 32, MSDA fwd 12, MSDA bwd 12 launches; step ms,
              peak memory, the loss trace;
-11. train_profile - one more step under torch.profiler;
-12. probes - the gather probes' entry point
+13. train_profile - one more step under torch.profiler;
+14. probes - the gather probes' entry point
              (`visionllm_tpu_torch/tools/msda_kernel_attempts.py`).
 
 Then it prints the `{"kernels": [...]}` line, the card's name and power
@@ -129,7 +167,8 @@ from visionllm_tpu_torch.config import (LLMConfig, OptimizerConfig,
                                         vllm_7b_chat_config,
                                         vllm_7b_det_config,
                                         vllm_7b_perception_config)
-from visionllm_tpu_torch.generation import _tool_kind, advance_tool_state
+from visionllm_tpu_torch.generation import (_tool_kind, advance_tool_state,
+                                            nucleus_filter)
 from visionllm_tpu_torch.infer import (COCO_KEYPOINT_NAMES, Predictor,
                                        det_prompt, grd_prompt, pose_prompt,
                                        prompt_ids)
@@ -143,12 +182,14 @@ from visionllm_tpu_torch.ops import ms_deform_attn as M
 from visionllm_tpu_torch.ops import quant4 as Q
 from visionllm_tpu_torch.serve import (ChatService, _Request, make_server,
                                        perception_json)
+from visionllm_tpu_torch.slots import build_slot_fns
 from visionllm_tpu_torch.tools import msda_kernel_attempts as probes
 from visionllm_tpu_torch.train.runner import TrainConfig, frozen_predicate
 from visionllm_tpu_torch.train.train_step import (TrainState, build_optimizer,
                                                   det_loss, draw_step_noise,
                                                   make_det_train_step)
-from visionllm_tpu_torch.utils.simple_tokenizer import SimpleTokenizer
+from visionllm_tpu_torch.utils.simple_tokenizer import (RoundTripTokenizer,
+                                                        SimpleTokenizer)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
@@ -354,6 +395,9 @@ def attention_cases(g, more=False):
 
     seg = torch.ones(2, 586, dtype=torch.int32, device=dev)
     seg[1, :200] = 0           # a left-padded prompt beside a full one
+    # a slot service's B1 prefill: a 600-token prompt left-padded to 640
+    slot_seg = torch.ones(1, SERVE_PROMPT, dtype=torch.int32, device=dev)
+    slot_seg[0, :SERVE_PROMPT - 600] = 0
     # (name, B, L, H, H_kv, D, causal, segment_ids)
     specs = [("clip_l", 1, 577, 16, 16, 64, False, None),
              ("llama7b_prefill", 1, 586, 32, 32, 128, True, None),
@@ -362,7 +406,9 @@ def attention_cases(g, more=False):
     if more:
         specs += [("chat_prefill_b4", SERVE_BATCH, SERVE_PROMPT, 32, 32, 128,
                    True, None),
-                  ("long_l2048", 1, 2048, 32, 32, 128, True, None)]
+                  ("long_l2048", 1, 2048, 32, 32, 128, True, None),
+                  ("slot_prefill_b1_l640_leftpad", 1, SERVE_PROMPT, 32, 32,
+                   128, True, slot_seg)]
         specs += [(f"{task}_prefill", 1, L, 32, 32, 128, True, None)
                   for task, L in perception_prompt_lengths().items()]
     for name, B, L, H, Hkv, D, causal, sg in specs:
@@ -922,9 +968,12 @@ def int4_dequant(wp, scale):
 
 def check_int4(g):
     cases, timed = [], {}
+    # M 1 and 4: dispatch-loop decode; M 8: a tick of the slots phase's
+    # 8 slots; M 256: one of its chunk windows; M 2560: the chat prefill
     specs = [(f"decode_m{m}_{k}x{n}", m, k, n)
-             for m in (1, 4) for k, n in ((4096, 4096), (4096, 11008),
-                                           (11008, 4096), (4096, 32096))]
+             for m in (1, 4, 8) for k, n in ((4096, 4096), (4096, 11008),
+                                              (11008, 4096), (4096, 32096))]
+    specs.append(("chunk_m256_4096x11008", 256, 4096, 11008))
     specs.append(("prefill_m2560_4096x11008", 2560, 4096, 11008))
     for name, M_, K, N in specs:
         wbytes = K * N // 2 + 2 * (K // 128) * N
@@ -1366,7 +1415,7 @@ def profile_perception(pred, task, img):
 
 
 # ---------------------------------------------------------------------------
-# phases 10-11: the det training step at full width and depth
+# phases 12-13: the det training step at full width and depth
 # ---------------------------------------------------------------------------
 
 def train_batch(cfg, tid, g):
@@ -1602,7 +1651,7 @@ def profile_train_step(step, state, batch, g):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the gather probes' entry point
+# phase 14: the gather probes' entry point
 # ---------------------------------------------------------------------------
 
 def run_probes():
@@ -1858,7 +1907,7 @@ def run_serve():
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     profile_decode_step(svc, packed)
     svc.close()
-    return launches
+    return launches, core, cfg
 
 
 def profile_decode_step(svc, packed):
@@ -1895,6 +1944,586 @@ def profile_decode_step(svc, packed):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
     emit({"phase": "serve_profile", **device_summary(prof, wall_ms)})
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: continuous-batching slots on the chat core
+# ---------------------------------------------------------------------------
+
+# service A: greedy continuous batching with chunked prefill, decode spans
+# and sessions (the README's serving mode without its int8 flags);
+# service B: sampling, apart because sampling forbids chunked prefill and
+# sessions. Under chunking prompts round up to 768: slot_max_len 1288
+SLOTS_A = dict(slots=8, prefill_chunk=256, decode_span=4, sessions=2,
+               max_prompt=SERVE_PROMPT, max_new_tokens=SERVE_NEW)
+SLOTS_A_SHAPE = (768, 1288)           # (rounded max_prompt, slot_max_len)
+SLOTS_B = dict(slots=4, sampling=True, max_prompt=SERVE_PROMPT,
+               max_new_tokens=SERVE_NEW)
+SLOT_WAVES, SLOT_WAVE_GAP_S = 3, 0.15
+# a sampled token lies in the nucleus of the kernel run's logits exactly,
+# and in the plain run's up to this much probability mass before it: the
+# two runs' logits differ within LOGIT_REL_TOL, which moves the edge
+NUCLEUS_SLACK = 0.02
+CLOSE_WAIT_S = 10.0
+
+
+def slot_requests():
+    """Service A's 12 requests: the serve phase's 4 image requests and
+    text-only prompts with and without a history, with max_new_tokens
+    from 8 to 32 (which cuts the reply, not the decode)."""
+    images, text = serve_requests()
+    texts = [dict(prompt="tell me a short story about a lighthouse"),
+             dict(prompt="what is the capital of france"),
+             text,
+             dict(prompt="list three uses of copper"),
+             dict(prompt="and why is that",
+                  history=["is the sky blue", "yes, on a clear day"]),
+             dict(prompt="how do trains work"),
+             dict(prompt="what should I cook tonight",
+                  history=["I have rice and eggs", "fried rice is quick",
+                           "anything else", "an omelette"]),
+             dict(prompt="explain the rules of chess")]
+    reqs = images + texts
+    for i, r in enumerate(reqs):
+        r["max_new_tokens"] = 8 + (24 * i) // (len(reqs) - 1)
+    return reqs
+
+
+class SlotRecorder:
+    """Wraps a slot service's engine functions, reading only: counts the
+    LLM forwards they run (decode ticks x span, chunk and extend windows,
+    monolithic prefills) and the chunked admissions, and records each
+    request's submit and first-token times, the live slots at its
+    admission, and each session extension's last logits."""
+
+    def __init__(self, svc, span):
+        self.svc, self.span = svc, span
+        self.counts = dict.fromkeys(
+            ("ticks", "windows", "extends", "prefills", "chunked"), 0)
+        # keyed by the request objects, which the dicts keep alive (an
+        # id() could be reused by a later request)
+        self.submitted, self.first_token, self.live_at_admission = {}, {}, {}
+        self.extend_last = []
+        for name, key in (("_slot_step", "ticks"), ("_chunk_run", "windows"),
+                          ("_sess_extend", "extends"),
+                          ("_slot_prefill", "prefills"),
+                          ("_chunk_embed", "chunked")):
+            if hasattr(svc, name):
+                self._count(name, key)
+        submit, finish = svc._submit, svc._finish_admission
+
+        def submit_w(r):
+            self.submitted[r] = time.perf_counter()
+            return submit(r)
+
+        def finish_w(r, slot, pre, active, state, fill0):
+            self.live_at_admission[r] = len(active)
+            out = finish(r, slot, pre, active, state, fill0)
+            self.first_token[r] = time.perf_counter()
+            return out
+
+        svc._submit, svc._finish_admission = submit_w, finish_w
+        if hasattr(svc, "_sess_finish"):
+            sess_finish = svc._sess_finish
+
+            def sess_finish_w(last):
+                self.extend_last.append(last[0].float().clone())
+                return sess_finish(last)
+
+            svc._sess_finish = sess_finish_w
+
+    def _count(self, name, key):
+        fn = getattr(self.svc, name)
+
+        def counted(*a, **kw):
+            self.counts[key] += 1
+            return fn(*a, **kw)
+
+        setattr(self.svc, name, counted)
+
+    def expected_launches(self, cfg):
+        """(flash, int4) launches of the counted work: 225 int4 per LLM
+        forward; CLIP's 24 flash per fresh admission (a text-only one
+        carries a zero image), LLaMA's 32 only in a monolithic prefill
+        (chunk and extend windows carry a mask: the einsum branch)."""
+        c = self.counts
+        forwards = c["ticks"] * self.span + c["windows"] + c["extends"] \
+            + c["prefills"]
+        flash = cfg.vis_encoder.num_layers * (c["chunked"] + c["prefills"]) \
+            + cfg.llm.num_layers * c["prefills"]
+        return flash, (7 * cfg.llm.num_layers + 1) * forwards
+
+    def check_launches(self, label, cfg, launches):
+        got = (launches["flash_attn_fwd"], launches["int4_matmul"])
+        if got != self.expected_launches(cfg):
+            raise AssertionError(
+                f"{label}: launches (flash, int4) {got}, want "
+                f"{self.expected_launches(cfg)} for {self.counts}")
+
+
+def slot_row(svc, r):
+    """A request's left-padded ids, pixels, mask and buffer-valid row as
+    the slot service packs an admission."""
+    ids, img, mask, _ = svc._pack([r])
+    valid = torch.ones(svc.slot_max_len, dtype=torch.bool, device=svc.device)
+    valid[:svc.max_prompt] = mask[0]
+    return ids, img, mask, valid
+
+
+def monolithic_last_logits(svc, r):
+    """The last-position fp32 logits [V] of a B1 prefill of `r`."""
+    ids, img, mask, _ = slot_row(svc, r)
+    row = KVCache.create(svc.cfg.llm, 1, svc.slot_max_len,
+                         svc.core.llm.norm.weight.dtype, svc.device)
+    return svc.core(ids, img, svc.tid, attn_mask=mask, cache=row)[
+        "logits"][0, -1].float()
+
+
+def slot_teacher_forced(svc, reqs, tokens, chunked):
+    """Each request of `reqs` (at most the slot count) admitted into its
+    own slot of a fresh state of `svc`'s engine (chunk windows or a B1
+    prefill) and decoded with per-row fill levels, fed the tokens
+    `tokens[i]` a service run emitted (through the emb-countdown state
+    machine). Returns per request its fp32 logits [len(tokens[i]), V]:
+    the prefill's last position, then each decode step's."""
+    core, tid, cfg, dev = svc.core, svc.tid, svc.cfg, svc.device
+    state, slot_valid = svc._slot_init()
+    first_logits = []
+    for s, (r, toks) in enumerate(zip(reqs, tokens)):
+        ids, img, mask, valid = slot_row(svc, r)
+        row = KVCache.create(cfg.llm, 1, svc.slot_max_len,
+                             core.llm.norm.weight.dtype, dev)
+        if chunked:
+            W = svc.prefill_chunk
+            emb = core.build_prompt_embeds(ids, img, tid)[0]
+            for k in range(svc.max_prompt // W):
+                pos = (row.index + torch.arange(W, device=dev))[None]
+                last = core.llm_window(emb[:, k * W:(k + 1) * W], pos, row,
+                                       valid[None])["logits"][:, -1]
+        else:
+            last = core(ids, img, tid, attn_mask=mask, cache=row)[
+                "logits"][:, -1]
+        first_logits.append(last[0].float())
+        first = torch.tensor(toks[0], dtype=torch.int32, device=dev)
+        svc._slot_insert(state, s, first,
+                         core.embed_tokens(first[None, None].long()), row,
+                         valid, slot_valid)
+    n_max = max(len(t) for t in tokens)
+    forced = torch.zeros(len(slot_valid), n_max, dtype=torch.int32,
+                         device=dev)
+    for s, toks in enumerate(tokens):
+        forced[s, :len(toks)] = torch.tensor(toks, dtype=torch.int32)
+    embed, c = state.cur_embed, state.cache
+    countdown, kind = state.emb_countdown, state.emb_kind
+    steps = []
+    for t in range(1, n_max):
+        res = core.llm_step(embed, c.index[:, None], c, slot_valid)
+        steps.append(res["logits"][:, -1].float())     # advanced c.index
+        _, embed, countdown, kind = advance_tool_state(
+            core, tid, cfg.num_embs, cfg.num_embs_gen, forced[:, t],
+            countdown, kind)
+    return [torch.stack([first_logits[s]] + [x[s] for x in steps])[
+        :len(tokens[s])] for s in range(len(reqs))]
+
+
+def rel_errs(got, want):
+    """Relative Frobenius error of each row of [n, V]."""
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).reshape(
+        -1).tolist()
+
+
+def compare_slot_plain(svc, reqs, tokens, chunked):
+    """The kernel and the plain run of `slot_teacher_forced` on the same
+    tokens, per request: the prefill's and the worst decode step's
+    relative error, whether the kernel run's argmax reproduces the
+    service's tokens, and both runs' logits."""
+    out = []
+    for i in range(0, len(reqs), svc.slots):
+        part, toks = reqs[i:i + svc.slots], tokens[i:i + svc.slots]
+        kern = slot_teacher_forced(svc, part, toks, chunked)
+        with plain_versions():
+            plain = slot_teacher_forced(svc, part, toks, chunked)
+        for k, p, tk in zip(kern, plain, toks):
+            rel = rel_errs(k, p)
+            out.append({"prefill_rel_err": rel[0],
+                        "decode_rel_err_max": max(rel[1:], default=0.0),
+                        "kernel_argmax_equals_tokens":
+                            k.argmax(-1).tolist() == tk,
+                        "logits": (k, p)})
+    worst = max(max(o["prefill_rel_err"], o["decode_rel_err_max"])
+                for o in out)
+    if not worst <= LOGIT_REL_TOL:
+        raise AssertionError(f"teacher-forced slot logits: rel err {worst} "
+                             f"> {LOGIT_REL_TOL}")
+    return out
+
+
+def public(rows):
+    return [{k: v for k, v in o.items() if k != "logits"} for o in rows]
+
+
+def preceding_mass(logits, token, temperature):
+    """Probability mass at `temperature` of the tokens before `token` in
+    a stable descending sort: `token` is in the top-p nucleus iff this
+    is below top_p."""
+    s = logits / max(temperature, 1e-6)
+    order = torch.argsort(-s, stable=True)
+    probs = torch.softmax(s[order], 0)
+    return float((torch.cumsum(probs, 0) - probs)[order == token][0])
+
+
+def call_threads(fns, timeout):
+    """Run each fn in its own thread; returns (results, exceptions), each
+    thread joined within `timeout` (raises otherwise)."""
+    res, errs = [None] * len(fns), [None] * len(fns)
+
+    def run(i):
+        try:
+            res[i] = fns[i]()
+        except Exception as e:          # noqa: BLE001 - handed back
+            errs[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(fns))]
+    for th in threads:
+        th.start()
+    deadline = time.perf_counter() + timeout
+    for th in threads:
+        th.join(max(0.0, deadline - time.perf_counter()))
+    if any(th.is_alive() for th in threads):
+        raise AssertionError(f"a call still waits after {timeout} s")
+    return res, errs
+
+
+def sse_deltas(url, body):
+    """The text deltas of a streamed /v1/generate answer."""
+    req = urllib.request.Request(
+        url + "/v1/generate", json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    deltas = []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.headers["Content-Type"] != "text/event-stream":
+            raise AssertionError(f"a stream answered {r.headers}")
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            payload = line[len("data: "):]
+            if payload == "[DONE]":
+                return deltas
+            frame = json.loads(payload)
+            if "error" in frame:
+                raise AssertionError(f"stream error frame {frame}")
+            deltas.append(frame["delta"])
+    raise AssertionError("the stream ended without [DONE]")
+
+
+def run_slots(core, cfg):
+    """Phase `slots` (service A, then `run_slots_sampling`'s service B) and
+    phase `slots_profile`: see the module docstring. Returns the launch
+    counts of both services' main-path requests."""
+    torch.cuda.reset_peak_memory_stats()
+    tok = RoundTripTokenizer()
+    svc = ChatService(cfg, core, tok, image_size=cfg.vis_encoder.image_size,
+                      device=core.llm.norm.weight.device, **SLOTS_A)
+    if (svc.max_prompt, svc.slot_max_len) != SLOTS_A_SHAPE:
+        raise AssertionError(f"service A: (max_prompt, slot_max_len) "
+                             f"{(svc.max_prompt, svc.slot_max_len)}")
+    reqs = slot_requests()
+    for r in reqs:
+        n = len(svc._encode(r["prompt"], r.get("image"), r.get("history"))[0])
+        if n >= SERVE_PROMPT:
+            raise AssertionError(f"prompt of {n} tokens would be cut")
+    srv = make_server(svc, host="127.0.0.1", port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    rec = SlotRecorder(svc, SLOTS_A["decode_span"])
+    streamed_req = dict(prompt="what is the capital of france")
+    img0 = reqs[0]
+    turn1_req = dict(prompt=img0["prompt"], image=img0["image"],
+                     session="chat")
+    per_wave = len(reqs) // SLOT_WAVES
+
+    def wave_call(i):
+        def call():
+            time.sleep(SLOT_WAVE_GAP_S * (i // per_wave))
+            return svc.generate(**reqs[i])
+        return call
+
+    # the main path, with the launch counts taken around it alone
+    A.flash_attention.launches = 0
+    Q.int4_matmul.launches = 0
+    t0 = time.perf_counter()
+    answers, errs = call_threads([wave_call(i) for i in range(len(reqs))],
+                                 timeout=900)
+    waves_s = time.perf_counter() - t0
+    if any(errs):
+        raise AssertionError(f"service A failed requests: {errs}")
+    # time to first token of the requests admitted while slots decoded
+    ttft = sorted((rec.first_token[r] - rec.submitted[r]) * 1e3
+                  for r in rec.first_token if rec.live_at_admission[r] > 0)
+    if not ttft:
+        raise AssertionError("no request was admitted mid-decode")
+    streamed = "".join(sse_deltas(url, streamed_req))
+    turn1 = svc.generate(**turn1_req)
+    history = [turn1_req["prompt"], turn1["text"]]
+    turn2_req = dict(prompt="and what else is in it", image=img0["image"],
+                     history=history, session="chat")
+    turn2 = svc.generate(**turn2_req)
+    torch.cuda.synchronize()
+    launches_a = {"flash_attn_fwd": A.flash_attention.launches,
+                  "int4_matmul": Q.int4_matmul.launches}
+    rec.check_launches("service A", cfg, launches_a)
+    counts_a = dict(rec.counts)
+    metrics_a = svc.metrics()
+    srv.shutdown()
+    srv.server_close()
+
+    secs = {"waves": waves_s, "main_path": time.perf_counter() - t0}
+    t = time.perf_counter()
+    # each request alone (every other slot dead), its full 32 tokens
+    alone = [svc.generate(**{**r, "max_new_tokens": None}) for r in reqs]
+    for i, (a, b) in enumerate(zip(answers, alone)):
+        if a["ids"] != b["ids"][:len(a["ids"])]:
+            raise AssertionError(f"request {i}: {a['ids']} with traffic, "
+                                 f"{b['ids']} alone")
+    blocking = svc.generate(**streamed_req)
+    if streamed.strip() != blocking["text"]:
+        raise AssertionError(f"SSE {streamed!r} != blocking "
+                             f"{blocking['text']!r}")
+    if (turn1["session_reused"], turn2["session_reused"]) != (False, True):
+        raise AssertionError(f"session turns reused "
+                             f"{turn1['session_reused']}, "
+                             f"{turn2['session_reused']}")
+    vocab = cfg.llm.vocab_size
+    for a in answers + alone + [turn1, turn2, blocking]:
+        if a["num_tokens"] < 1 or not all(0 <= t < vocab for t in a["ids"]):
+            raise AssertionError(f"bad answer {a}")
+
+    secs["alone_and_sse"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with torch.no_grad():
+        enc = [_Request(*svc._encode(r["prompt"], r.get("image"),
+                                     r.get("history"))[:2]) for r in reqs]
+        cmp_a = compare_slot_plain(svc, enc, [a["ids"] for a in alone],
+                                   chunked=True)
+        # a chunked admission's first-token logits vs a B1 prefill
+        chunk_vs_mono = [rel_errs(o["logits"][0][0],
+                                  monolithic_last_logits(svc, r))[0]
+                         for o, r in zip(cmp_a, enc)]
+        # the session turn's extension vs a fresh prefill of the whole
+        # conversation
+        conv = _Request(*svc._encode(turn2_req["prompt"], img0["image"],
+                                     history)[:2])
+        session_rel = rel_errs(rec.extend_last[-1],
+                               monolithic_last_logits(svc, conv))[0]
+    if not max(chunk_vs_mono + [session_rel]) <= LOGIT_REL_TOL:
+        raise AssertionError(f"chunked vs B1 prefill {chunk_vs_mono}, "
+                             f"session vs fresh prefill {session_rel}")
+    plain_a = public(cmp_a)
+    del cmp_a
+    secs["plain_comparisons"] = time.perf_counter() - t
+    t = time.perf_counter()
+    engine = slot_engine_timings(svc, enc)
+    svc.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["engine_and_profile"] = time.perf_counter() - t
+    t = time.perf_counter()
+    launches_b, summary_b = run_slots_sampling(core, cfg, tok)
+    secs["service_b"] = time.perf_counter() - t
+    emit({"phase": "slots", "nvidia_smi": nvidia_smi(),
+          "config": "vllm_7b_chat_config quant=int4",
+          "service_a": {**SLOTS_A, "max_prompt_rounded": svc.max_prompt,
+                        "slot_max_len": svc.slot_max_len},
+          "requests": len(reqs), "waves": SLOT_WAVES,
+          "wave_gap_s": SLOT_WAVE_GAP_S, "waves_wall_s": waves_s,
+          "waves_tok_per_s": sum(a["num_tokens"] for a in alone) / waves_s,
+          "launches_a": launches_a, "work_a": counts_a,
+          "answers": [{"num_tokens": a["num_tokens"], "text": a["text"][:40]}
+                      for a in answers],
+          "session_reused": [turn1["session_reused"],
+                             turn2["session_reused"]],
+          "session_vs_fresh_prefill_rel_err": session_rel,
+          "chunked_vs_b1_prefill_rel_err_max": max(chunk_vs_mono),
+          "plain_a": plain_a,
+          "logit_rel_tol": LOGIT_REL_TOL,
+          "ttft_mid_decode_ms": {"n": len(ttft), "min": ttft[0],
+                                 "median": statistics.median(ttft),
+                                 "max": ttft[-1], "all": ttft},
+          "metrics_a": metrics_a, "seconds": secs,
+          **engine, "service_b": summary_b,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {k: launches_a[k] + launches_b[k] for k in launches_a}
+
+
+def slot_engine_timings(svc, enc):
+    """Service A's engine driven directly on a fresh state: ms a tick
+    with every slot live at span 1 and at span 4 (each tick ended by the
+    service's one host read), the aggregate tok/s that gives, the longest
+    gap between the ticks the live slots see while one slot is refilled
+    by a chunked admission against a B1 prefill, and (phase
+    `slots_profile`) one span-1 tick under torch.profiler."""
+    core, S = svc.core, svc.slots
+    step4 = svc._slot_step
+    step1 = build_slot_fns(core, svc.tid, n_slots=S,
+                           max_len=svc.slot_max_len, eos_id=svc.eos_id)[3]
+    state, valid = svc._slot_init()
+    with torch.no_grad():
+        for s in range(S):
+            ids, img, mask, _ = slot_row(svc, enc[s % len(enc)])
+            pre = svc._slot_prefill(ids, img, mask)
+            svc._slot_insert(state, s, pre["first"], pre["embed"],
+                             pre["cache"], pre["valid"], valid)
+
+        def tick(step):
+            step(state, valid)["token"].cpu()
+            return time.perf_counter()
+
+        tick(step1)
+        tick(step4)
+        live = int(state.live.sum())
+        ms = {}
+        for span, step, n in ((1, step1, 8), (4, step4, 3)):
+            t = time.perf_counter()
+            for _ in range(n):
+                tick(step)
+            ms[span] = (time.perf_counter() - t) * 1e3 / n
+
+        def admission_gap(chunked):
+            slot = S - 1
+            state.live[slot] = False            # the slot to refill
+            r = enc[0]
+            ids, img, mask, vrow = slot_row(svc, r)
+            times = [tick(step4)]
+            if chunked:
+                W = svc.prefill_chunk
+                emb = svc._chunk_embed(ids, img)
+                row = svc._chunk_row()
+                for k in range(svc.max_prompt // W):
+                    row, last = svc._chunk_run(emb[:, k * W:(k + 1) * W],
+                                               row, vrow)
+                    times.append(tick(step4))
+                first, embed, _ = svc._chunk_finish(last)
+                svc._slot_insert(state, slot, first[0], embed, row, vrow,
+                                 valid)
+            else:
+                pre = svc._slot_prefill(ids, img, mask)
+                svc._slot_insert(state, slot, pre["first"], pre["embed"],
+                                 pre["cache"], pre["valid"], valid)
+            times.append(tick(step4))
+            return max(b - a for a, b in zip(times, times[1:])) * 1e3
+
+        admission_gap(True)                     # warm
+        gaps = {"chunked": admission_gap(True),
+                "monolithic": admission_gap(False)}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tick(step1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    emit({"phase": "slots_profile", "live_slots": int(state.live.sum()),
+          "nvidia_smi": nvidia_smi(), **device_summary(prof, wall_ms)})
+    return {"live_slots_timed": live, "tick_ms_span1": ms[1],
+            "tick_ms_span4": ms[4],
+            "tok_per_s_span1": live * 1e3 / ms[1],
+            "tok_per_s_span4": live * 4e3 / ms[4],
+            "admission_max_tick_gap_ms": gaps}
+
+
+def run_slots_sampling(core, cfg, tok):
+    """Service B: 4 concurrent requests (two seeded at temperature 0.7 and
+    top_p 0.9, one at temperature 0, one at top_p 1e-6); greedy ones
+    equal their greedy answers alone, a seed alone twice and within the
+    batch gives the same tokens, every sampled token lies in the
+    nucleus of the kernel run's teacher-forced logits and of the plain
+    run's (up to NUCLEUS_SLACK); then close() with live slots fails every
+    waiting call within CLOSE_WAIT_S. Returns (launches, summary)."""
+    svc = ChatService(cfg, core, tok, image_size=cfg.vis_encoder.image_size,
+                      device=core.llm.norm.weight.device, **SLOTS_B)
+    rec = SlotRecorder(svc, 1)
+    images, _ = serve_requests()
+    reqs = [dict(images[1], temperature=0.7, top_p=0.9, seed=11),
+            dict(images[2], temperature=0.7, top_p=0.9, seed=12),
+            dict(prompt="what is the capital of france", temperature=0.0),
+            dict(images[3], temperature=0.7, top_p=1e-6, seed=13)]
+    A.flash_attention.launches = 0
+    Q.int4_matmul.launches = 0
+    answers, errs = call_threads(
+        [functools.partial(svc.generate, **r) for r in reqs], timeout=900)
+    if any(errs):
+        raise AssertionError(f"service B failed requests: {errs}")
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches,
+                "int4_matmul": Q.int4_matmul.launches}
+    rec.check_launches("service B", cfg, launches)
+    counts = dict(rec.counts)
+
+    greedy = [svc.generate(**{**r, "temperature": 0.0}) for r in reqs[2:]]
+    for a, g in zip(answers[2:], greedy):
+        if a["ids"] != g["ids"]:
+            raise AssertionError(f"greedy row {a['ids']} != {g['ids']}")
+    again = [svc.generate(**reqs[0]) for _ in range(2)]
+    if not again[0]["ids"] == again[1]["ids"] == answers[0]["ids"]:
+        raise AssertionError("a seed alone twice and in the batch gave "
+                             f"{again[0]['ids']}, {again[1]['ids']}, "
+                             f"{answers[0]['ids']}")
+    with torch.no_grad():
+        hot = reqs[:2]
+        enc = [_Request(*svc._encode(r["prompt"], r["image"])[:2])
+               for r in hot]
+        cmp_b = compare_slot_plain(svc, enc, [a["ids"] for a in answers[:2]],
+                                   chunked=False)
+        kernel_in, plain_mass = True, 0.0
+        for r, a, o in zip(hot, answers, cmp_b):
+            k, p = o["logits"]
+            T, top_p = r["temperature"], r["top_p"]
+            kept = torch.isfinite(nucleus_filter(
+                k / T, torch.full((len(k),), top_p, device=k.device)))
+            ids = torch.tensor(a["ids"], device=k.device)
+            kernel_in &= bool(kept[torch.arange(len(ids)), ids].all())
+            plain_mass = max(plain_mass, *(preceding_mass(p[t], a["ids"][t], T)
+                                           for t in range(len(ids))))
+    if not kernel_in or not plain_mass < reqs[0]["top_p"] + NUCLEUS_SLACK:
+        raise AssertionError(f"sampled tokens outside the nucleus: kernel "
+                             f"{kernel_in}, plain preceding mass "
+                             f"{plain_mass}")
+    plain_b = public(cmp_b)
+    del cmp_b
+
+    # close() while every slot decodes: no call may be left waiting
+    n0 = len(rec.first_token)
+    closing = [functools.partial(svc.generate, **r) for r in reqs]
+    box = {}
+    th = threading.Thread(target=lambda: box.update(
+        out=call_threads(closing, CLOSE_WAIT_S + 30)), daemon=True)
+    th.start()
+    deadline = time.perf_counter() + 60
+    while len(rec.first_token) < n0 + len(reqs):
+        if time.perf_counter() > deadline:
+            raise AssertionError("service B admitted no closing request")
+        time.sleep(0.005)
+    t = time.perf_counter()
+    svc.close()
+    th.join(CLOSE_WAIT_S)
+    close_s = time.perf_counter() - t
+    if th.is_alive() or close_s > CLOSE_WAIT_S:
+        raise AssertionError(f"calls still wait {close_s} s after close()")
+    res, errs = box["out"]
+    if not all(isinstance(e, RuntimeError) for e in errs):
+        raise AssertionError(f"after close(): results {res}, errors {errs}")
+    return launches, {
+        **SLOTS_B, "work": counts, "launches": launches,
+        "answers": [{"temperature": r["temperature"],
+                     "top_p": r.get("top_p", 1.0), "ids": a["ids"][:8]}
+                    for r, a in zip(reqs, answers)],
+        "greedy_rows_equal_alone": True, "seed_repeats": True,
+        "in_kernel_nucleus": kernel_in,
+        "plain_preceding_mass_max": plain_mass,
+        "nucleus_slack": NUCLEUS_SLACK, "plain": plain_b,
+        "close_s": close_s, "closed_calls_failed": len(errs)}
 
 
 def kernel_entry(name, source, replaces, launches, cases, main_case):
@@ -1966,7 +2595,9 @@ def main(argv=None) -> int:
     perception = run_perception()
     gc.collect()
     torch.cuda.empty_cache()
-    chat = run_serve()
+    chat, core, chat_cfg = run_serve()
+    slots = run_slots(core, chat_cfg)
+    del core
     gc.collect()
     torch.cuda.empty_cache()
     train = run_train()
@@ -1975,7 +2606,7 @@ def main(argv=None) -> int:
     probe = run_probes()
     # each path's counts were read around that path's run alone
     by_path = {"det": det, "perception": perception, "train": train,
-               "probes": probe, "chat": chat}
+               "probes": probe, "chat": chat, "slots": slots}
 
     def launches(name):
         per = {p: c[name] for p, c in by_path.items() if name in c}

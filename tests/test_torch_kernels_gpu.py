@@ -55,6 +55,8 @@ FLASH = {
     "chat_prefill_b4": (4, 640, 32, 32, 128, True, False),
     "long_d64": (1, 2048, 8, 8, 64, True, False),
     "long_d128": (1, 2048, 8, 8, 128, True, False),
+    # a slot service's B1 prefill: a 600-token prompt left-padded to 640
+    "slot_prefill_leftpad": (1, 640, 32, 32, 128, True, "leftpad"),
 }
 
 
@@ -67,7 +69,10 @@ def _flash_case(name, seed_offset, dev, with_dout=False):
     k, v = (_bf16(rng, dev, B, Lk, Hkv, D) for _ in range(2))
     dout = _bf16(rng, dev, B, L, H, D) if with_dout else None
     seg = None
-    if segmented:
+    if segmented == "leftpad":
+        seg = torch.ones(B, L, dtype=torch.int32, device=dev)
+        seg[:, :40] = 0
+    elif segmented:
         seg = torch.from_numpy(rng.integers(0, 3, (B, L)).astype(np.int32)
                                ).to(dev)
     return q, k, v, dout, seg, causal
@@ -346,10 +351,14 @@ def _int4_weights(rng, dev, K, N):
 
 
 # (M, K, N): decode and short prompts (16-row tiles), the byte-staged
-# width 200, lm_head's 32096, the chat prefill (B4 x L640), and groups of
-# 96 rows (K 192), which the kernel pads to 128 with zeros
+# width 200, lm_head's 32096, the chat prefill (B4 x L640), groups of 96
+# rows (K 192), which the kernel pads to 128 with zeros, and a slot
+# service's shapes: a tick of 8 slots at every LLaMA-7B projection width
+# and lm_head, and a 256-token chunk window
 INT4 = [(m, 11008, n) for m in (1, 3, 17, 129) for n in (200, 32096)] \
-    + [(2560, 4096, 11008), (5, 192, 64), (129, 192, 200)]
+    + [(2560, 4096, 11008), (5, 192, 64), (129, 192, 200)] \
+    + [(8, k, n) for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
+                              (4096, 32096))] + [(256, 4096, 11008)]
 
 
 @pytest.mark.parametrize("M_,K,N", INT4,

@@ -18,6 +18,7 @@ plumbing it uses) against the JAX package on the CPU, in fp32, at
 """
 
 import base64
+import dataclasses
 import json
 import threading
 import time
@@ -63,7 +64,10 @@ REQUESTS = {
 
 
 @pytest.fixture(scope="module")
-def services():
+def weights():
+    """One flax param tree loaded into the port's core, the JAX and the
+    port's configs, and one tokenizer every service of the module shares
+    (so a word gets the same id in both)."""
     torch.set_num_threads(1)
     jcfg = jax_tiny_config(use_gdino=False, use_unipose=False, use_sd=False,
                            use_ip2p=False, use_region_encoder=False)
@@ -75,14 +79,25 @@ def services():
         r, ids, jnp.zeros((1, size, size, 3)), jtid))(
             jax.random.PRNGKey(0))["params"]
     params = jax.tree.map(np.asarray, params)
-    tok = SimpleTokenizer()
-    jsvc = JaxChatService(jcfg, params, tok, image_size=size,
-                          batch_window_ms=1.0, dtype=jnp.float32, **SERVE)
     cfg = tiny_test_config(use_gdino=False, gdino=None)
     core = build_core(cfg, device="cpu", dtype=torch.float32)
     load_jax_params(core, params)
-    tsvc = ChatService(cfg, core, tok, image_size=size, device="cpu",
-                       batch_window_ms=1.0, **SERVE)
+    return jcfg, params, cfg, core, SimpleTokenizer()
+
+
+def _service_pair(weights, **kw):
+    """The JAX and the port's ChatService over the same weights."""
+    jcfg, params, cfg, core, tok = weights
+    size = jcfg.vis_encoder.image_size
+    return (JaxChatService(jcfg, params, tok, image_size=size,
+                           batch_window_ms=1.0, dtype=jnp.float32, **kw),
+            ChatService(cfg, core, tok, image_size=size, device="cpu",
+                        batch_window_ms=1.0, **kw))
+
+
+@pytest.fixture(scope="module")
+def services(weights):
+    jsvc, tsvc = _service_pair(weights, **SERVE)
     yield jsvc, tsvc
     jsvc.close()
     tsvc.close()
@@ -186,20 +201,30 @@ def test_http_front(services):
         srv.server_close()
 
 
-def test_modes_not_ported_raise(services):
+NOT_PORTED = ("spec_k", "int8", "kv_int8", "regions")
+
+
+@pytest.mark.parametrize("mode", NOT_PORTED)
+def test_modes_not_ported_raise(services, mode):
+    """Speculative decoding and the int8 modes still raise
+    NotImplementedError; a config without a region encoder refuses
+    regions with the JAX service's ValueError."""
     jsvc, tsvc = services
-    for kw in (dict(spec_k=2), dict(slots=2), dict(sampling=True),
-               dict(sessions=2)):
+    if mode == "spec_k":
         with pytest.raises(NotImplementedError):
             ChatService(tsvc.cfg, tsvc.core, tsvc.tokenizer, device="cpu",
-                        **kw)
-    # a config without a region encoder refuses regions as JAX does
-    with pytest.raises(ValueError) as want:
-        jsvc.generate("what is <regions>", regions=[[0, 0, 4, 4]])
-    with pytest.raises(ValueError) as got:
-        tsvc.generate("what is <regions>", regions=[[0, 0, 4, 4]])
-    assert str(got.value) == str(want.value)
-    assert "has no RegionEncoder" in str(got.value)
+                        spec_k=2)
+    elif mode in ("int8", "kv_int8"):
+        field = "quant" if mode == "int8" else "kv_quant"
+        with pytest.raises(NotImplementedError):
+            dataclasses.replace(tsvc.cfg.llm, **{field: "int8"})
+    else:
+        with pytest.raises(ValueError) as want:
+            jsvc.generate("what is <regions>", regions=[[0, 0, 4, 4]])
+        with pytest.raises(ValueError) as got:
+            tsvc.generate("what is <regions>", regions=[[0, 0, 4, 4]])
+        assert str(got.value) == str(want.value)
+        assert "has no RegionEncoder" in str(got.value)
 
 
 @pytest.fixture(scope="module")
@@ -319,3 +344,262 @@ def test_request_behind_close_sentinel_gets_error(services):
     closer.join(10)
     assert not first.is_alive() and not closer.is_alive()
     assert box["out"]["num_tokens"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# continuous batching, chunked prefill, decode spans, sampling and streams
+# ---------------------------------------------------------------------------
+
+SLOT = dict(max_new_tokens=8, max_prompt=64)
+# the slot modes each held against the JAX server; "span" has
+# (max_new_tokens - 1) % span != 0, which without sessions changes nothing
+MODES = {"slots": dict(slots=2), "chunked": dict(slots=2, prefill_chunk=32),
+         "span": dict(slots=2, decode_span=3),
+         "sampling": dict(slots=2, sampling=True),
+         "dispatch_sampling": dict(sampling=True)}
+
+
+@pytest.fixture(scope="module")
+def mode_servers(weights):
+    """mode -> (JAX url, port url, JAX service, port service), built on
+    first use and shut down at the end of the module."""
+    built, stop = {}, []
+
+    def get(mode):
+        if mode not in built:
+            jsvc, tsvc = _service_pair(weights, **SLOT, **MODES[mode])
+            urls = []
+            for svc, make in ((jsvc, jax_make_server), (tsvc, make_server)):
+                srv = make(svc, port=0)
+                threading.Thread(target=srv.serve_forever,
+                                 daemon=True).start()
+                urls.append(f"http://127.0.0.1:{srv.server_address[1]}")
+                stop.append((srv, svc))
+            built[mode] = (*urls, jsvc, tsvc)
+        return built[mode]
+
+    yield get
+    for srv, svc in stop:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+
+
+def _body(name):
+    req = REQUESTS[name]
+    body = {"prompt": req["prompt"], "logprobs": True}
+    if "image" in req:
+        body.update(image_b64=base64.b64encode(req["image"].tobytes()
+                                               ).decode(),
+                    image_shape=list(req["image"].shape))
+    if "history" in req:
+        body["history"] = req["history"]
+    return body
+
+
+def _same_body(got, want):
+    assert (got["ids"], got["text"], got["num_tokens"]) == \
+        (want["ids"], want["text"], want["num_tokens"])
+    np.testing.assert_allclose(got["logprobs"], want["logprobs"], atol=2e-4)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_slot_modes_match_jax_over_http(mode_servers, mode):
+    """Three requests posted at once to the port's server (admissions
+    land mid-decode) get the JAX server's bodies for them, at
+    temperature 0 on the sampling servers."""
+    jurl, turl, _, _ = mode_servers(mode)
+    names = sorted(REQUESTS)
+    want = [_post(jurl + "/v1/generate", _body(n)) for n in names]
+    got = [None] * len(names)
+
+    def fire(i):
+        got[i] = _post(turl + "/v1/generate", _body(names[i]))
+
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(len(names))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for (wcode, w), (gcode, g) in zip(want, got):
+        assert (gcode, wcode) == (200, 200), (g, w)
+        _same_body(g, w)
+
+
+@pytest.mark.parametrize("mode", ["sampling", "dispatch_sampling"])
+def test_sampled_requests_are_seeded(mode_servers, mode):
+    """Temperature > 0 on a sampling server: the same seed twice gives
+    the same tokens; temperature 0 with a seed and a tiny top_p give the
+    greedy ones (the port cannot draw JAX's bits)."""
+    _, turl, _, tsvc = mode_servers(mode)
+    hot = {"prompt": "hello there", "temperature": 0.7, "top_p": 0.9,
+           "seed": 3}
+    a, b = (_post(turl + "/v1/generate", hot) for _ in range(2))
+    assert a[0] == b[0] == 200 and a[1]["ids"] == b[1]["ids"]
+    greedy = tsvc.generate("hello there")["ids"]
+    for extra in ({"temperature": 0.0, "seed": 5},
+                  {"temperature": 2.0, "top_p": 1e-6}):
+        code, body = _post(turl + "/v1/generate",
+                           {"prompt": "hello there", **extra})
+        assert code == 200 and body["ids"] == greedy
+
+
+def _sse(url, body):
+    """POST with "stream": true; returns (content type, payloads)."""
+    req = urllib.request.Request(
+        url + "/v1/generate", json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        ctype = r.headers["Content-Type"]
+        frames = [ln.decode().strip() for ln in r]
+    return ctype, [f[len("data: "):] for f in frames if f.startswith("data: ")]
+
+
+@pytest.mark.parametrize("mode", ["slots", "span"])
+def test_sse_frames_match_jax(mode_servers, mode):
+    jurl, turl, _, _ = mode_servers(mode)
+    body = _body("image")
+    body.pop("logprobs")
+    jtype, want = _sse(jurl, body)
+    ttype, got = _sse(turl, body)
+    assert ttype == jtype == "text/event-stream"
+    assert got == want
+    assert got[-1] == "[DONE]" and len(got) >= 2
+    deltas = [json.loads(f)["delta"] for f in got[:-1]]
+    assert "".join(deltas).strip() == _post(turl + "/v1/generate",
+                                            body)[1]["text"]
+
+
+STREAM_400 = {"sampling": {"temperature": 1.5},
+              "history": {"history": [{"role": "assistant",
+                                       "content": "y"}]},
+              "session": {"session": "s1"}}
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_400))
+def test_stream_validation_is_a_400_like_jax(mode_servers, name):
+    jurl, turl, _, _ = mode_servers("slots")
+    body = {"prompt": "x", "stream": True, **STREAM_400[name]}
+    (jcode, jbody), (tcode, tbody) = [_post(u + "/v1/generate", body)
+                                      for u in (jurl, turl)]
+    assert jcode == 400, jbody
+    assert (tcode, tbody["error"]) == (jcode, jbody["error"])
+
+
+CONFLICTS = {
+    "spec_and_batch": dict(spec_k=2, max_batch=2),
+    "slots_and_batch": dict(slots=2, max_batch=2),
+    "slots_and_spec": dict(slots=2, spec_k=2),
+    "sampling_and_spec": dict(sampling=True, spec_k=2),
+    "sampling_and_chunk": dict(slots=2, sampling=True, prefill_chunk=16),
+    "sessions_without_slots": dict(sessions=2),
+    "sessions_and_sampling": dict(slots=2, sessions=2, sampling=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONFLICTS))
+def test_constructor_conflicts_like_jax(weights, name):
+    jcfg, _, cfg, core, tok = weights
+    kw = CONFLICTS[name]
+    with pytest.raises(ValueError) as want:
+        JaxChatService(jcfg, None, tok, dtype=jnp.float32, **kw)
+    with pytest.raises(ValueError) as got:
+        ChatService(cfg, core, tok, device="cpu", **kw)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("mode", ["dispatch", "slots"])
+def test_metrics_keys_like_jax(services, mode_servers, mode):
+    """Slot mode has the JAX service's keys; micro-batching adds the
+    port's `batches_total` and `steps_total`."""
+    if mode == "slots":
+        jsvc, tsvc = mode_servers("slots")[2:]
+    else:
+        jsvc, tsvc = services
+    jsvc.generate("hello there")
+    tsvc.generate("hello there")
+    got, want = tsvc.metrics(), jsvc.metrics()
+    extra = set() if mode == "slots" else {"batches_total", "steps_total"}
+    assert set(got) == set(want) | extra
+    assert got["mode"] == want["mode"]
+    if mode == "slots":
+        assert 0 < got["slot_occupancy"] <= 1
+
+
+def test_close_with_live_slots_fails_every_waiting_call(weights):
+    """close() while a slot decodes, a request waits in the backlog and a
+    stream is open: every waiting call raises RuntimeError, each joined
+    within 10 s."""
+    jcfg, _, cfg, core, tok = weights
+    svc = ChatService(cfg, core, tok, image_size=jcfg.vis_encoder.image_size,
+                      device="cpu", slots=1, **SLOT)
+    entered, gate = threading.Event(), threading.Event()
+    step = svc._slot_step
+
+    def gated_step(*a):
+        entered.set()
+        gate.wait(10)
+        return step(*a)
+
+    svc._slot_step = gated_step
+    results = {}
+
+    def run(name, fn):
+        try:
+            results[name] = fn()
+        except BaseException as e:      # noqa: BLE001 - handed back
+            results[name] = e
+
+    stream = svc.generate_stream("stream this")
+    calls = {"decoding": lambda: list(stream),
+             "backlog": lambda: svc.generate("hello there"),
+             "backlog2": lambda: svc.generate("and another one")}
+    threads = {n: threading.Thread(target=run, args=(n, f), daemon=True)
+               for n, f in calls.items()}
+    threads["decoding"].start()
+    assert entered.wait(10), "no slot decoded"
+    for n in ("backlog", "backlog2"):
+        threads[n].start()
+    deadline = time.perf_counter() + 10
+    while svc._queue.qsize() < 2:
+        assert time.perf_counter() < deadline, "requests not queued"
+        time.sleep(0.01)
+    closer = threading.Thread(target=svc.close, daemon=True)
+    closer.start()
+    while svc._queue.qsize() < 3:       # the sentinel behind them
+        assert time.perf_counter() < deadline, "close() put no sentinel"
+        time.sleep(0.01)
+    gate.set()
+    for th in [*threads.values(), closer]:
+        th.join(10)
+        assert not th.is_alive(), "a call still waits after close()"
+    for name in calls:
+        err = results[name]
+        assert isinstance(err, RuntimeError), (name, err)
+        assert str(err) == "ChatService is closed"
+
+
+def test_failed_admission_fails_its_request(weights):
+    """A request whose admission raises gets the error (the JAX slot loop
+    pops it from the backlog before its failure handler runs, and leaves
+    it waiting); the service then answers the next request."""
+    jcfg, _, cfg, core, tok = weights
+    svc = ChatService(cfg, core, tok, image_size=jcfg.vis_encoder.image_size,
+                      device="cpu", slots=2, **SLOT)
+    prefill = svc._slot_prefill
+
+    def broken(*a, **kw):
+        svc._slot_prefill = prefill
+        raise RuntimeError("prefill failed")
+
+    svc._slot_prefill = broken
+    try:
+        err, _ = _in_thread(lambda: svc.generate("hello there"))
+        assert isinstance(err, RuntimeError) and str(err) == "prefill failed"
+        out, _ = _in_thread(lambda: svc.generate("hello there"))
+        assert out["num_tokens"] >= 1
+        assert svc.metrics()["errors_total"] == 1
+    finally:
+        svc.close()

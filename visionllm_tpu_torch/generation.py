@@ -1,7 +1,8 @@
-"""Greedy autoregressive generation with super-link tool routing.
+"""Autoregressive generation with super-link tool routing.
 
-Counterpart of `visionllm_tpu/generation.py` (`build_generate_fn` in its
-greedy mode, `advance_tool_state`, `extract_tool_queries_from_generation`).
+Counterpart of `visionllm_tpu/generation.py` (`sample_token`,
+`build_generate_fn` greedy and with `sampling=True`, `advance_tool_state`,
+`extract_tool_queries_from_generation`).
 When the LLM emits a tool token ([DET]/[GRD]/[SEG]/[POSE]/[GEN]/[EDIT]),
 the next 4 (perception) or 64 (generation) inputs are the tool's
 learnable [EMB] rows and the matching [EMB] ids are emitted: the
@@ -10,6 +11,11 @@ loop over a preallocated state with the same bookkeeping: `step` starts at
 1 after the prefill, `out_hidden[step - 1]` holds the hidden state of the
 token emitted at step - 1, and the loop runs while `step < max_new` and
 some row is not done (one host sync per step reads that test).
+
+Sampling draws from an explicit `torch.Generator` on the logits' device
+(Gumbel-max over the filtered logits), one draw for the first token and
+one per step, as JAX splits its key. It cannot reproduce `jax.random`'s
+bits: the same seed gives the same tokens in the port, not JAX's tokens.
 """
 
 from __future__ import annotations
@@ -31,6 +37,47 @@ def _token_logprob(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
     """log softmax of `logits` [B, V] at `token` [B] -> [B] fp32."""
     lp = F.log_softmax(logits.float(), dim=-1)
     return torch.gather(lp, -1, token[:, None].long())[:, 0]
+
+
+def nucleus_filter(scaled: torch.Tensor, top_p: torch.Tensor
+                   ) -> torch.Tensor:
+    """JAX's nucleus filter of `sample_token` on [B, V] logits: over a
+    stable descending sort (ties keep index order, as `jnp.argsort` of
+    the negated logits), keep the smallest prefix whose probability mass
+    reaches `top_p[b]` (the first token always kept), the rest -inf."""
+    order = torch.argsort(-scaled, dim=-1, stable=True)
+    s_sorted = torch.gather(scaled, -1, order)
+    probs = torch.softmax(s_sorted, dim=-1)
+    csum = torch.cumsum(probs, dim=-1)
+    keep = (csum - probs) < top_p[:, None]
+    s_sorted = s_sorted.masked_fill(~keep, float("-inf"))
+    return torch.empty_like(scaled).scatter_(-1, order, s_sorted)
+
+
+def sample_token(logits: torch.Tensor, generator, temperature: torch.Tensor,
+                 top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row temperature / nucleus sampling over [B, V] logits
+    (`generation.py:55-83` of the JAX package): `temperature[b] <= 0`
+    is greedy for that row; rows with `top_p[b] < 1` draw from their
+    nucleus (`nucleus_filter`). One Gumbel-max draw per row from
+    `generator`, a `torch.Generator` or a sequence of B of them (one per
+    row, so a row's draws do not depend on the other rows). JAX filters
+    every row of a batch once any row has top_p < 1 (deciding that on the
+    host would cost a sync here); a row with top_p >= 1 is left
+    unfiltered, which differs only by the tail tokens whose preceding
+    mass rounds to 1."""
+    logits = logits.float()
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = logits / temperature.float().clamp(min=1e-6)[:, None]
+    scaled = torch.where((top_p < 1.0)[:, None],
+                         nucleus_filter(scaled, top_p.float()), scaled)
+    if isinstance(generator, torch.Generator):
+        expo = torch.empty_like(scaled).exponential_(generator=generator)
+    else:
+        expo = torch.stack([torch.empty_like(scaled[0]).exponential_(
+            generator=g) for g in generator])
+    drawn = torch.argmax(scaled - expo.log(), dim=-1).to(torch.int32)
+    return torch.where(temperature <= 0.0, greedy, drawn)
 
 
 def _tool_kind(token: torch.Tensor, tid: SpecialTokenIds) -> torch.Tensor:
@@ -88,19 +135,31 @@ def advance_tool_state(core: VisionLLM, tid: SpecialTokenIds, num_embs: int,
     return next_token, next_embed, new_countdown, kind_out
 
 
+def row_settings(value, default: float, B: int, device) -> torch.Tensor:
+    """A per-row fp32 [B] setting from a scalar or [B] value (None ->
+    `default`), as JAX broadcasts `temperature` and `top_p`."""
+    if value is None:
+        value = default
+    return torch.as_tensor(value, dtype=torch.float32,
+                           device=device).expand(B).clone()
+
+
 def build_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
                       max_new_tokens: int = 256, eos_id: int = 2,
-                      max_len: int = 4096):
-    """Returns the greedy `generate(input_ids, images, first_token=None,
+                      max_len: int = 4096, sampling: bool = False):
+    """Returns the `generate(input_ids, images, first_token=None,
     attn_mask=None, live=None)` closure of the JAX `build_generate_fn`.
 
     input_ids [B, L]; images [N, H, W, 3] or [B, T, H, W, 3] or None;
     `first_token` [B] overrides the first sampled token; `attn_mask`
     [B, L] marks valid prompt tokens of LEFT-padded batches (pads are
     excluded from attention in prefill and decode); `live` [B] marks real
-    rows (dead rows start done). Returns dict(out_tokens [B, max_new]
-    int32, out_hidden [B, max_new, C] fp32, out_logprobs [B, max_new]
-    fp32, num_generated int, cache)."""
+    rows (dead rows start done). `sampling=True` adds the `generator`
+    (a `torch.Generator` on the device; seed 0 when None), `temperature`
+    and `top_p` arguments (scalars or per row [B]; temperature 0 is greedy
+    for its row). Returns dict(out_tokens [B, max_new] int32, out_hidden
+    [B, max_new, C] fp32, out_logprobs [B, max_new] fp32, num_generated
+    int, cache)."""
     cfg = core.cfg
     num_embs, num_embs_gen = cfg.num_embs, cfg.num_embs_gen
 
@@ -108,14 +167,27 @@ def build_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
     def generate(input_ids: torch.Tensor, images: Optional[torch.Tensor],
                  first_token: Optional[torch.Tensor] = None,
                  attn_mask: Optional[torch.Tensor] = None,
-                 live: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                 live: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 temperature=None, top_p=None) -> Dict[str, Any]:
         B, L = input_ids.shape
         dev = input_ids.device
         dtype = core.llm.norm.weight.dtype
         cache = KVCache.create(cfg.llm, B, max_len, dtype, dev)
         out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache)
         last = out["logits"][:, -1, :]
-        first = torch.argmax(last, dim=-1).to(torch.int32)
+        if sampling:
+            if generator is None:
+                generator = torch.Generator(dev).manual_seed(0)
+            temperature = row_settings(temperature, 0.0, B, dev)
+            top_p = row_settings(top_p, 1.0, B, dev)
+
+        def pick(logits):
+            if sampling:
+                return sample_token(logits, generator, temperature, top_p)
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+
+        first = pick(last)
         if first_token is not None:
             first = torch.as_tensor(first_token, dtype=torch.int32,
                                     device=dev).expand(B).clone()
@@ -152,7 +224,7 @@ def build_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
                              device=dev)
             res = core.llm_step(cur_embed, pos, cache, decode_mask)
             logits = res["logits"][:, -1, :]
-            sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+            sampled = pick(logits)
             forcing = countdown > 0
             next_token, cur_embed, countdown, kind = advance_tool_state(
                 core, tid, num_embs, num_embs_gen, sampled, countdown, kind)

@@ -5,7 +5,8 @@ Counterpart of `visionllm_tpu/models/visionllm.py` for the det and chat
 paths: token embeddings, the [EMB]-table splice, the <im_patch>
 image-feature scatter (flattened for [N, H, W, 3] images, per sample for
 [B, T, H, W, 3] tile stacks), the LLM prefill with an optional KV cache,
-the decode step `llm_step` and `extract_text_query`. Every step is a
+the decode step `llm_step`, the cached extend window `llm_window` and
+`extract_text_query`. Every step is a
 fixed-shape tensor op, as in the JAX package.
 """
 
@@ -261,7 +262,22 @@ class VisionLLM(nn.Module):
     def llm_step(self, inputs_embeds: torch.Tensor, positions: torch.Tensor,
                  cache: KVCache, attn_mask: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
-        """One decode step on pre-built embeddings [B, 1, C]."""
+        """One decode step on pre-built embeddings [B, 1, C]; the cache's
+        index may hold one fill level per row."""
         hidden, logits = self.llm(inputs_embeds, positions,
                                   attn_mask=attn_mask, cache=cache)
+        return {"hidden": hidden, "logits": logits}
+
+    def llm_window(self, inputs_embeds: torch.Tensor,
+                   positions: torch.Tensor, cache: KVCache,
+                   attn_mask: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """W tokens [B, W, C] in one cached forward (JAX
+        `visionllm.py:319-335`): appended at the cache's index, each
+        attending the history and the causal part of the window under the
+        buffer-valid mask [B, max_len]. Chunked prefill and session
+        extension run on it."""
+        hidden, logits = self.llm(inputs_embeds, positions,
+                                  attn_mask=attn_mask, cache=cache,
+                                  extend=True)
         return {"hidden": hidden, "logits": logits}

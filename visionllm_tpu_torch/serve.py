@@ -1,29 +1,41 @@
-"""Chat serving: `ChatService` with request micro-batching, and a minimal
-HTTP front for chat and perception (counterpart of
-`visionllm_tpu/serve.py` in its dispatch-loop mode, with its perception
-endpoints).
+"""Chat serving: `ChatService` with request micro-batching or continuous
+batching, and a minimal HTTP front for chat and perception (counterpart
+of `visionllm_tpu/serve.py` without speculative decoding or region
+prompts).
 
-* `ChatService` owns a built `VisionLLM` core, a tokenizer and the greedy
-  generate loop of `generation.py`. Prompts are LEFT-padded to
-  `max_prompt` under an attention mask (exact: RoPE is relative and pads
-  are excluded from attention in prefill and decode), and every call has
-  the fixed shape [max_batch, max_prompt] with [max_batch, 1, S, S, 3]
-  images (the per-sample feature scatter keeps text-only rows aligned).
-* Micro-batching: a dispatcher thread coalesces concurrent requests into
-  one [max_batch] generate call within `batch_window_ms`; dummy rows are
-  dead (`live=False`). Batched answers equal single ones.
+* `ChatService` owns a built `VisionLLM` core and a tokenizer. Prompts
+  are LEFT-padded to `max_prompt` under an attention mask (exact: RoPE is
+  relative and pads are excluded from attention in prefill and decode).
+* Micro-batching (the default): a dispatcher thread coalesces concurrent
+  requests into one [max_batch] call of the generate loop of
+  `generation.py` within `batch_window_ms`, with [max_batch, 1, S, S, 3]
+  images; dummy rows are dead (`live=False`). Batched answers equal
+  single ones. `sampling=True` adds temperature / top-p requests, one
+  generator per call seeded by the first request's `seed` (or a counter).
+* Continuous batching (`slots=N`, `slots.py`): one scheduler thread owns
+  the slot state. Each tick it admits waiting requests into free slots
+  (a B1 prefill, or with `prefill_chunk` windows of the cached extend
+  forward between which the live slots keep decoding), runs one batched
+  decode step (`decode_span` steps with one host read) for every live
+  slot, and hands each request its tokens; a request's tokens do not
+  depend on its neighbours. `sessions=M` parks a finished session turn's
+  KV, and the next turn of that session runs only its new tokens
+  (`session_chunk`-wide windows). `generate_stream` yields text deltas.
 
 Endpoints (`make_server`)
   GET  /healthz      -> {"ok": true, "model": ..., "devices": [...]}
   GET  /metrics      -> serving counters
-  POST /v1/generate  -> {"text", "num_tokens", "ids", "latency_s"}
+  POST /v1/generate  -> {"text", "num_tokens", "ids", "latency_s"
+                        [, "logprobs"][, "session", "session_reused"]}
       body: {"prompt": str, "image_b64": str | null (raw RGB uint8),
              "image_shape": [H, W, 3], "max_new_tokens": int | null,
              "history": [...] | null, "temperature"?, "top_p"?, "seed"?,
-             "session"?, "stream"?, "region_boxes"?, "region_masks"?}
-      The last fields are read as the JAX server reads them; the modes
-      this server lacks (sampling, sessions, streaming, region prompts)
-      answer 400 with the JAX server's message.
+             "logprobs"?, "session"?, "stream"?, "region_boxes"?,
+             "region_masks"?}
+      With "stream": true (slot servers) the answer is server-sent
+      events: `data: {"delta": ...}` frames, an error frame on a failure
+      after the headers, then `data: [DONE]`. A mode the server lacks
+      answers 400 with the JAX server's message.
   POST /v1/detect    -> Predictor.detect: {"scores", "labels", "boxes",
                         "class_names"[, "masks": [RLE, ...]]}
       body: {"image_b64", "image_shape", "classes": [str, ...],
@@ -41,23 +53,28 @@ most 32 perception requests wait or run at once: the next is shed with a
 503, as /v1/generate sheds when its queue is full. Floats are rounded to
 5 decimals; masks are COCO-compressed RLE (`ops/rle.py`).
 
-Not ported: continuous-batching slots, speculative decoding, sampling
-and session KV reuse (the constructor raises NotImplementedError for
-each). A request for sampling, a session, a stream or region prompts is
-refused with the ValueError the JAX service raises in the same mode.
-`close()` stops the service: a later `generate` raises RuntimeError, and
-no queued request is left waiting.
+Not ported: speculative decoding (`spec_k > 0` raises
+NotImplementedError) and region prompts (refused with the JAX service's
+ValueError, or NotImplementedError for a config with a region encoder).
+The constructor refuses mode conflicts with the JAX service's
+ValueErrors. `close()` stops the service: a later `generate` raises
+RuntimeError, and no queued, backlogged, decoding or streaming request
+is left waiting (the JAX slot loop leaves them, `serve.py:706`). A parked
+session's fill index is the host's count, so a follow-up turn lands
+right after its cached prefix even after a length stop inside a decode
+span (the JAX scheduler overshoots there, `serve.py:642`).
 """
 
 from __future__ import annotations
 
 import base64
+import hashlib
 import json
 import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -72,43 +89,105 @@ from visionllm_tpu_torch.device import resolve_device
 from visionllm_tpu_torch.generation import build_generate_fn
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
 from visionllm_tpu_torch.ops.rle import rle_decode, rle_encode
+from visionllm_tpu_torch.slots import (build_chunked_prefill_fns,
+                                       build_session_fns, build_slot_fns)
 
 
 class Overloaded(RuntimeError):
     """Request queue is full; callers should retry later (HTTP 503)."""
 
 
-class _Request:
-    __slots__ = ("ids", "image", "event", "tokens", "logprobs", "error")
+def _image_key(image: Optional[np.ndarray]) -> Optional[str]:
+    """Fingerprint of the preprocessed pixels: session reuse must fall
+    back when the same conversation arrives with a swapped image."""
+    if image is None:
+        return None
+    return hashlib.sha1(np.ascontiguousarray(image).tobytes()).hexdigest()
 
-    def __init__(self, ids: np.ndarray, image: Optional[np.ndarray]):
+
+class _Request:
+    __slots__ = ("ids", "image", "event", "tokens", "logprobs", "error",
+                 "stream_q", "temperature", "top_p", "seed", "session",
+                 "session_hit")
+
+    def __init__(self, ids: np.ndarray, image: Optional[np.ndarray],
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 seed: Optional[int] = None, session: Optional[str] = None):
         self.ids = ids
         self.image = image           # preprocessed [S, S, 3] or None
         self.event = threading.Event()
         self.tokens: Optional[np.ndarray] = None
         self.logprobs: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
+        # streaming (slots mode): per-token queue, None = finished
+        self.stream_q: Optional[queue.Queue] = None
+        self.temperature = temperature
+        self.top_p = top_p
+        self.seed = seed
+        self.session = session       # session id for KV reuse (slots)
+        self.session_hit = False     # set by the scheduler on reuse
+
+    def fail(self, err: BaseException) -> None:
+        self.error = err
+        if self.stream_q is not None:
+            self.stream_q.put(None)
+        self.event.set()
+
+
+def _closed_error() -> RuntimeError:
+    return RuntimeError("ChatService is closed")
 
 
 class ChatService:
-    """One built core + tokenizer; thread-safe greedy generation with
-    request micro-batching. The core must live on `device` (CUDA unless
-    given; raises when there is none)."""
+    """One built core + tokenizer; thread-safe generation with request
+    micro-batching or continuous-batching slots (see the module
+    docstring). The core must live on `device` (CUDA unless given; raises
+    when there is none). `max_regions` bounds region prompts, which are
+    not ported; it is taken for the JAX service's signature."""
 
     def __init__(self, cfg, core: VisionLLM, tokenizer, *,
                  image_size: int = 336, conv_version: str = "vicuna_v1",
                  max_new_tokens: int = 256, max_prompt: int = 1024,
                  max_batch: int = 1, batch_window_ms: float = 4.0,
-                 max_queue: int = 256,
-                 device: Optional[Union[str, torch.device]] = None,
-                 spec_k: int = 0, slots: int = 0, sampling: bool = False,
-                 sessions: int = 0):
-        for name, on in (("spec_k", spec_k), ("slots", slots),
-                         ("sampling", sampling), ("sessions", sessions)):
-            if on:
-                raise NotImplementedError(
-                    f"ChatService({name}=...) is not ported; the port "
-                    "serves greedy micro-batched generation only")
+                 spec_k: int = 0, slots: int = 0, prefill_chunk: int = 0,
+                 decode_span: int = 1, sampling: bool = False,
+                 max_queue: int = 256, sessions: int = 0,
+                 session_chunk: int = 64, max_ctx: Optional[int] = None,
+                 max_regions: int = 8,
+                 device: Optional[Union[str, torch.device]] = None):
+        # the JAX service's mode checks, in its order and words (its int8
+        # KV checks cannot trigger: the port's config refuses int8 KV)
+        if spec_k > 0 and max_batch > 1:
+            raise ValueError(
+                "spec_k (latency mode) and max_batch>1 (throughput mode) "
+                "are mutually exclusive: speculative acceptance advances "
+                "each stream a different number of tokens per step")
+        if slots > 0 and (max_batch > 1 or spec_k > 0):
+            raise ValueError(
+                "slots (continuous batching) replaces max_batch/spec_k "
+                "— pick one serving mode")
+        if sampling and spec_k > 0:
+            raise ValueError(
+                "sampling and speculative decoding are mutually "
+                "exclusive: greedy acceptance is what makes the "
+                "speculative output exact")
+        if sampling and prefill_chunk > 0:
+            raise ValueError(
+                "sampling with chunked prefill is not wired yet: the "
+                "chunked finish samples the first token greedily")
+        if sessions > 0 and slots <= 0:
+            raise ValueError(
+                "session KV reuse rides the continuous-batching slot "
+                "state — pass slots > 0 (serve --slots N --sessions M)")
+        if sessions > 0 and sampling:
+            raise ValueError(
+                "session reuse with sampling is not wired yet: the "
+                "extension finish samples the first token greedily "
+                "(same limitation as chunked prefill)")
+        if spec_k > 0:
+            raise NotImplementedError(
+                "ChatService(spec_k=...): speculative decoding is not "
+                "ported")
         self.device = resolve_device(device)
         dev_of_core = next(core.parameters()).device
         if dev_of_core.type != self.device.type:
@@ -123,33 +202,78 @@ class ChatService:
         self.max_new_tokens = max_new_tokens
         self.max_batch = max_batch
         self.batch_window_s = batch_window_ms / 1e3
+        self.slots = slots
+        self.sampling = sampling
         self.img_len = (image_size // 14) ** 2
         self.tid = SpecialTokenIds.from_tokenizer(tokenizer)
         eos = getattr(tokenizer, "eos_token_id", None)
         self.eos_id = 2 if eos is None else int(eos)
-        self.generate_fn = build_generate_fn(
-            core, self.tid, max_new_tokens=max_new_tokens,
-            eos_id=self.eos_id, max_len=max_prompt + max_new_tokens + 8)
+        self.max_sessions = sessions
+        self._seed_counter = 0
+        if slots > 0:
+            self.prefill_chunk = prefill_chunk
+            if prefill_chunk > 0:
+                # every chunk full-width: prompts left-pad to a multiple
+                self.max_prompt = -(-max_prompt // prefill_chunk) \
+                    * prefill_chunk
+            slot_max_len = self.max_prompt + max_new_tokens + 8
+            if sessions > 0:
+                # parked conversations grow turn by turn: follow-up room
+                slot_max_len += 3 * (max_new_tokens + 2 * session_chunk)
+            if max_ctx is not None:
+                slot_max_len = max(slot_max_len, max_ctx)
+            self.slot_max_len = slot_max_len
+            (self._slot_init, self._slot_prefill, self._slot_insert,
+             self._slot_step) = build_slot_fns(
+                core, self.tid, n_slots=slots, max_len=slot_max_len,
+                eos_id=self.eos_id, sampling=sampling,
+                span=max(1, decode_span))
+            if prefill_chunk > 0:
+                (self._chunk_row, self._chunk_embed, self._chunk_run,
+                 self._chunk_finish) = build_chunked_prefill_fns(
+                    core, self.tid, chunk=prefill_chunk,
+                    max_len=slot_max_len)
+            self.session_chunk = session_chunk
+            # sid -> {"slot", "ids" (the cached token prefix whose K/V
+            # are in the slot), "img", "fill" (row fill index), "stamp"}
+            self._sessions: Dict[str, dict] = {}
+            self._slot_sid: Dict[int, str] = {}
+            self._stamp = 0
+            if sessions > 0:
+                (self._sess_extract, self._sess_embed, self._sess_extend,
+                 self._sess_finish, self._sess_kill) = build_session_fns(core)
+            loop = self._slot_loop
+        else:
+            self.generate_fn = build_generate_fn(
+                core, self.tid, max_new_tokens=max_new_tokens,
+                eos_id=self.eos_id, max_len=max_prompt + max_new_tokens + 8,
+                sampling=sampling)
+            loop = self._dispatch_loop
         # serving counters (GET /metrics): ints/floats mutated under the
-        # GIL from the dispatcher and request threads; `batches_total` and
-        # `steps_total` (generate calls and their num_generated) let a
-        # caller relate kernel launch counts to the work done
+        # GIL from the dispatcher and request threads. The JAX service's
+        # keys; in micro-batching mode also `batches_total` and
+        # `steps_total` (generate calls and their num_generated), which
+        # let a caller relate kernel launch counts to the work done
         self.stats = {"requests_total": 0, "tokens_generated_total": 0,
                       "latency_sum_s": 0.0, "errors_total": 0,
+                      "scheduler_ticks": 0, "occupied_slot_ticks": 0,
                       "batches_total": 0, "steps_total": 0}
+        if self.max_sessions > 0:
+            self.stats["session_hits"] = 0
+            self.stats["session_misses"] = 0
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(
             maxsize=max_queue)
         # `closed` and every put of a request change under this lock, so
         # no request is queued behind the close() sentinel
         self._lock = threading.Lock()
         self._closed = False
-        self._dispatcher = threading.Thread(target=self._dispatch_loop,
-                                            daemon=True)
+        self._dispatcher = threading.Thread(target=loop, daemon=True)
         self._dispatcher.start()
 
     def close(self):
-        """Stop the dispatcher thread and drop the core reference. Later
-        `generate` calls raise RuntimeError."""
+        """Stop the dispatcher thread and drop the core reference. Every
+        request still queued, backlogged, decoding or streaming is failed
+        with RuntimeError, and later `generate` calls raise it."""
         with self._lock:
             self._closed = True
         self._queue.put(None)
@@ -159,7 +283,7 @@ class ChatService:
     def _submit(self, req: _Request) -> None:
         with self._lock:
             if self._closed:
-                raise RuntimeError("ChatService is closed")
+                raise _closed_error()
             try:
                 self._queue.put_nowait(req)
             except queue.Full:
@@ -172,7 +296,16 @@ class ChatService:
         s = dict(self.stats)
         n = max(s["requests_total"], 1)
         s["latency_avg_s"] = round(s.pop("latency_sum_s") / n, 4)
-        s["mode"] = f"batch{self.max_batch}"
+        if self.slots > 0:
+            t = max(s["scheduler_ticks"], 1)
+            s["slot_occupancy"] = round(
+                s["occupied_slot_ticks"] / (t * self.slots), 4)
+            s.pop("batches_total")
+            s.pop("steps_total")
+        else:
+            s.pop("scheduler_ticks")
+            s.pop("occupied_slot_ticks")
+        s["mode"] = "slots" if self.slots > 0 else f"batch{self.max_batch}"
         return s
 
     # ---- request assembly (caller thread) ----
@@ -223,6 +356,16 @@ class ChatService:
                              "(use_region_encoder=False)")
         raise NotImplementedError("region prompts are not ported")
 
+    def _check_request(self, temperature: float, session: Optional[str],
+                       regions: Optional[List], sampling_hint: str) -> None:
+        if temperature > 0 and not self.sampling:
+            raise ValueError("temperature > 0 requires a sampling "
+                             f"server ({sampling_hint})")
+        if session is not None and self.max_sessions <= 0:
+            raise ValueError("session KV reuse requires a session "
+                             "server (serve --slots N --sessions M)")
+        self._check_regions(regions)
+
     def generate(self, prompt: str, image: Optional[np.ndarray] = None,
                  max_new_tokens: Optional[int] = None,
                  history: Optional[List] = None,
@@ -231,19 +374,14 @@ class ChatService:
                  logprobs: bool = False,
                  session: Optional[str] = None,
                  regions: Optional[List] = None) -> dict:
-        """Greedy generation. `top_p` and `seed` are read only when
-        sampling, so at temperature 0 they change nothing, as in JAX.
-        Sampling and sessions are refused with the JAX service's words."""
-        if temperature > 0:
-            raise ValueError("temperature > 0 requires a sampling "
-                             "server (ChatService(sampling=True) / "
-                             "serve --sampling)")
-        if session is not None:
-            raise ValueError("session KV reuse requires a session "
-                             "server (serve --slots N --sessions M)")
-        self._check_regions(regions)
+        """One answer. Temperature > 0 needs a sampling server, a session
+        a session server (the JAX service's ValueErrors); `top_p` and
+        `seed` are read only when sampling."""
+        self._check_request(temperature, session, regions,
+                            "ChatService(sampling=True) / serve --sampling")
         ids, img, conv = self._encode(prompt, image, history)
-        req = _Request(ids, img)
+        req = _Request(ids, img, temperature=temperature, top_p=top_p,
+                       seed=seed, session=session)
         t0 = time.perf_counter()
         self._submit(req)
         req.event.wait()
@@ -266,21 +404,338 @@ class ChatService:
         if logprobs:
             out["logprobs"] = [round(float(x), 5)
                                for x in req.logprobs[:len(tokens)]]
+        if session is not None:
+            out["session"] = session
+            out["session_reused"] = bool(req.session_hit)
         return out
 
     def generate_stream(self, prompt: str,
-                        image: Optional[np.ndarray] = None, *,
+                        image: Optional[np.ndarray] = None,
                         history: Optional[List] = None,
                         max_new_tokens: Optional[int] = None,
                         temperature: float = 0.0, top_p: float = 1.0,
                         seed: Optional[int] = None,
                         session: Optional[str] = None,
                         regions: Optional[List] = None):
-        """Streaming needs continuous-batching slots, which this service
-        does not have: raises the JAX service's ValueError for a server
-        without slots, before any token (the HTTP layer answers 400)."""
-        raise ValueError("streaming requires continuous batching "
-                         "(slots > 0)")
+        """Incremental generation (slot servers): returns an iterator of
+        text deltas as the scheduler decodes. Validation and the submit
+        happen here, before any token, so the HTTP layer can still answer
+        400 or 503; the iterator raises only for failures mid-decode. The
+        stop-string trim and `max_new_tokens` are the blocking path's,
+        so the joined deltas equal the blocking answer."""
+        if self.slots <= 0:
+            raise ValueError("streaming requires continuous batching "
+                             "(slots > 0)")
+        self._check_request(temperature, session, regions,
+                            "serve --sampling")
+        ids, img, conv = self._encode(prompt, image, history)
+        r = _Request(ids, img, temperature=temperature, top_p=top_p,
+                     seed=seed, session=session)
+        r.stream_q = queue.Queue()
+        stop = conv.sep2 or conv.sep
+        limit = min(max_new_tokens or self.max_new_tokens,
+                    self.max_new_tokens)
+        t0 = time.perf_counter()
+        self._submit(r)
+
+        def deltas():
+            sent = ""
+            toks: List[int] = []
+            while True:
+                item = r.stream_q.get()
+                if item is None:
+                    break
+                toks.append(item)
+                text = self.tokenizer.decode(toks[:limit],
+                                             skip_special_tokens=True)
+                cut = find_stop(text, [stop])
+                if cut is not None:
+                    text = text[:cut]
+                delta = text[len(sent):]
+                if delta:
+                    sent = text
+                    yield delta
+                if cut is not None or len(toks) >= limit:
+                    break
+            if r.error is not None:
+                raise r.error
+            self.stats["requests_total"] += 1
+            self.stats["tokens_generated_total"] += len(toks)
+            self.stats["latency_sum_s"] += time.perf_counter() - t0
+
+        return deltas()
+
+    # ---- session (multi-turn prefix) KV reuse ----
+
+    def _session_delta(self, r: _Request):
+        """(slot, delta ids, previous fill) when `r` can extend its parked
+        session, else None after evicting the stale entry. Reuse needs the
+        new ids to start with the EXACT cached prefix, the same image
+        pixels (the <image> placeholder expands to the same ids for any
+        pixels), a delta free of image, region and [EMB] tokens (those
+        need the prompt assembly), and room in the KV buffer for the
+        window-padded delta plus a full answer."""
+        ent = self._sessions.get(r.session)
+        if ent is None:
+            return None
+        cached, ids = ent["ids"], np.asarray(r.ids, np.int32)
+        ok = (len(ids) > len(cached)
+              and bool(np.array_equal(ids[:len(cached)], cached))
+              and ent["img"] == _image_key(r.image))
+        if ok:
+            delta = ids[len(cached):]
+            guard = {self.tid.img, self.tid.imp, self.tid.reg} | set(
+                range(self.tid.emb, self.tid.emb + 8))
+            ok = not any(int(t) in guard for t in delta)
+        if ok:
+            E = self.session_chunk
+            padded = -(-len(delta) // E) * E
+            ok = (ent["fill"]
+                  + max(padded, len(delta) + self.max_new_tokens + 1)
+                  <= self.slot_max_len)
+        if not ok:
+            self._evict_session(r.session)
+            return None
+        return ent["slot"], delta, ent["fill"]
+
+    def _evict_session(self, sid: str) -> None:
+        ent = self._sessions.pop(sid, None)
+        if ent is not None:
+            self._slot_sid.pop(ent["slot"], None)
+
+    def _evict_lru_session(self) -> Optional[int]:
+        """Drop the least recently used parked session; returns its freed
+        slot (None when nothing is parked)."""
+        if not self._sessions:
+            return None
+        sid = min(self._sessions, key=lambda s: self._sessions[s]["stamp"])
+        slot = self._sessions[sid]["slot"]
+        self._evict_session(sid)
+        return slot
+
+    def _park(self, r: _Request, slot: int, stream: List[int],
+              device_dead: bool, state, fill0: int):
+        """Keep a finished session request's slot KV for its next turn.
+        The LAST token's K/V is not in the cache (it was sampled, never
+        fed), so it belongs to the next turn's delta. The slot's device
+        fill index is set to the host's count: after a length stop inside
+        a decode span the device ran past it."""
+        if r.session is None or self.max_sessions <= 0:
+            return state
+        if not device_dead:
+            # length-stopped: the device would advance it every tick
+            state = self._sess_kill(state, slot)
+        fill = int(fill0) + len(stream) - 1
+        state.cache.index[slot] = fill
+        self._evict_session(r.session)
+        self._stamp += 1
+        self._sessions[r.session] = {
+            "slot": slot,
+            "ids": np.concatenate([np.asarray(r.ids, np.int32),
+                                   np.asarray(stream[:-1], np.int32)]),
+            "img": _image_key(r.image), "fill": fill, "stamp": self._stamp}
+        self._slot_sid[slot] = r.session
+        while len(self._sessions) > self.max_sessions:
+            self._evict_lru_session()
+        return state
+
+    def _extend_session(self, slot: int, delta: np.ndarray, state,
+                        slot_valid, active):
+        """Run a session delta through cached extend windows (decode steps
+        for the live slots between windows, as a chunked admission).
+        Returns (pre, state), `pre` shaped like a prefill result."""
+        E = self.session_chunk
+        row, valid_row = self._sess_extract(state, slot_valid, slot)
+        d = len(delta)
+        dp = np.concatenate([delta, np.zeros(((-d) % E,), np.int32)])
+        ids = torch.from_numpy(dp.astype(np.int64)).to(self.device)[None]
+        last = None
+        for k in range(len(dp) // E):
+            emb = self._sess_embed(ids[:, k * E:(k + 1) * E])
+            row, last = self._sess_extend(emb, row, valid_row,
+                                          min(E, d - k * E))
+            if active:
+                out = self._slot_step(state, slot_valid)
+                state = self._dispatch_tokens(out, active, out["state"])
+        first, embed, lp = self._sess_finish(last)
+        pre = {"first": first[0], "embed": embed, "logprob": lp,
+               "cache": row, "valid": valid_row}
+        return pre, state
+
+    # ---- continuous-batching scheduler (slots.py engine) ----
+
+    def _slot_loop(self):
+        """The scheduler thread owns the device state. Each tick: admit
+        waiting requests into free slots, run one decode step (or span)
+        for every live slot, hand finished requests their tokens."""
+        state, slot_valid = self._slot_init()
+        active = {}        # slot -> (request, tokens, logprobs, fill0)
+        backlog: List[_Request] = []
+        closing = False
+        while not closing:
+            if not active and not backlog:     # block only when idle
+                nxt = self._queue.get()
+                if nxt is None:                 # close() sentinel
+                    break
+                backlog.append(nxt)
+            while True:
+                try:
+                    nxt = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    closing = True
+                    break
+                backlog.append(nxt)
+            if closing:
+                break
+            try:
+                while backlog and len(active) < self.slots:
+                    # popped only once admitted: a request whose admission
+                    # raises is still in the backlog the handler fails
+                    # (the JAX loop pops it first and leaves it waiting)
+                    state, slot_valid, admitted = self._admit(
+                        backlog[0], state, slot_valid, active)
+                    if not admitted:
+                        break
+                    backlog.pop(0)
+                if active:
+                    self.stats["scheduler_ticks"] += 1
+                    self.stats["occupied_slot_ticks"] += len(active)
+                    out = self._slot_step(state, slot_valid)
+                    state = self._dispatch_tokens(out, active, out["state"])
+            except Exception as e:      # noqa: BLE001 - the loop lives on
+                self.stats["errors_total"] += len(active) + len(backlog)
+                for r in [a[0] for a in active.values()] + backlog:
+                    r.fail(e)
+                active.clear()
+                backlog.clear()
+                # parked KV lives in the state that is reset here
+                self._sessions.clear()
+                self._slot_sid.clear()
+                state, slot_valid = self._slot_init()
+        # closed: nothing may be left waiting
+        for r in [a[0] for a in active.values()] + backlog:
+            r.fail(_closed_error())
+        self._fail_queued()
+
+    def _admit(self, r: _Request, state, slot_valid, active):
+        """Admit `r` into a slot: a session extension, or a prefill
+        (chunked or monolithic) into a free slot, evicting the least
+        recently used parked session when none is free. Returns (state,
+        slot_valid, admitted); not admitted when no slot can be freed."""
+        ext = (self._session_delta(r)
+               if r.session is not None and self.max_sessions > 0 else None)
+        if ext is not None:
+            slot, delta, fill_prev = ext
+            self._evict_session(r.session)
+            self.stats["session_hits"] += 1
+            r.session_hit = True
+            pre, state = self._extend_session(slot, delta, state,
+                                              slot_valid, active)
+            state, slot_valid = self._slot_insert(
+                state, slot, pre["first"], pre["embed"], pre["cache"],
+                pre["valid"], slot_valid)
+            state = self._finish_admission(r, slot, pre, active, state,
+                                           fill_prev + len(delta))
+            return state, slot_valid, True
+        if r.session is not None and self.max_sessions > 0:
+            self.stats["session_misses"] += 1
+        free = [s for s in range(self.slots)
+                if s not in active and s not in self._slot_sid]
+        if not free:
+            freed = self._evict_lru_session()
+            if freed is None:
+                return state, slot_valid, False
+            free = [freed]
+        slot = free[0]
+        L, dev = self.max_prompt, self.device
+        ids, img, mask, _ = self._pack([r])     # max_batch is 1 here
+        sample_kw = {}
+        if self.sampling:
+            self._seed_counter += 1
+            seed = r.seed if r.seed is not None else self._seed_counter
+            sample_kw = dict(
+                generator=torch.Generator(dev).manual_seed(int(seed)),
+                temperature=r.temperature, top_p=r.top_p)
+        if self.prefill_chunk > 0:
+            # chunked admission: the live slots decode between windows,
+            # so a long prompt stalls them one window, not the prefill
+            C = self.prefill_chunk
+            emb = self._chunk_embed(ids, img)
+            cache_row = self._chunk_row()
+            valid = torch.ones(self.slot_max_len, dtype=torch.bool,
+                               device=dev)
+            valid[:L] = mask[0]
+            last = None
+            for k in range(L // C):
+                cache_row, last = self._chunk_run(
+                    emb[:, k * C:(k + 1) * C], cache_row, valid)
+                if active:
+                    out = self._slot_step(state, slot_valid)
+                    state = self._dispatch_tokens(out, active, out["state"])
+            first, embed, first_lp = self._chunk_finish(last)
+            pre = {"first": first[0], "embed": embed, "logprob": first_lp,
+                   "cache": cache_row, "valid": valid}
+        else:
+            pre = self._slot_prefill(ids, img, mask, **sample_kw)
+        ins_kw = {}
+        if self.sampling:
+            ins_kw = dict(temperature=float(r.temperature),
+                          top_p=float(r.top_p), generator=pre["generator"])
+        state, slot_valid = self._slot_insert(
+            state, slot, pre["first"], pre["embed"], pre["cache"],
+            pre["valid"], slot_valid, **ins_kw)
+        state = self._finish_admission(r, slot, pre, active, state, L)
+        return state, slot_valid, True
+
+    def _finish_admission(self, r, slot, pre, active, state, fill0):
+        """The shared tail of an admission: surface the first token, then
+        finish or activate; `fill0` is the row's fill index after the
+        prefill or extension (a session parks from it)."""
+        first = int(pre["first"])
+        first_lp = float(pre["logprob"])
+        if r.stream_q is not None:
+            r.stream_q.put(first)
+        if first == self.eos_id or self.max_new_tokens <= 1:
+            r.tokens = np.asarray([first], np.int32)
+            r.logprobs = np.asarray([first_lp], np.float32)
+            state = self._park(r, slot, [first], first == self.eos_id,
+                               state, fill0)
+            if r.stream_q is not None:
+                r.stream_q.put(None)
+            r.event.set()
+        else:
+            active[slot] = (r, [first], [first_lp], fill0)
+        return state
+
+    def _dispatch_tokens(self, out, active, state):
+        """Hand each live slot its new tokens (one host read); finish on
+        EOS or length. Returns the slot state (session parking updates
+        it)."""
+        toks = out["token"].cpu().numpy()
+        fins = out["finished"].cpu().numpy()
+        lps = out["logprob"].cpu().numpy()
+        if toks.ndim == 1:                  # span 1: one frame
+            toks, fins, lps = toks[None], fins[None], lps[None]
+        for t in range(toks.shape[0]):      # frames in decode order
+            for slot in list(active):
+                r, stream, lstream, fill0 = active[slot]
+                tok = int(toks[t, slot])
+                stream.append(tok)
+                lstream.append(float(lps[t, slot]))
+                if r.stream_q is not None:
+                    r.stream_q.put(tok)
+                if fins[t, slot] or len(stream) >= self.max_new_tokens:
+                    r.tokens = np.asarray(stream, np.int32)
+                    r.logprobs = np.asarray(lstream, np.float32)
+                    del active[slot]
+                    state = self._park(r, slot, stream, bool(fins[t, slot]),
+                                       state, fill0)
+                    if r.stream_q is not None:
+                        r.stream_q.put(None)
+                    r.event.set()
+        return state
 
     # ---- batching dispatcher (one thread owns the device) ----
 
@@ -324,8 +779,7 @@ class ChatService:
             except queue.Empty:
                 return
             if r is not None:
-                r.error = RuntimeError("ChatService is closed")
-                r.event.set()
+                r.fail(_closed_error())
 
     def _pack(self, batch: List[_Request]):
         """The fixed-shape [max_batch] inputs of one generate call:
@@ -346,11 +800,30 @@ class ChatService:
         return (torch.from_numpy(ids).to(dev), torch.from_numpy(imgs).to(dev),
                 torch.from_numpy(mask).to(dev), torch.from_numpy(live).to(dev))
 
+    def _sample_kw(self, batch: List[_Request]) -> dict:
+        """A sampling server's generate arguments for one call: one
+        generator per call (per-request seeds hold at batch size 1),
+        seeded by the first request's `seed` or a counter, and per-row
+        temperature and top-p (dummy rows greedy)."""
+        seed = batch[0].seed
+        if seed is None:
+            self._seed_counter += 1
+            seed = self._seed_counter
+        temp = np.zeros((self.max_batch,), np.float32)
+        topp = np.ones((self.max_batch,), np.float32)
+        for b, r in enumerate(batch):
+            temp[b], topp[b] = r.temperature, r.top_p
+        dev = self.device
+        return dict(generator=torch.Generator(dev).manual_seed(int(seed)),
+                    temperature=torch.from_numpy(temp).to(dev),
+                    top_p=torch.from_numpy(topp).to(dev))
+
     def _run(self, batch: List[_Request]):
         """One [max_batch] generate call; returns per request (tokens up
         to and including EOS, their logprobs)."""
         ids, imgs, mask, live = self._pack(batch)
-        out = self.generate_fn(ids, imgs, attn_mask=mask, live=live)
+        kw = self._sample_kw(batch) if self.sampling else {}
+        out = self.generate_fn(ids, imgs, attn_mask=mask, live=live, **kw)
         n_gen = int(out["num_generated"])
         self.stats["batches_total"] += 1
         self.stats["steps_total"] += n_gen
@@ -463,16 +936,42 @@ class _Handler(BaseHTTPRequestHandler):
             return
         try:
             n = int(self.headers.get("Content-Length", 0))
-            self._reply(200, handle(json.loads(self.rfile.read(n) or b"{}")))
+            out = handle(json.loads(self.rfile.read(n) or b"{}"))
+            if isinstance(out, dict):
+                self._reply(200, out)
+                return
         except (KeyError, ValueError, TypeError) as e:
             self._reply(400, {"error": f"bad request: {e}"})
+            return
         except Overloaded as e:
             self._reply(503, {"error": str(e), "retry": True})
+            return
         except Exception as e:                          # noqa: BLE001
             self._reply(500, {"error": str(e)[:500]})
+            return
+        self._stream(out)
 
-    def _generate(self, req: dict) -> dict:
-        """POST /v1/generate, reading the fields the JAX server reads."""
+    def _stream(self, deltas):
+        """Server-sent events: one data frame per text delta, an error
+        frame for a failure after the headers, then [DONE]."""
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.end_headers()
+        try:
+            for delta in deltas:
+                frame = json.dumps({"delta": delta})
+                self.wfile.write(f"data: {frame}\n\n".encode())
+                self.wfile.flush()
+        except Exception as e:                          # noqa: BLE001
+            frame = json.dumps({"error": str(e)[:300]})
+            self.wfile.write(f"data: {frame}\n\n".encode())
+        self.wfile.write(b"data: [DONE]\n\n")
+
+    def _generate(self, req: dict):
+        """POST /v1/generate, reading the fields the JAX server reads:
+        the answer's dict, or with "stream" the iterator of text deltas
+        (validated and submitted before any header goes out)."""
         prompt = req["prompt"]
         image = self._read_image(req)
         regions = None
@@ -488,8 +987,7 @@ class _Handler(BaseHTTPRequestHandler):
                   seed=req.get("seed"), session=req.get("session"),
                   regions=regions)
         if req.get("stream"):
-            # refused before any header goes out: a 400
-            self.service.generate_stream(prompt, image, **kw)
+            return self.service.generate_stream(prompt, image, **kw)
         return self.service.generate(prompt, image,
                                      logprobs=bool(req.get("logprobs")),
                                      **kw)

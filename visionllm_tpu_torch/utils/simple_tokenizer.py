@@ -1,5 +1,6 @@
 """Deterministic word-level tokenizer (tokenizer-free smoke runs + tests);
-own copy of the JAX package's `utils/simple_tokenizer.py`.
+own copy of the JAX package's `utils/simple_tokenizer.py`, with its
+`RoundTripTokenizer`.
 
 Mimics the HF LlamaTokenizer interface surface the data layer touches:
 callable → .input_ids with a leading BOS, special tokens (bracketed /
@@ -75,3 +76,29 @@ class SimpleTokenizer:
     def decode(self, ids, **kw):
         rev = {v: k for k, v in self.vocab.items()}
         return " ".join(rev.get(int(i), "<unk>") for i in ids)
+
+
+class RoundTripTokenizer(SimpleTokenizer):
+    """SimpleTokenizer whose decode -> encode round-trips for ANY id: ids
+    without a vocab word render as "tN" and encode back to N. Session KV
+    reuse matches the re-rendered history against the cached token
+    prefix, so multi-turn runs with random weights need generated ids to
+    survive the text round trip (the word-level decode maps them all to
+    one "<unk>", which never matches)."""
+
+    def decode(self, ids, skip_special_tokens=False, **kw):
+        rev = {v: k for k, v in self.vocab.items()}
+        out = []
+        for i in ids:
+            i = int(i)
+            special = i < 4 or i >= 32000
+            if special and skip_special_tokens:
+                continue
+            name = rev.get(i)
+            out.append(name if name is not None else f"t{i}")
+        return " ".join(out)
+
+    def _word_id(self, w: str) -> int:
+        if len(w) > 1 and w[0] == "t" and w[1:].isdigit():
+            return int(w[1:])
+        return super()._word_id(w)
