@@ -115,7 +115,47 @@ Phases, each printing one JSON line:
 11. slots_profile - one span-1 tick with 8 live slots under
              torch.profiler (printed before the slots line, which
              carries service B's results);
-12. train  - the det training step, after the chat model is freed: the
+12. spec   - speculative decoding on the serve phase's int4 core:
+             `ChatService(spec_k=7, max_batch=1, max_prompt=640,
+             max_new_tokens=32)` against a plain greedy
+             `ChatService(max_batch=1)` on an image request, a text-only
+             request with a history and an image request over HTTP. Checks
+             the launches (flash 56 per image request, 32 per text-only
+             one, which skips the vision encoder; int4 225 per forward:
+             the prefill and each window; a request after the auto-disable
+             runs the plain loop), `metrics()`, and the token rule: tokens
+             equal the plain loop's, or differ first where the plain run's
+             top-2 logit gap is within NEAR_TIE_ULPS bf16 ulps, and the
+             windowed decode's logits teacher-forced on the plain tokens
+             lie within LOGIT_REL_TOL of the step loop's. Then
+             `build_speculative_generate_fn` directly with the [GEN]
+             countdown forced (first_token, 72 new tokens) against
+             `build_generate_fn`: the token rule, the 64 forced rows in
+             ceil(64 / 8) = 8 windows, tokens per window and ms per
+             emitted token against the plain B1 loop, forced and free;
+13. quant  - the int8 serving modes, after the int4 core is freed: the
+             bf16 7B chat core from seed 0 answers the 4 image requests in
+             one [4, 640] generate call (the reference tokens and
+             teacher-forced logits), is quantized in place
+             (`quantize_llm_int8`; layer 0's q_proj and down_proj equal
+             the CPU's quantization bit for bit) and serves the 4 requests
+             from threads through `ChatService(max_batch=4)` in int8 and
+             in w8a8 (one tree): flash 56 per call, logits against the
+             bf16 core's within QUANT_COS_MIN and QUANT_AGREE_MIN, TTFT,
+             decode ms a step, tok/s, peak memory. The README's chunked
+             int8-KV command must raise JAX's ValueError; then
+             `ChatService(slots=8, max_ctx=1288)` with int8 weights and
+             `kv_quant="int8"` at span 1: 6 requests in 2 waves, each
+             equal to its tokens alone in the same service, flash 56 per
+             B1 admission, the slot state's bytes, ms a tick with 8 live
+             slots and one profiled tick. Its kernel lines
+             (`"kernel": "int8_products"`) give per-call device time of
+             `Int8Linear`, `Int8ActLinear`, the bf16 `F.linear` and the
+             int4 kernel at M 4, 8, 2560 for 4096x11008 and 4096x32096
+             (the w8a8 int32 product exact against float64), and of
+             `int8_kv_attention` against the bf16 einsum decode at 8 slots
+             x 1288, each beside its bound;
+14. train  - the det training step, after the chat model is freed: the
              stage-1 frozen `vllm_7b_det_config()` at full width and
              depth (LLaMA 32 layers, CLIP 24, Grounding-DINO with Swin-T
              at 640 px, CDN with dn_number 100, 12544 mask points) in
@@ -128,8 +168,8 @@ Phases, each printing one JSON line:
              frozen parameters bit-identical, and per step flash fwd 56,
              flash bwd 32, MSDA fwd 12, MSDA bwd 12 launches; step ms,
              peak memory, the loss trace;
-13. train_profile - one more step under torch.profiler;
-14. probes - the gather probes' entry point
+15. train_profile - one more step under torch.profiler;
+16. probes - the gather probes' entry point
              (`visionllm_tpu_torch/tools/msda_kernel_attempts.py`).
 
 Then it prints the `{"kernels": [...]}` line, the card's name and power
@@ -141,6 +181,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import functools
 import gc
 import itertools
@@ -168,6 +209,8 @@ from visionllm_tpu_torch.config import (LLMConfig, OptimizerConfig,
                                         vllm_7b_det_config,
                                         vllm_7b_perception_config)
 from visionllm_tpu_torch.generation import (_tool_kind, advance_tool_state,
+                                            build_generate_fn,
+                                            build_speculative_generate_fn,
                                             nucleus_filter)
 from visionllm_tpu_torch.infer import (COCO_KEYPOINT_NAMES, Predictor,
                                        det_prompt, grd_prompt, pose_prompt,
@@ -179,6 +222,7 @@ from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
 from visionllm_tpu_torch.ops import attention as A
 from visionllm_tpu_torch.ops import gather as G
 from visionllm_tpu_torch.ops import ms_deform_attn as M
+from visionllm_tpu_torch.ops import quant as Q8
 from visionllm_tpu_torch.ops import quant4 as Q
 from visionllm_tpu_torch.serve import (ChatService, _Request, make_server,
                                        perception_json)
@@ -194,6 +238,8 @@ from visionllm_tpu_torch.utils.simple_tokenizer import (RoundTripTokenizer,
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+INT8_TENSOR_OPS = 1979e12     # H100 SXM dense int8 tensor cores
+QUANT_COPIES = 3              # weight sets rotated in the int8 products
 DET_SIZE = 512
 N_REQUESTS = 3
 N_TIMED = 5
@@ -1415,7 +1461,7 @@ def profile_perception(pred, task, img):
 
 
 # ---------------------------------------------------------------------------
-# phases 12-13: the det training step at full width and depth
+# phases 14-15: the det training step at full width and depth
 # ---------------------------------------------------------------------------
 
 def train_batch(cfg, tid, g):
@@ -1651,7 +1697,7 @@ def profile_train_step(step, state, batch, g):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the gather probes' entry point
+# phase 16: the gather probes' entry point
 # ---------------------------------------------------------------------------
 
 def run_probes():
@@ -1703,7 +1749,7 @@ def teacher_forced(svc, ids, imgs, mask, tokens, n_gen, step_ms=None):
     core, tid, cfg = svc.core, svc.tid, svc.core.cfg
     B, L = ids.shape
     max_len = svc.max_prompt + svc.max_new_tokens + 8
-    cache = KVCache.create(cfg.llm, B, max_len, torch.bfloat16, ids.device)
+    cache = core.new_cache(B, max_len)
     out = core(ids, imgs, tid, attn_mask=mask, cache=cache)
     logits = [out["logits"][:, -1].float()]
     first = tokens[:, 0]
@@ -1874,19 +1920,7 @@ def run_serve():
         cmp_text, _ = compare_plain(svc, [tr])
         direct_equals_alone = \
             cmp_images["tokens"][0][:alone["num_tokens"]] == alone["ids"]
-        ids, imgs, mask, live = packed
-        ttft = host_ms(lambda: svc.core(
-            ids, imgs, svc.tid, attn_mask=mask,
-            cache=KVCache.create(cfg.llm, SERVE_BATCH, SERVE_PROMPT
-                                 + SERVE_NEW + 8, torch.bfloat16, "cuda")),
-            n=3)
-        out = svc.generate_fn(ids, imgs, attn_mask=mask, live=live)
-        n_gen = int(out["num_generated"])
-        step_ms = []
-        teacher_forced(svc, ids, imgs, mask, out["out_tokens"], n_gen,
-                       step_ms)
-        gen_ms = host_ms(lambda: svc.generate_fn(ids, imgs, attn_mask=mask,
-                                                 live=live), n=3)
+        timings = serve_timings(svc, packed)
     emit({"phase": "serve", "config": "vllm_7b_chat_config quant=int4",
           "int4_linear_modules": n_int4, "build_core_s": build_s,
           "max_batch": SERVE_BATCH, "max_prompt": SERVE_PROMPT,
@@ -1898,16 +1932,43 @@ def run_serve():
           "plain_images": {k: v for k, v in cmp_images.items()
                            if k != "tokens"},
           "plain_text": {k: v for k, v in cmp_text.items() if k != "tokens"},
-          "logit_rel_tol": LOGIT_REL_TOL,
-          "ttft_ms": ttft, "decode_step_ms_median": statistics.median(step_ms),
-          "decode_steps_timed": len(step_ms),
-          "generate_ms": gen_ms, "generate_tokens": SERVE_BATCH * n_gen,
-          "tok_per_s": SERVE_BATCH * n_gen / (gen_ms / 1e3),
+          "logit_rel_tol": LOGIT_REL_TOL, **timings,
           "metrics": svc.metrics(),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     profile_decode_step(svc, packed)
     svc.close()
     return launches, core, cfg
+
+
+def serve_timings(svc, packed, n_generate=3, step_ms=None):
+    """A micro-batching service's TTFT (median of 3 prefills of the packed
+    batch), aggregate tok/s (median of `n_generate` generate calls) and
+    decode ms a step: the median of `step_ms` when given (a teacher-forced
+    run's step times), else over a teacher-forced run of the generate
+    call's tokens."""
+    ids, imgs, mask, live = packed
+    B = ids.shape[0]
+    max_len = svc.max_prompt + svc.max_new_tokens + 8
+    ttft = host_ms(lambda: svc.core(ids, imgs, svc.tid, attn_mask=mask,
+                                    cache=svc.core.new_cache(B, max_len)),
+                   n=3)
+    last = {}
+
+    def generate():
+        last["out"] = svc.generate_fn(ids, imgs, attn_mask=mask, live=live)
+
+    gen_ms = host_ms(generate, n=n_generate)
+    out = last.pop("out")
+    n_gen = int(out["num_generated"])
+    if step_ms is None:
+        step_ms = []
+        teacher_forced(svc, ids, imgs, mask, out["out_tokens"], n_gen,
+                       step_ms)
+    return {"ttft_ms": ttft,
+            "decode_step_ms_median": statistics.median(step_ms),
+            "decode_steps_timed": len(step_ms), "generate_ms": gen_ms,
+            "generate_tokens": B * n_gen,
+            "tok_per_s": B * n_gen / (gen_ms / 1e3)}
 
 
 def profile_decode_step(svc, packed):
@@ -1918,7 +1979,7 @@ def profile_decode_step(svc, packed):
     B, L = ids.shape
     max_len = SERVE_PROMPT + SERVE_NEW + 8
     with torch.no_grad():
-        cache = KVCache.create(cfg.llm, B, max_len, torch.bfloat16, "cuda")
+        cache = core.new_cache(B, max_len)
         out = core(ids, imgs, tid, attn_mask=mask, cache=cache)
         tok = out["logits"][:, -1].argmax(-1).int()
         embed = core.embed_tokens(tok[:, None].long())
@@ -2526,6 +2587,621 @@ def run_slots_sampling(core, cfg, tok):
         "close_s": close_s, "closed_calls_failed": len(errs)}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: speculative decoding on the chat core
+# ---------------------------------------------------------------------------
+
+SPEC_K = 7
+# the direct call: [GEN] forces 64 [EMB] rows, ceil(64 / (k + 1)) = 8
+# windows, then 7 drafted tokens
+SPEC_FORCED_NEW = 72
+# a speculative token may differ from the plain loop's only at a near-tie
+# of the plain run: its top-2 logit gap within this many bf16 ulps of the
+# top logit (the window and the step reduce in other orders)
+NEAR_TIE_ULPS = 4
+
+
+def spec_flash_per_request(cfg, has_image):
+    """Flash launches of one speculative request: CLIP's and LLaMA's
+    prefill, or LLaMA's alone for a text-only request (no vision encode)."""
+    return cfg.llm.num_layers + cfg.vis_encoder.num_layers * has_image
+
+
+def bf16_ulp(x):
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def decode_inputs(core, tid, tokens):
+    """The decode inputs [1, n - 1, C] the step loop feeds after emitting
+    `tokens` [n] (vocab embeddings, or [EMB] table rows while a countdown
+    runs)."""
+    cfg = core.cfg
+    t = torch.tensor([tokens], dtype=torch.int32,
+                     device=core.llm.norm.weight.device)
+    kind = _tool_kind(t[:, 0], tid)
+    total = torch.where(kind >= C.TOOL_GEN,
+                        torch.full_like(kind, cfg.num_embs_gen),
+                        torch.full_like(kind, cfg.num_embs))
+    countdown = torch.where(kind > 0, total, torch.zeros_like(kind))
+    embeds = [core.embed_tokens(t[:, :1].long())]
+    for i in range(1, len(tokens) - 1):
+        _, e, countdown, kind = advance_tool_state(
+            core, tid, cfg.num_embs, cfg.num_embs_gen, t[:, i], countdown,
+            kind)
+        embeds.append(e)
+    return torch.cat(embeds, 1)
+
+
+def window_teacher_forced(core, tid, ids, imgs, mask, tokens, width,
+                          max_len):
+    """fp32 logits [len(tokens), V] of a B1 prefill and of the decode fed
+    `tokens`, `width` inputs a forward: decode steps (`llm_step`) at width
+    1, verify windows (`llm_window`) above."""
+    B, L = ids.shape
+    cache = core.new_cache(B, max_len)
+    out = core(ids, imgs, tid, attn_mask=mask, cache=cache)
+    dmask = torch.cat([mask, torch.ones(B, max_len - L, dtype=torch.bool,
+                                        device=ids.device)], 1)
+    inputs = decode_inputs(core, tid, tokens)
+    logits = [out["logits"][0, -1].float()]
+    for s in range(0, inputs.shape[1], width):
+        e = inputs[:, s:s + width]
+        pos = (cache.index + torch.arange(e.shape[1], device=ids.device))[
+            None]
+        fwd = core.llm_step if width == 1 else core.llm_window
+        logits.extend(fwd(e, pos, cache, dmask)["logits"][0].float())
+    return torch.stack(logits)
+
+
+def spec_token_rule(core, tid, packed, spec_ids, plain_ids, width,
+                    max_len):
+    """The card's token rule for a speculative answer against the plain
+    greedy loop's: equal, or differing first where the plain run's top-2
+    gap is a near-tie; and the windowed decode's logits, teacher-forced
+    on the plain tokens, within LOGIT_REL_TOL of the step loop's."""
+    ids, imgs, mask = packed
+    step = window_teacher_forced(core, tid, ids, imgs, mask, plain_ids, 1,
+                                 max_len)
+    win = window_teacher_forced(core, tid, ids, imgs, mask, plain_ids,
+                                width, max_len)
+    rel = max(rel_errs(win, step))
+    res = {"identical": spec_ids == plain_ids, "window_vs_step_rel_err": rel}
+    if not res["identical"]:
+        p = next((i for i, (a, b) in enumerate(zip(spec_ids, plain_ids))
+                  if a != b), min(len(spec_ids), len(plain_ids)))
+        top2 = step[min(p, len(step) - 1)].topk(2).values.tolist()
+        gap, ulps = top2[0] - top2[1], NEAR_TIE_ULPS * bf16_ulp(top2[0])
+        res.update(first_difference=p, plain_top2_gap=gap, near_tie=ulps)
+        if not (p < len(step) and gap <= ulps):
+            raise AssertionError(f"speculative tokens differ from the plain "
+                                 f"loop's at {p} with no near-tie: {res}")
+    if not rel <= LOGIT_REL_TOL:
+        raise AssertionError(f"window vs step logits: rel err {rel}")
+    return res
+
+
+def spec_packed(svc, r):
+    """A request's B1 ids, pixels (None when text-only) and mask as the
+    speculative service runs it."""
+    req = _Request(*svc._encode(r["prompt"], r.get("image"),
+                                r.get("history"))[:2])
+    ids, imgs, mask, _ = svc._pack([req])
+    return ids, (None if r.get("image") is None else imgs), mask
+
+
+def run_spec(core, cfg):
+    """Phase `spec`: see the module docstring. Returns the launch counts of
+    the speculative service's requests."""
+    t_phase = time.perf_counter()
+    tok, dev = SimpleTokenizer(), core.llm.norm.weight.device
+    kw = dict(image_size=cfg.vis_encoder.image_size, max_batch=1,
+              max_prompt=SERVE_PROMPT, max_new_tokens=SERVE_NEW, device=dev)
+    spec = ChatService(cfg, core, tok, spec_k=SPEC_K, **kw)
+    plain = ChatService(cfg, core, tok, **kw)
+    images, text = serve_requests()
+    reqs = [images[0], text, images[2]]
+    srv = make_server(spec, host="127.0.0.1", port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/v1/generate"
+    last = reqs[-1]
+    body = {"prompt": last["prompt"],
+            "image_b64": base64.b64encode(last["image"].tobytes()).decode(),
+            "image_shape": list(last["image"].shape)}
+    calls, answers = [], []
+    # the main path, with the launch counts taken around it alone
+    A.flash_attention.launches = 0
+    Q.int4_matmul.launches = 0
+    with torch.no_grad():
+        for i, r in enumerate(reqs):
+            f0, q0 = A.flash_attention.launches, Q.int4_matmul.launches
+            w0, s0 = spec._spec_windows, spec.stats["steps_total"]
+            speculative = not spec._spec_disabled
+            t0 = time.perf_counter()
+            answers.append(post_json(url, body) if r is last
+                           else spec.generate(**r))
+            calls.append({"request": i, "over_http": r is last,
+                          "image": r.get("image") is not None,
+                          "speculative": speculative,
+                          "wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "num_tokens": answers[-1]["num_tokens"],
+                          "num_generated": spec.stats["steps_total"] - s0,
+                          "windows": spec._spec_windows - w0,
+                          "flash": A.flash_attention.launches - f0,
+                          "int4": Q.int4_matmul.launches - q0})
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches,
+                "int4_matmul": Q.int4_matmul.launches}
+    srv.shutdown()
+    srv.server_close()
+    per_fwd_int4 = 7 * cfg.llm.num_layers + 1
+    for c in calls:
+        # a window is one forward; once the auto-disable fired, a request
+        # runs the plain loop (its zero image through CLIP, one forward a
+        # token)
+        if c["speculative"]:
+            want = (spec_flash_per_request(cfg, c["image"]),
+                    per_fwd_int4 * (1 + c["windows"]))
+        else:
+            want = (spec_flash_per_request(cfg, True),
+                    per_fwd_int4 * c["num_generated"])
+        if (c["flash"], c["int4"]) != want or \
+                c["speculative"] != (c["windows"] > 0):
+            raise AssertionError(f"spec launches {c} != (flash, int4) "
+                                 f"{want}")
+    if not calls[0]["speculative"]:
+        raise AssertionError("no request ran speculative windows")
+    metrics = spec.metrics()
+    fired = metrics["spec_disabled"]
+    if metrics["mode"] != ("batch1" if fired else "speculative") or \
+            metrics["spec_windows_total"] != sum(c["windows"] for c in calls):
+        raise AssertionError(f"spec metrics {metrics}")
+    vocab = cfg.llm.vocab_size
+    with torch.no_grad():
+        plain_answers = [plain.generate(**r) for r in reqs]
+        rules = []
+        for r, a, p in zip(reqs, answers, plain_answers):
+            for x in (a, p):
+                if x["num_tokens"] < 1 or \
+                        not all(0 <= t < vocab for t in x["ids"]):
+                    raise AssertionError(f"bad answer {x}")
+            rules.append(spec_token_rule(
+                core, spec.tid, spec_packed(spec, r), a["ids"], p["ids"],
+                SPEC_K + 1, SERVE_PROMPT + SERVE_NEW + 8))
+        direct = spec_direct(core, spec, reqs[0])
+    spec.close()
+    plain.close()
+    emit({"phase": "spec", "nvidia_smi": nvidia_smi(),
+          "config": "vllm_7b_chat_config quant=int4", "spec_k": SPEC_K,
+          "max_prompt": SERVE_PROMPT, "max_new_tokens": SERVE_NEW,
+          "calls": calls, "launches": launches, "metrics": metrics,
+          "spec_tokens_per_window": metrics["spec_tokens_per_window"],
+          "auto_disable_fired": metrics["spec_disabled"],
+          "token_rule": rules, "near_tie_ulps": NEAR_TIE_ULPS,
+          "identical_requests": sum(r["identical"] for r in rules),
+          "requests": len(rules), "logit_rel_tol": LOGIT_REL_TOL,
+          "answers": [a["text"][:40] for a in answers], **direct,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def spec_direct(core, svc, r):
+    """`build_speculative_generate_fn` called directly on request `r` with
+    the [GEN] countdown forced (first_token), against `build_generate_fn`:
+    the token rule, the 8 windows of the 64 forced rows, and ms per
+    emitted token of both on `r` as the model answers it and forced (one
+    timed call each, the functions warm from the service's requests)."""
+    tid, eos = svc.tid, svc.eos_id
+    ids, imgs, mask = spec_packed(svc, r)
+    n_gen = core.cfg.num_embs_gen
+    max_len = SERVE_PROMPT + SPEC_FORCED_NEW + 8
+
+    def fns(max_new):
+        return (build_speculative_generate_fn(
+                    core, tid, max_new_tokens=max_new, eos_id=eos,
+                    max_len=max_len, k_draft=SPEC_K),
+                build_generate_fn(core, tid, max_new_tokens=max_new,
+                                  eos_id=eos, max_len=max_len))
+
+    def timed(fn, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(ids, imgs, attn_mask=mask, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    sgen, pgen = fns(SPEC_FORCED_NEW)
+    first = torch.tensor([tid.gen], dtype=torch.int32, device=ids.device)
+    so, so_ms = timed(sgen, first_token=first)
+    po, po_ms = timed(pgen, first_token=first)
+    s_ids = so["out_tokens"][0, :so["num_generated"]].tolist()
+    p_ids = po["out_tokens"][0, :po["num_generated"]].tolist()
+    if s_ids[1:1 + n_gen] != [tid.emb] * n_gen:
+        raise AssertionError(f"forced [EMB] rows: {s_ids[:n_gen + 1]}")
+    rule = spec_token_rule(core, tid, (ids, imgs, mask), s_ids, p_ids,
+                           SPEC_K + 1, max_len)
+    # the forced rows alone: [GEN] + 64 [EMB] in ceil(64 / 8) windows
+    s65 = fns(1 + n_gen)[0](ids, imgs, first_token=first, attn_mask=mask)
+    want_w = -(-n_gen // (SPEC_K + 1))
+    if s65["num_windows"] != want_w:
+        raise AssertionError(f"{n_gen} forced rows took "
+                             f"{s65['num_windows']} windows, want {want_w}")
+    sgen32, pgen32 = fns(SERVE_NEW)
+    free, free_ms = timed(sgen32)
+    pfree, pfree_ms = timed(pgen32)
+    ms = {}
+    for name, s_ms, p_ms, n, pn in (
+            ("forced", so_ms, po_ms, so["num_generated"],
+             po["num_generated"]),
+            ("free", free_ms, pfree_ms, free["num_generated"],
+             pfree["num_generated"])):
+        ms[name] = {"tokens": n, "spec_ms_per_token": s_ms / n,
+                    "plain_b1_ms_per_token": p_ms / pn,
+                    "spec_over_plain": (s_ms / n) / (p_ms / pn)}
+    return {"direct_forced": {
+                "max_new_tokens": SPEC_FORCED_NEW,
+                "num_generated": so["num_generated"],
+                "windows": so["num_windows"],
+                "tokens_per_window": (so["num_generated"] - 1)
+                / so["num_windows"],
+                "forced_rows_windows": s65["num_windows"], **rule},
+            "direct_free": {"num_generated": free["num_generated"],
+                            "windows": free["num_windows"],
+                            "tokens_per_window": (free["num_generated"] - 1)
+                            / max(free["num_windows"], 1)},
+            "ms_per_token": ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the int8 serving modes on the bf16 chat core
+# ---------------------------------------------------------------------------
+
+# int8 and w8a8 logits against the bf16 core's, teacher-forced on the bf16
+# run's tokens over 32 layers of random weights: cosine and argmax
+# agreement bounds (measured on the card: cosine 0.99943 int8, 0.99896
+# w8a8; agreement 0.945, 0.930)
+QUANT_COS_MIN = {"int8": 0.998, "w8a8": 0.997}
+QUANT_AGREE_MIN = 0.85
+# the int8-KV slot service: 6 requests, 2 waves, the slot buffer of the
+# slots phase's service A (1288 positions)
+KV_SLOTS = dict(slots=8, max_prompt=SERVE_PROMPT, max_new_tokens=SERVE_NEW,
+                max_ctx=SLOTS_A_SHAPE[1])
+KV_WAVES = 2
+# the int8 products' shapes: (K, N) of an MLP projection and lm_head, rows
+# of a decode step, a slot tick and a [4, 640] prefill; the int8-KV decode
+# attention of one layer at 8 slots x 1288 (slots, T, heads, head dim)
+INT8_PRODUCT_SHAPES = ((4096, 11008), (4096, 32096))
+INT8_PRODUCT_ROWS = (4, 8, 2560)
+KV_DECODE_SHAPE = (8, 1288, 32, 128)
+# the JAX service's refusal of the README's chunked int8-KV command
+CHUNKED_INT8_KV = ("chunked prefill with an int8 KV cache is not exact: "
+                   "monolithic prefill attends the fresh bf16 window while "
+                   "chunk windows read back the quantized cache — run "
+                   "--prefill-chunk without --kv-quant")
+
+
+def set_modes(core, quant, kv_quant=""):
+    """Serve `core`'s int8 tree in mode `quant` ("int8" or "w8a8", the same
+    buffers) with `kv_quant`; returns the config the core now carries."""
+    Q8.quantize_llm_int8(core.llm, act=quant == "w8a8")
+    cfg = core.cfg
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, quant=quant, kv_quant=kv_quant))
+    core.cfg, core.llm.cfg = cfg, cfg.llm
+    return cfg
+
+
+def logit_agreement(got, want):
+    """Cosine of the flattened logits and top-1 agreement of [n, B, V]."""
+    cos = F.cosine_similarity(got.flatten(), want.flatten(), dim=0).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    return cos, agree
+
+
+def run_quant(cfg=None, device="cuda"):
+    """Phase `quant`: see the module docstring. Returns the flash launches
+    of its main-path requests."""
+    t_phase = time.perf_counter()
+    secs = {}
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or vllm_7b_chat_config()
+    core = build_core(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    tok = SimpleTokenizer()
+    images, _ = serve_requests()
+    kw = dict(image_size=cfg.vis_encoder.image_size, max_batch=SERVE_BATCH,
+              max_prompt=SERVE_PROMPT, max_new_tokens=SERVE_NEW,
+              batch_window_ms=BATCH_WINDOW_MS, device=device)
+    with torch.no_grad():
+        svc = ChatService(cfg, core, tok, **kw)
+        enc = [_Request(*svc._encode(r["prompt"], r["image"])[:2])
+               for r in images]
+        packed = svc._pack(enc)
+        ids, imgs, mask, live = packed
+        out = svc.generate_fn(ids, imgs, attn_mask=mask, live=live)
+        n_gen, toks = int(out["num_generated"]), out["out_tokens"]
+        ref = teacher_forced(svc, ids, imgs, mask, toks, n_gen)
+        svc.close()
+        layer0 = {n: getattr(core.llm.layers[0], n).weight.cpu()
+                  for n in ("q_proj", "down_proj")}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        Q8.quantize_llm_int8(core.llm)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t
+        secs["bf16_reference_and_quantize"] = t - t_phase + quantize_s
+        for name, w in layer0.items():
+            mod = getattr(core.llm.layers[0], name)
+            wq, s = Q8.quantize_int8(w, dim=-1)
+            if not (torch.equal(mod.kernel_q.cpu(), wq)
+                    and torch.equal(mod.scale.cpu(), s)):
+                raise AssertionError(f"layer 0 {name}: the card's int8 "
+                                     "quantization differs from the CPU's")
+        del layer0
+    n_int8 = sum(isinstance(m, Q8.Int8Linear) for m in core.modules())
+    if n_int8 != 7 * cfg.llm.num_layers + 1:
+        raise AssertionError(f"{n_int8} int8 modules")
+    weight_bytes = sum(m.kernel_q.numel() + 2 * m.scale.numel()
+                       for m in core.modules()
+                       if isinstance(m, Q8.Int8Linear))
+    launches = {"flash_attn_fwd": 0}
+    modes = {}
+    for mode in ("int8", "w8a8"):
+        t = time.perf_counter()
+        mcfg = set_modes(core, mode)
+        svc = ChatService(mcfg, core, tok, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, with the launch counts taken around it alone
+        A.flash_attention.launches = 0
+        with torch.no_grad():
+            b0 = svc.stats["batches_total"]
+            answers, errs = call_threads(
+                [functools.partial(svc.generate, **r) for r in images],
+                timeout=900)
+            torch.cuda.synchronize()
+        flash = A.flash_attention.launches
+        launches["flash_attn_fwd"] += flash
+        calls = svc.stats["batches_total"] - b0
+        if any(errs) or calls != 1 or flash != quant_flash_per_call(cfg):
+            raise AssertionError(f"{mode}: errors {errs}, {calls} generate "
+                                 f"calls, flash {flash}")
+        for a in answers:
+            if a["num_tokens"] < 1 or not all(
+                    0 <= t < cfg.llm.vocab_size for t in a["ids"]):
+                raise AssertionError(f"{mode}: bad answer {a}")
+        with torch.no_grad():
+            step_ms = []
+            got = teacher_forced(svc, ids, imgs, mask, toks, n_gen, step_ms)
+            cos, agree = logit_agreement(got, ref)
+            if not (cos >= QUANT_COS_MIN[mode] and agree >= QUANT_AGREE_MIN):
+                raise AssertionError(f"{mode} vs bf16 logits: cos {cos}, "
+                                     f"top-1 agreement {agree}")
+            timings = serve_timings(svc, packed, n_generate=2,
+                                    step_ms=step_ms)
+        modes[mode] = {"cos_vs_bf16": cos, "top1_agreement_vs_bf16": agree,
+                       "cos_min": QUANT_COS_MIN[mode],
+                       "agree_min": QUANT_AGREE_MIN, "flash": flash,
+                       "answers": [a["num_tokens"] for a in answers],
+                       **timings,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        svc.close()
+        secs[mode] = time.perf_counter() - t
+    kv_cfg = set_modes(core, "int8", "int8")
+    try:
+        ChatService(kv_cfg, core, tok, prefill_chunk=256, device=device,
+                    image_size=cfg.vis_encoder.image_size, **KV_SLOTS)
+        raise AssertionError("the chunked int8-KV command was accepted")
+    except ValueError as e:
+        if str(e) != CHUNKED_INT8_KV:
+            raise AssertionError(f"chunked int8-KV refusal: {e}") from e
+    t = time.perf_counter()
+    kv, kv_flash = run_int8_kv_slots(core, kv_cfg, tok, device)
+    launches["flash_attn_fwd"] += kv_flash
+    secs["int8_kv_slots"] = time.perf_counter() - t
+    t = time.perf_counter()
+    products = check_int8_products(torch.Generator(device=device)
+                                   .manual_seed(0), device)
+    secs["products"] = time.perf_counter() - t
+    del core
+    gc.collect()
+    emit({"phase": "quant", "nvidia_smi": nvidia_smi(),
+          "config": "vllm_7b_chat_config, bf16 then int8 in place",
+          "quantize_s": quantize_s, "int8_modules": n_int8,
+          "int8_weight_gb": weight_bytes / 1e9,
+          "max_batch": SERVE_BATCH, "max_prompt": SERVE_PROMPT,
+          "max_new_tokens": SERVE_NEW, "teacher_forced_steps": n_gen,
+          "modes": modes, "int8_kv_slots": kv,
+          "chunked_int8_kv_refused": True,
+          "products": [p["case"] for p in products], "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "seconds_by_part": secs})
+    return launches
+
+
+def quant_flash_per_call(cfg):
+    """Flash launches of a micro-batching generate call: CLIP's and
+    LLaMA's prefill."""
+    return cfg.vis_encoder.num_layers + cfg.llm.num_layers
+
+
+def run_int8_kv_slots(core, cfg, tok, device):
+    """The int8-KV slot service (`ChatService(slots=8)`, span 1, no chunks
+    or sessions): 6 requests in 2 waves, each equal to its tokens alone in
+    the same service; the slot state's bytes; ms a tick with 8 live slots
+    and one profiled tick. Returns (summary, flash launches)."""
+    svc = ChatService(cfg, core, tok, image_size=cfg.vis_encoder.image_size,
+                      device=device, **KV_SLOTS)
+    rec = SlotRecorder(svc, 1)
+    reqs = slot_requests()[:6]
+    per_wave = len(reqs) // KV_WAVES
+
+    def wave_call(i):
+        def call():
+            time.sleep(SLOT_WAVE_GAP_S * (i // per_wave))
+            return svc.generate(**reqs[i])
+        return call
+
+    A.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    answers, errs = call_threads([wave_call(i) for i in range(len(reqs))],
+                                 timeout=900)
+    waves_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    flash = A.flash_attention.launches
+    if any(errs):
+        raise AssertionError(f"int8-KV slot service failed: {errs}")
+    if flash != rec.expected_launches(cfg)[0] or rec.counts["prefills"] != 6:
+        raise AssertionError(f"int8-KV slots: flash {flash} for "
+                             f"{rec.counts}")
+    alone = [svc.generate(**{**r, "max_new_tokens": None}) for r in reqs]
+    for i, (a, b) in enumerate(zip(answers, alone)):
+        if a["ids"] != b["ids"][:len(a["ids"])]:
+            raise AssertionError(f"int8-KV request {i}: {a['ids']} with "
+                                 f"traffic, {b['ids']} alone")
+    state, valid = svc._slot_init()
+    c = state.cache
+    if c.k.dtype != torch.int8:
+        raise AssertionError(f"slot cache dtype {c.k.dtype}")
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in (c.k, c.v, c.k_scale, c.v_scale))
+    scale_bytes = sum(t.numel() * t.element_size()
+                      for t in (c.k_scale, c.v_scale))
+    enc = [_Request(*svc._encode(r["prompt"], r.get("image"),
+                                 r.get("history"))[:2]) for r in reqs]
+    with torch.no_grad():
+        for s in range(svc.slots):
+            ids, img, mask, _ = slot_row(svc, enc[s % len(enc)])
+            pre = svc._slot_prefill(ids, img, mask)
+            svc._slot_insert(state, s, pre["first"], pre["embed"],
+                             pre["cache"], pre["valid"], valid)
+
+        def tick():
+            svc._slot_step(state, valid)["token"].cpu()
+
+        tick()
+        t = time.perf_counter()
+        for _ in range(8):
+            tick()
+        tick_ms = (time.perf_counter() - t) * 1e3 / 8
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tick()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    live = int(state.live.sum())
+    del state, c
+    svc.close()
+    return {"service": KV_SLOTS, "slot_max_len": svc.slot_max_len,
+            "requests": len(reqs), "waves": KV_WAVES,
+            "waves_wall_s": waves_s, "work": dict(rec.counts),
+            "flash": flash, "equal_alone": True,
+            "slot_state_kv_gb": kv_bytes / 1e9,
+            "slot_state_scales_mb": scale_bytes / 1e6,
+            "live_slots_timed": live, "tick_ms_span1": tick_ms,
+            "tok_per_s_span1": live * 1e3 / tick_ms,
+            "profiled_tick": device_summary(prof, wall_ms)}, flash
+
+
+def check_int8_products(g, device):
+    """Per-call device time of the int8 products at the chat path's shapes,
+    beside the bf16 `F.linear` and the int4 kernel on the same shapes:
+    `Int8Linear` and `Int8ActLinear` at M 4, 8 (decode, a slot tick) and
+    2560 (a [4, 640] prefill) for 4096x11008 and 4096x32096; and
+    `int8_kv_attention` against the bf16 einsum decode at 8 slots x 1288.
+    The w8a8 int32 product (`torch._int_mm`, rows padded to 17) must equal
+    the exact float64 product."""
+    cases, timed = [], {}
+    for K, N in INT8_PRODUCT_SHAPES:
+        # QUANT_COPIES weight sets rotated, so decode reads them cold
+        sets = []
+        for _ in range(QUANT_COPIES):
+            w = torch.randn(N, K, generator=g, device=device) * K ** -0.5
+            lin = torch.nn.Linear(K, N, bias=False, device=device,
+                                  dtype=torch.bfloat16)
+            lin.weight.data.copy_(w)
+            w8 = Q8.Int8Linear.from_linear(lin)
+            sets.append((lin, w8, Q8.Int8ActLinear.sharing(w8),
+                         *Q.pack_int4(w.t().contiguous())))
+            del w
+        lin, w8, a8, _, _ = sets[0]
+        deq = (w8.kernel_q.float() * w8.scale.float()[:, None])
+        for M_ in INT8_PRODUCT_ROWS:
+            name = f"m{M_}_{K}x{N}"
+            x = torch.randn(M_, K, generator=g, device=device).to(
+                torch.bfloat16)
+            xq = torch.randint(-127, 128, (M_, K), generator=g,
+                               device=device, dtype=torch.int8)
+            exact = (xq.double() @ w8.kernel_q.double().t()).to(torch.int32)
+            if not torch.equal(Q8.int8_matmul(xq, w8.kernel_q), exact):
+                raise AssertionError(f"int8_matmul[{name}] is not exact")
+            want = x.float() @ deq.t()
+            err = check_close(f"Int8Linear[{name}]", w8(x), want)
+            err_a8 = check_close(f"Int8ActLinear[{name}]", a8(x), want)
+            del exact, want
+            fns = {"int8": lambda s, x: s[1](x), "w8a8": lambda s, x: s[2](x),
+                   "bf16": lambda s, x: F.linear(x, s[0].weight),
+                   "int4": lambda s, x: Q.int4_matmul(x, s[3], s[4])}
+            for k, fn in fns.items():
+                timed[f"{name}:{k}"] = rotating(fn, [(st, x) for st in sets])
+            io = 2 * M_ * K + 2 * M_ * N
+            ops = 2 * M_ * K * N
+            cases.append({
+                "case": name, "shape": [M_, K, N],
+                "max_abs_err_int8": err, "max_abs_err_w8a8": err_a8,
+                "int_mm_exact": True, "weight_copies_rotated": QUANT_COPIES,
+                "bound_ms_int8": bound(io + N * K + 2 * N, ops,
+                                       BF16_TENSOR_FLOPS)[0],
+                "bound_ms_w8a8": bound(io + N * K + 2 * N, ops,
+                                       INT8_TENSOR_OPS)[0],
+                "bound_ms_bf16": bound(io + 2 * N * K, ops,
+                                       BF16_TENSOR_FLOPS)[0],
+                "bound_ms_int4": bound(io + N * K // 2 + 2 * (K // 128) * N,
+                                       ops, BF16_TENSOR_FLOPS)[0]})
+        del deq
+    # int8 KV decode attention, one layer at 8 slots x 1288
+    S, T, H, D = KV_DECODE_SHAPE
+    q = torch.randn(S, 1, H, D, generator=g, device=device).to(
+        torch.bfloat16)
+    kv = [torch.randn(S, T, H, D, generator=g, device=device).to(
+        torch.bfloat16) for _ in range(2)]
+    (kq, ks), (vq, vs) = (Q8.quantize_kv(t) for t in kv)
+    mask = torch.ones(S, 1, 1, T, dtype=torch.bool, device=device)
+    mask[:, :, :, T // 2:] = False
+    got = Q8.int8_kv_attention(q, kq, ks, vq, vs, mask)
+    deq = [(t.float() * s.float()[..., None]) for t, s in ((kq, ks),
+                                                           (vq, vs))]
+    ref = A._einsum_attention(q.float(), deq[0], deq[1], mask, D ** -0.5)
+    err_kv = check_close("int8_kv_attention", got, ref)
+    del deq, ref
+    timed["kv_decode:int8"] = lambda: Q8.int8_kv_attention(q, kq, ks, vq,
+                                                           vs, mask)
+    timed["kv_decode:bf16"] = lambda: A._einsum_attention(
+        q, kv[0], kv[1], mask, D ** -0.5)
+    dev, stray = device_ms(timed, n=10)
+    for case in cases:
+        for k in ("int8", "w8a8", "bf16", "int4"):
+            d = dev[f"{case['case']}:{k}"]
+            case[f"{k}_device_ms"] = d["ms"]
+            case[f"{k}_kernels_per_call"] = d["kernels_per_call"]
+    kv_case = {"case": f"kv_decode_s{S}_t{T}_h{H}_d{D}",
+               "max_abs_err": err_kv,
+               "int8_device_ms": dev["kv_decode:int8"]["ms"],
+               "int8_kernels_per_call":
+                   dev["kv_decode:int8"]["kernels_per_call"],
+               "bf16_einsum_device_ms": dev["kv_decode:bf16"]["ms"],
+               "bound_ms_int8": bound(2 * S * T * H * (D + 2) + 4 * S * H * D,
+                                      4 * S * H * T * D,
+                                      BF16_TENSOR_FLOPS)[0],
+               "bound_ms_bf16": bound(4 * S * T * H * D + 4 * S * H * D,
+                                      4 * S * H * T * D,
+                                      BF16_TENSOR_FLOPS)[0]}
+    for case in cases + [kv_case]:
+        emit({"phase": "kernel", "kernel": "int8_products",
+              "profiler_stray_kernels": stray, **case})
+    del timed
+    torch.cuda.empty_cache()
+    return cases + [kv_case]
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_case):
     main = next(c for c in cases if c["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -2597,7 +3273,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     chat, core, chat_cfg = run_serve()
     slots = run_slots(core, chat_cfg)
+    spec = run_spec(core, chat_cfg)
     del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant = run_quant()
     gc.collect()
     torch.cuda.empty_cache()
     train = run_train()
@@ -2606,7 +3286,8 @@ def main(argv=None) -> int:
     probe = run_probes()
     # each path's counts were read around that path's run alone
     by_path = {"det": det, "perception": perception, "train": train,
-               "probes": probe, "chat": chat, "slots": slots}
+               "probes": probe, "chat": chat, "slots": slots, "spec": spec,
+               "quant": quant}
 
     def launches(name):
         per = {p: c[name] for p, c in by_path.items() if name in c}

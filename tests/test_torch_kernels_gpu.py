@@ -4,7 +4,8 @@ JAX) run them with
 
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
 
-and one kernel's cases alone with `-k flash` (or `-k int4`, `-k msda`).
+and one kernel's cases alone with `-k flash` (or `-k int4`, `-k msda`;
+`-k int8` the int8 serving modes' library products).
 
 Inputs are made with numpy from a seed. Tolerance: max abs err within
 0.02 + 0.01 * max|plain| (bf16 outputs, each rounded from fp32 sums
@@ -19,6 +20,7 @@ import torch
 from visionllm_tpu_torch.ops import attention as A
 from visionllm_tpu_torch.ops import gather as G
 from visionllm_tpu_torch.ops import ms_deform_attn as M
+from visionllm_tpu_torch.ops import quant as Q8
 from visionllm_tpu_torch.ops import quant4 as Q
 
 
@@ -408,6 +410,54 @@ def test_int4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         Q.int4_matmul(_bf16(rng, cuda, 2, 520)[:, 4:516], wp, scale)
     with pytest.raises(ValueError):                    # K % (2 G) != 0
         Q.int4_matmul(x[:, :384], wp[:192], scale[:3])
+
+
+# ---------------------------------------------------------------------------
+# the int8 serving modes' library products on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M_", [1, 4, 16, 17, 640])
+def test_int8_matmul_is_exact_on_the_card(cuda, M_):
+    """`torch._int_mm` (rows zero-padded to 17 below it) gives the exact
+    int32 product, equal to the CPU's int32 matmul."""
+    rng = np.random.default_rng(M_)
+    xq = torch.from_numpy(rng.integers(-127, 128, (M_, 4096)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (200, 4096)).astype(np.int8))
+    got = Q8.int8_matmul(xq.to(cuda), wq.to(cuda))
+    assert got.shape == (M_, 200) and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), Q8.int8_matmul_plain(xq, wq))
+
+
+def test_int8_matmul_rejects_unaligned_widths(cuda):
+    xq = torch.zeros(4, 100, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        Q8.int8_matmul(xq, torch.zeros(64, 100, dtype=torch.int8,
+                                       device=cuda))
+
+
+def test_int8_quantization_and_modules_match_the_cpu(cuda):
+    """`quantize_int8`, `quantize_kv` and `Int8ActLinear` (exact int32
+    accumulation, then the same fp32 scaling) give the CPU's bits on the
+    card; `Int8Linear` (a bf16 GEMM) stays within the tolerance."""
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(rng.normal(0, 0.05, (200, 512)).astype(np.float32))
+    kv = _bf16(rng, cuda, 2, 9, 4, 128)
+    for got, want in zip(Q8.quantize_int8(w.to(cuda), dim=-1),
+                         Q8.quantize_int8(w, dim=-1)):
+        assert torch.equal(got.cpu(), want)
+    for got, want in zip(Q8.quantize_kv(kv), Q8.quantize_kv(kv.cpu())):
+        assert torch.equal(got.cpu(), want)
+    lin = torch.nn.Linear(512, 200, bias=False)
+    lin.weight.data.copy_(w)
+    x = _bf16(rng, cuda, 5, 512)
+    for cls in (Q8.Int8ActLinear, Q8.Int8Linear):
+        cpu_mod = cls.from_linear(lin.to(torch.bfloat16))
+        card_mod = cls.sharing(cpu_mod).to(cuda)
+        got, want = card_mod(x), cpu_mod(x.cpu())
+        if cls is Q8.Int8ActLinear:
+            assert torch.equal(got.cpu(), want)
+        else:
+            _close(got.cpu(), want)
 
 
 # ---------------------------------------------------------------------------

@@ -202,22 +202,31 @@ def test_http_front(services):
 
 
 NOT_PORTED = ("spec_k", "int8", "kv_int8", "regions")
+# the refusals that remain, as (LLM config fields, service arguments)
+REFUSED_MODES = {"spec_k": ({}, dict(spec_k=2, max_batch=2)),
+                 "int8": ({"kv_quant": "int8"},
+                          dict(slots=2, prefill_chunk=16)),
+                 "kv_int8": ({"kv_quant": "int8"}, dict(slots=2, sessions=2))}
 
 
 @pytest.mark.parametrize("mode", NOT_PORTED)
 def test_modes_not_ported_raise(services, mode):
-    """Speculative decoding and the int8 modes still raise
-    NotImplementedError; a config without a region encoder refuses
-    regions with the JAX service's ValueError."""
+    """The modes JAX refuses raise its ValueError in its words:
+    speculative decoding with max_batch > 1, an int8 KV cache with
+    chunked prefill and with sessions; a config without a region encoder
+    refuses regions."""
     jsvc, tsvc = services
-    if mode == "spec_k":
-        with pytest.raises(NotImplementedError):
-            ChatService(tsvc.cfg, tsvc.core, tsvc.tokenizer, device="cpu",
-                        spec_k=2)
-    elif mode in ("int8", "kv_int8"):
-        field = "quant" if mode == "int8" else "kv_quant"
-        with pytest.raises(NotImplementedError):
-            dataclasses.replace(tsvc.cfg.llm, **{field: "int8"})
+    if mode in REFUSED_MODES:
+        llm, kw = REFUSED_MODES[mode]
+        jcfg = dataclasses.replace(jsvc.cfg, llm=dataclasses.replace(
+            jsvc.cfg.llm, **llm))
+        cfg = dataclasses.replace(tsvc.cfg, llm=dataclasses.replace(
+            tsvc.cfg.llm, **llm))
+        with pytest.raises(ValueError) as want:
+            JaxChatService(jcfg, None, tsvc.tokenizer, **kw)
+        with pytest.raises(ValueError) as got:
+            ChatService(cfg, tsvc.core, tsvc.tokenizer, device="cpu", **kw)
+        assert str(got.value) == str(want.value)
     else:
         with pytest.raises(ValueError) as want:
             jsvc.generate("what is <regions>", regions=[[0, 0, 4, 4]])

@@ -52,23 +52,25 @@ class LLMConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     max_position_embeddings: int = 4096
-    # serving-only weight storage: "" (model dtype) | "int4" (w4a16
-    # group-128 packed nibbles, ops/quant4.py). The JAX package's "int8"
-    # and "w8a8" are not ported.
+    # serving-only weight storage: "" (model dtype) | "int8" (w8a16,
+    # per-channel scales) | "w8a8" (int8 weights and dynamic int8
+    # activations, ops/quant.py) | "int4" (w4a16 group-128 packed
+    # nibbles, ops/quant4.py)
     quant: str = ""
-    # serving-only KV-cache storage: "" (model dtype); "int8" is not ported
+    # serving-only KV-cache storage: "" (model dtype) | "int8" (int8 K/V
+    # with per-(token, head) bf16 scales)
     kv_quant: str = ""
     # training-time rematerialization: only "" (store all activations)
     remat: str = ""
 
     def __post_init__(self):
         _no_remat("LLMConfig", self.remat)
-        if self.quant not in ("", "int4"):
-            raise NotImplementedError(f"LLMConfig.quant={self.quant!r} is "
-                                      "not ported (only '' and 'int4')")
-        if self.kv_quant != "":
-            raise NotImplementedError(f"LLMConfig.kv_quant="
-                                      f"{self.kv_quant!r} is not ported")
+        if self.quant not in ("", "int8", "w8a8", "int4"):
+            raise ValueError(f"LLMConfig.quant={self.quant!r}: one of '', "
+                             "'int8', 'w8a8', 'int4'")
+        if self.kv_quant not in ("", "int8"):
+            raise ValueError(f"LLMConfig.kv_quant={self.kv_quant!r}: one "
+                             "of '', 'int8'")
 
     @property
     def head_dim(self) -> int:
@@ -204,7 +206,8 @@ def vllm_7b_chat_config(**overrides: Any) -> VisionLLMConfig:
     """The 7B flagship's chat path: the JAX `vllm_7b_config` with the tool
     decoders off (chat needs none): CLIP-ViT-L/336 + `mlp2x_gelu` +
     Vicuna-7B (vocab 32096). Pass `llm=LLMConfig(vocab_size=32096,
-    quant="int4")` for int4 serving."""
+    quant="int4")` (or "int8", "w8a8"; `kv_quant="int8"`) for the
+    quantized serving modes."""
     base = dict(
         vis_encoder=VisionEncoderConfig(),
         llm=LLMConfig(vocab_size=32096),

@@ -2,7 +2,7 @@
 
 Counterpart of `visionllm_tpu/generation.py` (`sample_token`,
 `build_generate_fn` greedy and with `sampling=True`, `advance_tool_state`,
-`extract_tool_queries_from_generation`).
+`build_speculative_generate_fn`, `extract_tool_queries_from_generation`).
 When the LLM emits a tool token ([DET]/[GRD]/[SEG]/[POSE]/[GEN]/[EDIT]),
 the next 4 (perception) or 64 (generation) inputs are the tool's
 learnable [EMB] rows and the matching [EMB] ids are emitted: the
@@ -22,12 +22,12 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from visionllm_tpu_torch import constants as C
 from visionllm_tpu_torch.config import VisionLLMConfig
-from visionllm_tpu_torch.models.llama import KVCache
 from visionllm_tpu_torch.models.visionllm import (SpecialTokenIds, VisionLLM,
                                                   compact_masked_rows,
                                                   tool_context)
@@ -172,8 +172,7 @@ def build_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
                  temperature=None, top_p=None) -> Dict[str, Any]:
         B, L = input_ids.shape
         dev = input_ids.device
-        dtype = core.llm.norm.weight.dtype
-        cache = KVCache.create(cfg.llm, B, max_len, dtype, dev)
+        cache = core.new_cache(B, max_len)
         out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache)
         last = out["logits"][:, -1, :]
         if sampling:
@@ -239,6 +238,187 @@ def build_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
             step += 1
         return {"out_tokens": out_tokens, "out_hidden": out_hidden,
                 "out_logprobs": out_logprobs, "num_generated": step,
+                "cache": cache}
+
+    return generate
+
+
+def _draft(tokens: np.ndarray, n_tok: int, K: int) -> np.ndarray:
+    """Prompt-lookup drafts [K] (JAX `generation.py:395-414`): the
+    continuation of the most recent earlier occurrence of the trailing
+    3-gram, else of the trailing 2-gram, over the whole token buffer
+    (left-pad zeros included); zeros when nothing matches."""
+    buf = len(tokens)
+    tm3, t0, t1 = tokens[n_tok - 3], tokens[n_tok - 2], tokens[n_tok - 1]
+    j = np.arange(buf)
+    cand2 = (tokens == t0) & (np.roll(tokens, -1) == t1) & (j + 1 < n_tok - 1)
+    cand3 = cand2 & (np.roll(tokens, 1) == tm3) & (j >= 1) & (n_tok >= 3)
+    jm3 = int(np.max(np.where(cand3, j, -1)))
+    jm2 = int(np.max(np.where(cand2, j, -1)))
+    jm = jm3 if jm3 >= 0 else jm2
+    if jm < 0:
+        return np.zeros(K, np.int64)
+    start = min(max(jm + 2, 0), buf - K)
+    return tokens[start:start + K].copy()
+
+
+def _kind(token: int, tid: SpecialTokenIds) -> int:
+    """`_tool_kind` of one host token."""
+    return int(_tool_kind(torch.tensor([token]), tid)[0])
+
+
+def build_speculative_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
+                                  max_new_tokens: int = 256, eos_id: int = 2,
+                                  max_len: int = 4096, k_draft: int = 7):
+    """Speculative greedy decoding (JAX `generation.py:339-607`): the same
+    tokens and hidden states as `build_generate_fn`, usually in fewer
+    forwards. Returns `generate(input_ids [1, L], images,
+    first_token=None, attn_mask=None)`, whose dict adds `num_windows` to
+    `build_generate_fn`'s keys.
+
+    Each window is one cached extend forward (`VisionLLM.llm_window`) of
+    W = k_draft + 1 inputs: the last emitted token's embedding, then
+    either forced [EMB] table rows (while the countdown is live) or
+    prompt-lookup drafts. Position i + 1 is accepted while position i's
+    input was the true one (a forced row, or a draft equal to the argmax
+    that is neither a tool token nor EOS); the first m positions are
+    kept and the cache index is set back to index + m, so the rejected
+    K/V stay in the buffer, masked by `pos <= index + i` until the next
+    window overwrites them. Drafting and acceptance are integer logic on
+    the host (one read of the window's argmax [W]); the embeddings, the
+    hidden states and the cache stay on the device. B = 1 only."""
+    cfg = core.cfg
+    num_embs, num_embs_gen = cfg.num_embs, cfg.num_embs_gen
+    K, hid = k_draft, cfg.llm.hidden_size
+    W = K + 1
+    out_buf = max_new_tokens + W
+
+    def totals(kind: int) -> int:
+        return num_embs_gen if kind >= C.TOOL_GEN else num_embs
+
+    def table(kind: int) -> torch.Tensor:
+        return {C.TOOL_DET: core.emb_embeddings_det,
+                C.TOOL_POSE: core.emb_embeddings_pose,
+                C.TOOL_GEN: core.emb_embeddings_gen,
+                C.TOOL_EDIT: core.emb_embeddings_edit}[kind]
+
+    def table_rows(kind: int, offs: np.ndarray) -> torch.Tensor:
+        t = table(kind)
+        idx = torch.from_numpy(np.clip(offs, 0, t.shape[0] - 1))
+        return t[idx.to(t.device)]
+
+    @torch.no_grad()
+    def generate(input_ids: torch.Tensor, images: Optional[torch.Tensor],
+                 first_token: Optional[int] = None,
+                 attn_mask: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        B, L = input_ids.shape
+        if B != 1:
+            raise ValueError("speculative decoding is single-sequence "
+                             "(B=1); use build_generate_fn for batches")
+        dev = input_ids.device
+        buf = L + max_new_tokens + W + 2
+        cache = core.new_cache(1, max_len)
+        out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache)
+        last = out["logits"][:, -1, :]
+        first = torch.argmax(last, dim=-1).to(torch.int32)
+        if first_token is not None:
+            first = torch.as_tensor(first_token, dtype=torch.int32,
+                                    device=dev).reshape(1).clone()
+        cur_embed = core.embed_tokens(first[:, None].long())
+        out_hidden = torch.zeros(1, out_buf, hid, dtype=torch.float32,
+                                 device=dev)
+        out_logprobs = torch.zeros(1, out_buf, dtype=torch.float32,
+                                   device=dev)
+        out_logprobs[:, 0] = _token_logprob(last, first)
+        decode_mask = None
+        if attn_mask is not None:
+            decode_mask = torch.cat(
+                [attn_mask.bool(),
+                 torch.ones(1, max_len - L, dtype=torch.bool, device=dev)], 1)
+
+        t_first = int(first[0])
+        tokens = np.zeros(buf, np.int64)
+        tokens[:L] = input_ids[0].cpu().numpy()
+        tokens[L] = t_first
+        n_tok, step, n_windows = L + 1, 1, 0
+        kind = _kind(t_first, tid)
+        c = totals(kind) if kind > 0 else 0
+        done = t_first == eos_id
+        iarr = np.arange(W)
+        while step < max_new_tokens and not done:
+            idx = cache.index
+            total = totals(kind)
+            drafts = _draft(tokens, n_tok, K)
+            # window position i emits t_i; positions i < c are forced
+            forcing = iarr < c
+            offs = np.clip(total - c + iarr, 0, None)
+            forced_tok = (np.full(W, tid.emb) if kind >= C.TOOL_GEN
+                          else tid.emb + offs)
+            pred_in = core.embed_tokens(
+                torch.from_numpy(drafts).to(dev)[None])[0]       # [K, C]
+            if c > 0:
+                rows = table_rows(kind, offs[:K]).to(pred_in.dtype)
+                pred_in = torch.where(
+                    torch.from_numpy(forcing[:K]).to(dev)[:, None], rows,
+                    pred_in)
+            window = torch.cat([cur_embed, pred_in[None].to(cur_embed.dtype)],
+                               dim=1)                            # [1, W, C]
+            pos = (idx + torch.arange(W, device=dev))[None]
+            res = core.llm_window(window, pos, cache, decode_mask)
+            logits = res["logits"][0]                            # [W, V]
+            s = torch.argmax(logits, dim=-1).cpu().numpy()       # one read
+            s_kind = np.array([_kind(int(x), tid) for x in s[:K]])
+
+            # greedy acceptance
+            t = np.where(forcing, forced_tok, s)
+            cont = forcing[:K] | ((drafts == s[:K]) & (s_kind == 0)
+                                  & (s[:K] != eos_id))
+            m = 1 + int(np.cumprod(cont).sum())                  # 1..W
+            last_i = m - 1
+            t_last = int(t[last_i])
+            last_forced = last_i < c
+            kind_s = _kind(t_last, tid)
+            started = not last_forced and kind_s > 0
+            # the next window's slot-0 input: what the step-by-step loop
+            # feeds after emitting t_last
+            if last_forced:
+                cur_embed = table_rows(kind, offs[last_i:last_i + 1])
+            elif started:
+                cur_embed = table_rows(kind_s, np.zeros(1, np.int64))
+            else:
+                cur_embed = core.embed_tokens(
+                    torch.tensor([[t_last]], device=dev))[0]
+            cur_embed = cur_embed[None].to(window.dtype)         # [1, 1, C]
+            if last_forced:
+                c -= m
+            else:
+                c, kind = (totals(kind_s), kind_s) if started else (0, 0)
+
+            # keep the first m positions: tokens, logprobs (logits[i]
+            # scored the token at out position step + i) and hidden states
+            # (hidden[i] belongs to out position step - 1 + i)
+            tokens[n_tok:n_tok + m] = t[:m]
+            t_dev = torch.from_numpy(t[:m]).to(dev)
+            out_logprobs[0, step:step + m] = _token_logprob(logits[:m], t_dev)
+            out_hidden[0, step - 1:step - 1 + m] = res["hidden"][0, :m].float()
+            cache.index = idx + m
+            n_tok += m
+            step += m
+            n_windows += 1
+            done = t_last == eos_id
+
+        # tokens past max_new_tokens (window overshoot) are dropped
+        n = min(step, max_new_tokens)
+        out_tokens = torch.zeros(1, max_new_tokens, dtype=torch.int32,
+                                 device=dev)
+        out_tokens[0, :n] = torch.from_numpy(tokens[L:L + n]).to(dev)
+        out_logprobs[:, n:] = 0.0
+        return {"out_tokens": out_tokens,
+                "out_hidden": out_hidden[:, :max_new_tokens],
+                "out_logprobs": out_logprobs[:, :max_new_tokens],
+                "num_generated": n,
+                # acceptance accounting for the serving auto-disable
+                "num_windows": n_windows,
                 "cache": cache}
 
     return generate

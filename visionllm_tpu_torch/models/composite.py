@@ -7,8 +7,8 @@ inference entry `infer_pose` and the det training forward `forward_det`
 caller names another device, in the requested dtype (bf16 by default, as
 the JAX package deploys the whole composite), with weights drawn from a
 seeded `torch.Generator`. `build_core` does the same for the `VisionLLM`
-core alone (the chat path) and packs its LLM to int4 when
-`cfg.llm.quant == "int4"`. Load real weights with
+core alone (the chat path) and quantizes its LLM when `cfg.llm.quant`
+is "int4", "int8" or "w8a8". Load real weights with
 `utils.convert.load_jax_params`.
 """
 
@@ -27,7 +27,7 @@ from visionllm_tpu_torch.models.common import init_weights
 from visionllm_tpu_torch.models.grounding_dino.model import GroundingDino
 from visionllm_tpu_torch.models.unipose.model import UniPose
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
-from visionllm_tpu_torch.ops.quant4 import quantize_llm_int4
+from visionllm_tpu_torch.ops.quant import quantize_serving_params
 from visionllm_tpu_torch.train.losses import lm_cross_entropy
 
 
@@ -144,8 +144,9 @@ def build_core(cfg: VisionLLMConfig, *,
                seed: int = 0) -> VisionLLM:
     """Build the `VisionLLM` core alone on `device` (CUDA when None;
     raises when there is none) in `dtype` with seeded random weights.
-    With `cfg.llm.quant == "int4"` the LLM is drawn in `dtype` and then
-    packed one Linear at a time (`quantize_llm_int4`)."""
+    With `cfg.llm.quant` set the LLM is drawn in `dtype` and then
+    quantized one Linear at a time (`quantize_serving_params`: int4, or
+    int8 for "int8" and "w8a8")."""
     dev = resolve_device(device)
     dense_cfg = dataclasses.replace(
         cfg, llm=dataclasses.replace(cfg.llm, quant=""))
@@ -153,7 +154,8 @@ def build_core(cfg: VisionLLMConfig, *,
         core = VisionLLM(dense_cfg)
     core = core.to(dtype=dtype).to_empty(device=dev)
     init_weights(core, torch.Generator(device=dev).manual_seed(seed))
-    if cfg.llm.quant == "int4":
-        quantize_llm_int4(core.llm)
+    if cfg.llm.quant:
+        quantize_serving_params(core, bits=4 if cfg.llm.quant == "int4"
+                                else 8, act=cfg.llm.quant == "w8a8")
     core.cfg, core.llm.cfg = cfg, cfg.llm
     return core.eval()

@@ -1,7 +1,7 @@
 """LLaMA-family causal decoder with a KV cache (counterpart of
-`visionllm_tpu/models/llama.py` without LoRA or the int8 modes). The layer
-stack is a ModuleList `layers` run by a Python loop (the flax tree stacks
-it on axis 0 under `layers/layer`).
+`visionllm_tpu/models/llama.py` without LoRA). The layer stack is a
+ModuleList `layers` run by a Python loop (the flax tree stacks it on
+axis 0 under `layers/layer`).
 
 * `cache=None` runs causal attention over the sequence. With a `KVCache`,
   L > 1 is a prefill that writes the cache window [index, index + L) and
@@ -20,11 +20,18 @@ it on axis 0 under `layers/layer`).
   the work JAX does by `jax.vmap` of the scalar-index step. Writes clamp
   their start so the window fits the buffer, as `dynamic_update_slice`
   does in JAX.
+* An int8 cache (`kv_quant="int8"`, `KVCache.create(..., torch.int8)`)
+  stores K/V as int8 with per-(token, head) bf16 scales
+  (`llama.py:134-157`): every window's new K/V are quantized and
+  written; a prefill attends its fresh window in the model dtype (the
+  flash kernel where JAX flashes), a decode step or an extend window
+  attends the whole quantized buffer through `int8_kv_attention`.
 * A key-valid mask [B, L] on a prefill (left-padded prompts) becomes
   segment ids - valid tokens 1, pads 0 - so the flash kernel stays on the
   path, as in the JAX package (`llama.py:110-119`).
-* `quant="int4"` makes every projection and `lm_head` an `Int4Linear`
-  (`llama.py:95-98`, `:245-248`).
+* `quant` makes every projection and `lm_head` an `Int8Linear` ("int8"),
+  an `Int8ActLinear` ("w8a8") or an `Int4Linear` ("int4";
+  `llama.py:87-98`, `:237-248`).
 """
 
 from __future__ import annotations
@@ -38,31 +45,52 @@ import torch.nn.functional as F
 from visionllm_tpu_torch.config import LLMConfig
 from visionllm_tpu_torch.models.common import RMSNorm, apply_rope, rope_cos_sin
 from visionllm_tpu_torch.ops.attention import multi_head_attention
+from visionllm_tpu_torch.ops.quant import (Int8ActLinear, Int8Linear,
+                                           int8_kv_attention, quantize_kv)
 from visionllm_tpu_torch.ops.quant4 import Int4Linear
 
 
 class KVCache:
-    """Preallocated K/V buffers [n_layers, B, max_len, H_kv, D] in the
-    model dtype, and `index`, the number of positions already written:
-    an int, or an int64 tensor [B] with one fill level per row."""
+    """Preallocated K/V buffers [n_layers, B, max_len, H_kv, D] and
+    `index`, the number of positions already written: an int, or an int64
+    tensor [B] with one fill level per row. An int8 cache also holds
+    `k_scale` / `v_scale`, bf16 [n_layers, B, max_len, H_kv] (ones until
+    written)."""
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor,
-                 index: Union[int, torch.Tensor] = 0):
+                 index: Union[int, torch.Tensor] = 0,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None):
         self.k, self.v, self.index = k, v, index
+        self.k_scale, self.v_scale = k_scale, v_scale
 
     @classmethod
     def create(cls, cfg: LLMConfig, batch: int, max_len: int,
                dtype: torch.dtype, device) -> "KVCache":
+        """Zeroed buffers in `dtype`; `torch.int8` makes an int8 cache."""
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.head_dim)
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+        k, v = (torch.zeros(shape, dtype=dtype, device=device)
+                for _ in range(2))
+        if dtype != torch.int8:
+            return cls(k, v)
+        ks, vs = (torch.ones(shape[:-1], dtype=torch.bfloat16,
+                             device=device) for _ in range(2))
+        return cls(k, v, k_scale=ks, v_scale=vs)
+
+    def layer(self, i: int):
+        """Layer i's (k, v, k_scale, v_scale) buffers (scales None unless
+        int8)."""
+        if self.k_scale is None:
+            return self.k[i], self.v[i], None, None
+        return self.k[i], self.v[i], self.k_scale[i], self.v_scale[i]
 
 
 def _write_window(buf: torch.Tensor, new: torch.Tensor,
                   index: Union[int, torch.Tensor]) -> None:
-    """Write `new` [B, L, ...] into `buf` [B, max_len, ...] at `index` (an
-    int, or [B] per row), the start clamped to max_len - L."""
+    """Write `new` [B, L, ...] into `buf` [B, max_len, ...] (K/V, or the
+    int8 cache's scales [B, max_len, H_kv]) at `index` (an int, or [B] per
+    row), the start clamped to max_len - L."""
     L, max_len = new.shape[1], buf.shape[1]
     if isinstance(index, int):
         start = min(max(index, 0), max_len - L)
@@ -89,9 +117,13 @@ def _buffer_bias(index: Union[int, torch.Tensor], B: int, L: int,
     return vis[:, None]
 
 
+_QUANT_LINEAR = {"int8": Int8Linear, "w8a8": Int8ActLinear,
+                 "int4": Int4Linear}
+
+
 def _dense(cfg: LLMConfig, fin: int, fout: int) -> nn.Module:
-    if cfg.quant == "int4":
-        return Int4Linear(fin, fout)
+    if cfg.quant:
+        return _QUANT_LINEAR[cfg.quant](fin, fout)
     return nn.Linear(fin, fout, bias=False)
 
 
@@ -111,10 +143,12 @@ class LlamaDecoderLayer(nn.Module):
         self.down_proj = _dense(cfg, cfg.intermediate_size, hid)
 
     def forward(self, hidden, cos, sin, segment_ids=None, bias=None,
-                k_cache=None, v_cache=None, cache_index=0):
-        """k_cache/v_cache: this layer's [B, max_len, H_kv, D] buffers,
-        written in place at `cache_index`; `bias` [B, 1, L, max_len], given
-        for a decode step or an extend window, is the mask over the whole
+                k_cache=None, v_cache=None, cache_index=0, ks_cache=None,
+                vs_cache=None):
+        """k_cache/v_cache: this layer's [B, max_len, H_kv, D] buffers
+        (with ks_cache/vs_cache [B, max_len, H_kv] when int8), written in
+        place at `cache_index`; `bias` [B, 1, L, max_len], given for a
+        decode step or an extend window, is the mask over the whole
         buffer."""
         cfg = self.cfg
         B, L, _ = hidden.shape
@@ -123,13 +157,23 @@ class LlamaDecoderLayer(nn.Module):
         k = self.k_proj(x).reshape(B, L, cfg.num_kv_heads, cfg.head_dim)
         v = self.v_proj(x).reshape(B, L, cfg.num_kv_heads, cfg.head_dim)
         q, k = apply_rope(q, k, cos, sin)
-        if k_cache is not None:
+        if k_cache is not None and k_cache.dtype == torch.int8:
+            for buf, sbuf, new in ((k_cache, ks_cache, k),
+                                   (v_cache, vs_cache, v)):
+                nq, ns = quantize_kv(new)
+                _write_window(buf, nq, cache_index)
+                _write_window(sbuf, ns, cache_index)
+        elif k_cache is not None:
             _write_window(k_cache, k, cache_index)
             _write_window(v_cache, v, cache_index)
         if bias is None:
-            # no cache, or a prefill: attend within the fresh window
+            # no cache, or a prefill: attend within the fresh window (in
+            # the model dtype, int8 cache or not)
             attn = multi_head_attention(q, k, v, causal=True,
                                         segment_ids=segment_ids)
+        elif k_cache.dtype == torch.int8:
+            attn = int8_kv_attention(q, k_cache, ks_cache, v_cache,
+                                     vs_cache, bias)
         else:
             # decode or extend: the whole (masked) buffer; the bias holds
             # causality
@@ -179,11 +223,12 @@ class LlamaModel(nn.Module):
             seg = attn_mask.to(torch.int32)
         hidden = inputs_embeds.to(dtype)
         for i, layer in enumerate(self.layers):
-            kc = vc = None
-            if cache is not None:
-                kc, vc = cache.k[i], cache.v[i]
-            hidden = layer(hidden, cos, sin, seg, bias, kc, vc,
-                           0 if cache is None else cache.index)
+            if cache is None:
+                hidden = layer(hidden, cos, sin, seg, bias)
+                continue
+            kc, vc, ks, vs = cache.layer(i)
+            hidden = layer(hidden, cos, sin, seg, bias, kc, vc, cache.index,
+                           ks, vs)
         if cache is not None:
             cache.index = cache.index + L
         hidden = self.norm(hidden)

@@ -5,7 +5,8 @@ Counterpart of `visionllm_tpu/models/visionllm.py` for the det and chat
 paths: token embeddings, the [EMB]-table splice, the <im_patch>
 image-feature scatter (flattened for [N, H, W, 3] images, per sample for
 [B, T, H, W, 3] tile stacks), the LLM prefill with an optional KV cache,
-the decode step `llm_step`, the cached extend window `llm_window` and
+the decode step `llm_step`, the cached extend window `llm_window`,
+`new_cache` (an int8 one under `kv_quant="int8"`) and
 `extract_text_query`. Every step is a
 fixed-shape tensor op, as in the JAX package.
 """
@@ -138,6 +139,15 @@ class VisionLLM(nn.Module):
 
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.llm.embed(input_ids)
+
+    def new_cache(self, batch: int, max_len: int) -> KVCache:
+        """An empty KV cache for this core on its device: int8 with
+        scales when `cfg.llm.kv_quant == "int8"`, else the model dtype
+        (the cache JAX's generate and slot functions create,
+        `generation.py:245-247`)."""
+        w = self.llm.norm.weight
+        dtype = torch.int8 if self.cfg.llm.kv_quant == "int8" else w.dtype
+        return KVCache.create(self.cfg.llm, batch, max_len, dtype, w.device)
 
     def splice_emb_embeddings(self, inputs_embeds: torch.Tensor,
                               input_ids: torch.Tensor,

@@ -1,7 +1,6 @@
 """Chat serving: `ChatService` with request micro-batching or continuous
 batching, and a minimal HTTP front for chat and perception (counterpart
-of `visionllm_tpu/serve.py` without speculative decoding or region
-prompts).
+of `visionllm_tpu/serve.py` without region prompts).
 
 * `ChatService` owns a built `VisionLLM` core and a tokenizer. Prompts
   are LEFT-padded to `max_prompt` under an attention mask (exact: RoPE is
@@ -12,6 +11,13 @@ prompts).
   images; dummy rows are dead (`live=False`). Batched answers equal
   single ones. `sampling=True` adds temperature / top-p requests, one
   generator per call seeded by the first request's `seed` (or a counter).
+* Speculative decoding (`spec_k=k`, latency mode, B = 1): each request
+  runs `generation.build_speculative_generate_fn` (verify windows of
+  k + 1 tokens, prompt-lookup drafts). The service measures the drafter's
+  tokens per window; after `SPEC_MIN_WINDOWS` windows below
+  `SPEC_BREAK_EVEN` it says so on stderr and switches to the plain greedy
+  loop, as the JAX service does. A text-only request runs no vision
+  encoder (at B = 1 its zero image would scatter nowhere).
 * Continuous batching (`slots=N`, `slots.py`): one scheduler thread owns
   the slot state. Each tick it admits waiting requests into free slots
   (a B1 prefill, or with `prefill_chunk` windows of the cached extend
@@ -53,11 +59,10 @@ most 32 perception requests wait or run at once: the next is shed with a
 503, as /v1/generate sheds when its queue is full. Floats are rounded to
 5 decimals; masks are COCO-compressed RLE (`ops/rle.py`).
 
-Not ported: speculative decoding (`spec_k > 0` raises
-NotImplementedError) and region prompts (refused with the JAX service's
-ValueError, or NotImplementedError for a config with a region encoder).
-The constructor refuses mode conflicts with the JAX service's
-ValueErrors. `close()` stops the service: a later `generate` raises
+Not ported: region prompts (refused with the JAX service's ValueError,
+or NotImplementedError for a config with a region encoder). The
+constructor refuses mode conflicts, and chunked prefill or sessions on an
+int8 KV cache, with the JAX service's ValueErrors. `close()` stops the service: a later `generate` raises
 RuntimeError, and no queued, backlogged, decoding or streaming request
 is left waiting (the JAX slot loop leaves them, `serve.py:706`). A parked
 session's fill index is the host's count, so a follow-up turn lands
@@ -71,6 +76,7 @@ import base64
 import hashlib
 import json
 import queue
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -86,7 +92,8 @@ from visionllm_tpu_torch.data.mm_utils import (clip_preprocess,
                                                find_stop,
                                                tokenizer_image_token)
 from visionllm_tpu_torch.device import resolve_device
-from visionllm_tpu_torch.generation import build_generate_fn
+from visionllm_tpu_torch.generation import (build_generate_fn,
+                                            build_speculative_generate_fn)
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
 from visionllm_tpu_torch.ops.rle import rle_decode, rle_encode
 from visionllm_tpu_torch.slots import (build_chunked_prefill_fns,
@@ -155,8 +162,7 @@ class ChatService:
                  session_chunk: int = 64, max_ctx: Optional[int] = None,
                  max_regions: int = 8,
                  device: Optional[Union[str, torch.device]] = None):
-        # the JAX service's mode checks, in its order and words (its int8
-        # KV checks cannot trigger: the port's config refuses int8 KV)
+        # the JAX service's mode checks, in its order and words
         if spec_k > 0 and max_batch > 1:
             raise ValueError(
                 "spec_k (latency mode) and max_batch>1 (throughput mode) "
@@ -175,6 +181,12 @@ class ChatService:
             raise ValueError(
                 "sampling with chunked prefill is not wired yet: the "
                 "chunked finish samples the first token greedily")
+        if prefill_chunk > 0 and cfg.llm.kv_quant == "int8":
+            raise ValueError(
+                "chunked prefill with an int8 KV cache is not exact: "
+                "monolithic prefill attends the fresh bf16 window while "
+                "chunk windows read back the quantized cache — run "
+                "--prefill-chunk without --kv-quant")
         if sessions > 0 and slots <= 0:
             raise ValueError(
                 "session KV reuse rides the continuous-batching slot "
@@ -184,10 +196,11 @@ class ChatService:
                 "session reuse with sampling is not wired yet: the "
                 "extension finish samples the first token greedily "
                 "(same limitation as chunked prefill)")
-        if spec_k > 0:
-            raise NotImplementedError(
-                "ChatService(spec_k=...): speculative decoding is not "
-                "ported")
+        if sessions > 0 and cfg.llm.kv_quant == "int8":
+            raise ValueError(
+                "session reuse with an int8 KV cache is not exact: the "
+                "extend window reads the cache back — run --sessions "
+                "without --kv-quant")
         self.device = resolve_device(device)
         dev_of_core = next(core.parameters()).device
         if dev_of_core.type != self.device.type:
@@ -203,6 +216,7 @@ class ChatService:
         self.max_batch = max_batch
         self.batch_window_s = batch_window_ms / 1e3
         self.slots = slots
+        self.spec_k = spec_k
         self.sampling = sampling
         self.img_len = (image_size // 14) ** 2
         self.tid = SpecialTokenIds.from_tokenizer(tokenizer)
@@ -243,12 +257,23 @@ class ChatService:
                 (self._sess_extract, self._sess_embed, self._sess_extend,
                  self._sess_finish, self._sess_kill) = build_session_fns(core)
             loop = self._slot_loop
+        elif spec_k > 0:
+            self.generate_fn = build_speculative_generate_fn(
+                core, self.tid, max_new_tokens=max_new_tokens,
+                eos_id=self.eos_id, max_len=max_prompt + max_new_tokens + 8,
+                k_draft=spec_k)
+            loop = self._dispatch_loop
         else:
             self.generate_fn = build_generate_fn(
                 core, self.tid, max_new_tokens=max_new_tokens,
                 eos_id=self.eos_id, max_len=max_prompt + max_new_tokens + 8,
                 sampling=sampling)
             loop = self._dispatch_loop
+        # the drafter's acceptance (speculative mode): windows and the
+        # tokens they emitted, for the auto-disable
+        self._spec_tokens = 0
+        self._spec_windows = 0
+        self._spec_disabled = False
         # serving counters (GET /metrics): ints/floats mutated under the
         # GIL from the dispatcher and request threads. The JAX service's
         # keys; in micro-batching mode also `batches_total` and
@@ -280,6 +305,36 @@ class ChatService:
         self._dispatcher.join(timeout=30)
         self.core = self.generate_fn = None
 
+    # spec auto-disable thresholds (the JAX service's): below
+    # SPEC_BREAK_EVEN tokens a window over SPEC_MIN_WINDOWS windows, the
+    # service switches to the plain greedy loop
+    SPEC_MIN_WINDOWS = 64
+    SPEC_BREAK_EVEN = 1.15
+
+    def _track_spec_acceptance(self, n_gen: int, n_windows: int) -> None:
+        """Count a speculative call's tokens (the first comes from the
+        prefill, free) and windows; once enough windows ran below break
+        even, switch to `build_generate_fn` (greedy, as spec is)."""
+        self._spec_tokens += max(n_gen - 1, 0)
+        self._spec_windows += max(n_windows, 0)
+        if (self._spec_disabled
+                or self._spec_windows < self.SPEC_MIN_WINDOWS):
+            return
+        accept = self._spec_tokens / self._spec_windows
+        if accept >= self.SPEC_BREAK_EVEN:
+            return
+        print(f"[serve] speculative decoding disabled: measured "
+              f"{accept:.2f} tokens/window over {self._spec_windows} "
+              f"windows (< break-even {self.SPEC_BREAK_EVEN}); "
+              "switching to the plain decode loop", file=sys.stderr,
+              flush=True)
+        self.generate_fn = build_generate_fn(
+            self.core, self.tid, max_new_tokens=self.max_new_tokens,
+            eos_id=self.eos_id,
+            max_len=self.max_prompt + self.max_new_tokens + 8)
+        self._spec_disabled = True
+        self.spec_k = 0
+
     def _submit(self, req: _Request) -> None:
         with self._lock:
             if self._closed:
@@ -305,7 +360,14 @@ class ChatService:
         else:
             s.pop("scheduler_ticks")
             s.pop("occupied_slot_ticks")
-        s["mode"] = "slots" if self.slots > 0 else f"batch{self.max_batch}"
+        s["mode"] = ("slots" if self.slots > 0 else
+                     "speculative" if self.spec_k > 0 else
+                     f"batch{self.max_batch}")
+        if self.spec_k > 0 or self._spec_disabled:
+            s["spec_tokens_per_window"] = round(
+                self._spec_tokens / max(self._spec_windows, 1), 3)
+            s["spec_windows_total"] = self._spec_windows
+            s["spec_disabled"] = self._spec_disabled
         return s
 
     # ---- request assembly (caller thread) ----
@@ -822,9 +884,19 @@ class ChatService:
         """One [max_batch] generate call; returns per request (tokens up
         to and including EOS, their logprobs)."""
         ids, imgs, mask, live = self._pack(batch)
-        kw = self._sample_kw(batch) if self.sampling else {}
-        out = self.generate_fn(ids, imgs, attn_mask=mask, live=live, **kw)
+        if self.spec_k > 0:
+            # latency mode: B = 1, speculative windows; a text-only
+            # request skips the vision encoder
+            out = self.generate_fn(
+                ids, None if batch[0].image is None else imgs,
+                attn_mask=mask)
+        else:
+            kw = self._sample_kw(batch) if self.sampling else {}
+            out = self.generate_fn(ids, imgs, attn_mask=mask, live=live,
+                                   **kw)
         n_gen = int(out["num_generated"])
+        if self.spec_k > 0:
+            self._track_spec_acceptance(n_gen, int(out["num_windows"]))
         self.stats["batches_total"] += 1
         self.stats["steps_total"] += n_gen
         toks = out["out_tokens"][:, :n_gen].cpu().numpy()

@@ -17,8 +17,10 @@ The decode batch is a set of SLOTS with independent fill levels:
   valid mask) are its own, and every projection runs once at M = S.
   Dead slots compute too but neither advance nor surface tokens.
 
-The tool-token state machine (`generation.advance_tool_state`) runs per
-slot inside `step`. A request decoded through slots, at any arrival time
+The slot state's cache is int8 with scales under `kv_quant="int8"`
+(`VisionLLM.new_cache`), as JAX's (`slots.py:100-102`); sessions refuse
+it. The tool-token state machine (`generation.advance_tool_state`) runs
+per slot inside `step`. A request decoded through slots, at any arrival time
 and next to any traffic, gets the tokens `build_generate_fn` gives it
 alone (tests/test_torch_slots.py).
 
@@ -85,7 +87,7 @@ def build_slot_fns(core: VisionLLM, tid: SpecialTokenIds, *, n_slots: int,
         """Returns (state, slot_valid): slot_valid [S, max_len] is the
         per-slot buffer mask (prompt pads stay False for the slot's
         lifetime)."""
-        cache = KVCache.create(cfg.llm, n_slots, max_len, dtype, dev)
+        cache = core.new_cache(n_slots, max_len)
         cache.index = torch.zeros(n_slots, dtype=torch.long, device=dev)
         state = SlotState(
             cache=cache,
@@ -112,7 +114,7 @@ def build_slot_fns(core: VisionLLM, tid: SpecialTokenIds, *, n_slots: int,
         [1, 1, C], its logprob, the one-row cache (index Lp), the
         buffer-valid mask [max_len] (prompt pads invisible forever) and,
         sampling, the generator it drew from (seed 0 when None)."""
-        cache = KVCache.create(cfg.llm, 1, max_len, dtype, dev)
+        cache = core.new_cache(1, max_len)
         out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache)
         last = out["logits"][:, -1, :]
         if sampling:
@@ -145,6 +147,9 @@ def build_slot_fns(core: VisionLLM, tid: SpecialTokenIds, *, n_slots: int,
         c = state.cache
         c.k[:, slot] = row_cache.k[:, 0]
         c.v[:, slot] = row_cache.v[:, 0]
+        if c.k_scale is not None:
+            c.k_scale[:, slot] = row_cache.k_scale[:, 0]
+            c.v_scale[:, slot] = row_cache.v_scale[:, 0]
         c.index[slot] = row_cache.index
         kind0 = _tool_kind(first, tid)
         total0 = torch.where(kind0 >= C.TOOL_GEN, num_embs_gen, num_embs)
@@ -251,7 +256,15 @@ def build_session_fns(core: VisionLLM):
         `last_logits` is row n_real - 1, the last real token;
       * finish(last_logits) -> (first [1], embed, logprob);
       * kill(state, slot): mark a slot dead so a parked (length-stopped)
-        slot stops advancing."""
+        slot stops advancing.
+
+    An int8 KV cache is refused with JAX's ValueError: the extend window
+    reads the cache back, which drifts from a monolithic prefill."""
+    if core.cfg.llm.kv_quant == "int8":
+        raise ValueError(
+            "session reuse requires an exact (non-quantized) KV cache: "
+            "the extend window reads the cache back, and int8 "
+            "requantization would drift from monolithic prefill")
 
     @torch.no_grad()
     def extract_row(state: SlotState, slot_valid: torch.Tensor, slot: int):
@@ -296,11 +309,9 @@ def build_chunked_prefill_fns(core: VisionLLM, tid: SpecialTokenIds, *,
       * prefill_chunk(emb_chunk [1, chunk, C], cache_row, valid_row) ->
         (cache_row, last_logits [1, V]): one window, in place;
       * finish(last_logits) -> (first [1], embed [1, 1, C], logprob)."""
-    cfg = core.cfg
-    dtype, dev = _dtype_device(core)
 
     def new_row_cache() -> KVCache:
-        return KVCache.create(cfg.llm, 1, max_len, dtype, dev)
+        return core.new_cache(1, max_len)
 
     @torch.no_grad()
     def embed_prompt(input_ids: torch.Tensor,

@@ -14,6 +14,11 @@ the flax ones, so the map is mechanical:
   * int4 `Int4Dense` `kernel_p`, `scale` -> `Int4Linear` buffers of the
     same names and layout, no transpose (a tree packed by the JAX
     `quantize_serving_params(..., bits=4)` loads byte for byte)
+  * int8 `Int8Dense` / `Int8ActDense` `kernel_q` [in, out] -> the
+    `Int8Linear` / `Int8ActLinear` buffer `kernel_q` [out, in], transposed
+    like a Dense kernel (scanned stacks are sliced per layer first);
+    `scale` [out] as it is (a tree of the JAX `quantize_serving_params`
+    loads byte for byte)
   * every other leaf keeps its name.
 
 It raises on any flax leaf that maps to no parameter and on any
@@ -28,10 +33,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from visionllm_tpu_torch.ops.quant import Int8Linear
+
 
 def _leaf(mod: nn.Module, name: str, arr: np.ndarray):
     if name == "kernel" and isinstance(mod, nn.Linear):
         return "weight", arr.T
+    if name == "kernel_q" and isinstance(mod, Int8Linear):
+        return name, np.swapaxes(arr, -1, -2)
     if name == "kernel" and isinstance(mod, nn.Conv2d):
         return "weight", arr.transpose(3, 2, 0, 1)
     if name == "embedding" and isinstance(mod, nn.Embedding):
