@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels flash_bwd,msda_bwd   # checks alone
+    python3 chip_smoke.py --phase det26b                 # one model phase
 
 Phases, each printing one JSON line:
 
@@ -34,8 +35,13 @@ Phases, each printing one JSON line:
              captured from a warm det request, a detect request's encoder
              and a pose request's post-expansion decoder at the 800 px
              test scale, and a train step (`captured_*`; each capture
-             builds its model), and time the grid_sample composition
-             (`composite_*`) where no single library call computes MSDA.
+             builds its model), and DCNv3's sampling in the four stages of
+             InternImage-H at the det26b image (`dcnv3_stage*`: one
+             level, 9 points, 10-80 groups of 32 channels), and time the
+             grid_sample composition (`composite_*`) where no single
+             library call computes MSDA. The flash forward also runs the
+             26B det path's InternViT (B7 L1025, 25 heads, bidirectional)
+             and InternLM2 prefill (L1868, 48 heads over 8).
              The lane gather adds seeded random indices (out-of-range
              ones too) at [8, 57344], [8, 57343] and a two-CTA extent,
              each case with the cluster size it launched;
@@ -170,7 +176,30 @@ Phases, each printing one JSON line:
              peak memory, the loss trace;
 15. train_profile - one more step under torch.profiler;
 16. probes - the gather probes' entry point
-             (`visionllm_tpu_torch/tools/msda_kernel_attempts.py`).
+             (`visionllm_tpu_torch/tools/msda_kernel_attempts.py`);
+17. det26b - the 26B flagship's det path, with nothing else resident:
+             `build_model(vllm_26b_det_config())` at full width and depth
+             (InternViT-6B/448 48 layers, pixel shuffle and `internvl_mlp`,
+             InternLM2-20B 48 layers at 48 heads over 8 KV heads,
+             Grounding-DINO on InternImage-H) in bf16 on the card. An
+             800x1088 uint8 image answers a det request as a 7-tile stack
+             (`dynamic_preprocess`: 7 x 256 image tokens, L 1868) and as
+             one tile (L 332), each once and 3 warm repeats more through
+             `infer_det`: shapes, finite values, flash 96 (48 InternViT +
+             48 InternLM2) and MSDA 62 (50 DCNv3 + 12 Grounding-DINO)
+             launches a request. Each request's text queries and raw tool
+             outputs are held against the plain versions on the same
+             weights (the kernel run's proposal choice) within
+             DET26B_REL_TOL, and Grounding-DINO in fp32 (plain versions,
+             the kernel run's text queries) witnesses the gate: the kernel
+             run may sit at most DET26B_WITNESS_RATIO times as far from it
+             as the bf16 plain run, per tool output and per InternImage
+             stage map; 16 greedy tokens at B1 from the 7-tile prompt
+             (`build_generate_fn` on the same core) against the plain
+             run's by the near-tie token rule. Then request, vision,
+             prefill and Grounding-DINO ms, the decode ms a step, the
+             weights' and the peak memory (which must stay under 80 GB);
+18. det26b_profile - each request once under torch.profiler.
 
 Then it prints the `{"kernels": [...]}` line, the card's name and power
 limit, and as its last line `{"ok": true, "device": {...}}`. Any failed
@@ -181,6 +210,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import copy
 import dataclasses
 import functools
 import gc
@@ -207,7 +237,15 @@ from visionllm_tpu_torch import constants as C
 from visionllm_tpu_torch.config import (LLMConfig, OptimizerConfig,
                                         vllm_7b_chat_config,
                                         vllm_7b_det_config,
-                                        vllm_7b_perception_config)
+                                        vllm_7b_perception_config,
+                                        vllm_26b_det_config)
+from visionllm_tpu_torch.data.mm_utils import (clip_preprocess,
+                                               dynamic_preprocess)
+from visionllm_tpu_torch.data.preprocess import (preprocess,
+                                                 preprocess_multimodal)
+from visionllm_tpu_torch.data.transforms import (DEFAULT_BUCKETS,
+                                                 TEST_SCALE,
+                                                 det_test_transform)
 from visionllm_tpu_torch.generation import (_tool_kind, advance_tool_state,
                                             build_generate_fn,
                                             build_speculative_generate_fn,
@@ -224,6 +262,7 @@ from visionllm_tpu_torch.ops import gather as G
 from visionllm_tpu_torch.ops import ms_deform_attn as M
 from visionllm_tpu_torch.ops import quant as Q8
 from visionllm_tpu_torch.ops import quant4 as Q
+from visionllm_tpu_torch.ops.dcnv3 import dcnv3_msda_args
 from visionllm_tpu_torch.serve import (ChatService, _Request, make_server,
                                        perception_json)
 from visionllm_tpu_torch.slots import build_slot_fns
@@ -285,6 +324,25 @@ PERCEPTION_REQUESTS = {
     "pose": ("/v1/pose", dict(threshold=0.0, topk=20)),
 }
 PERCEPTION_REL_TOL = 5e-2
+# the det26b phase: an 800x1088 uint8 image as a 3x2 + thumbnail tile
+# stack (7 x 256 image tokens) and as one tile; warm repeats of each
+# request, greedy tokens at B1 (the KV cache's length), and the kernel run
+# vs the plain run's text queries and tool outputs, relative
+DET26B_IMAGE = (800, 1088, 3)
+DET26B_TILES = {"tiles7": 7, "tile1": 1}
+DET26B_CLASSES = ["person", "dog", "bicycle"]
+DET26B_REPEATS = 3
+DET26B_DECODE = 16
+DET26B_MAX_LEN = 1920
+DET26B_REL_TOL = 5e-2
+# the fp32 witness: the kernel run may sit at most this many times as far
+# from the fp32 run as the bf16 plain run does (or as bf16's unit
+# roundoff, 2^-8, where that is larger)
+DET26B_WITNESS_RATIO = 2.0
+# DCNv3 in InternImage-H at that image's 800x1088 bucket: each stage's
+# (map H, W, groups); one level of the zero-padded map, 9 points, 32
+# channels a group
+DCNV3_STAGES = ((200, 272, 10), (100, 136, 20), (50, 68, 40), (25, 34, 80))
 
 
 def emit(obj):
@@ -457,16 +515,23 @@ def attention_cases(g, more=False):
                    128, True, slot_seg)]
         specs += [(f"{task}_prefill", 1, L, 32, 32, 128, True, None)
                   for task, L in perception_prompt_lengths().items()]
+        # the 26B det path: InternViT-6B over the 7-tile stack (1025
+        # tokens, bidirectional) and InternLM2-20B's 7-tile prefill at 48
+        # heads over 8 KV heads
+        specs += [("internvit_b7_l1025", 7, 1025, 25, 25, 128, False, None),
+                  ("internlm2_gqa_6to1_prefill", 1,
+                   det26b_prompt_lengths()["tiles7"], 48, 8, 128, True,
+                   None)]
     for name, B, L, H, Hkv, D, causal, sg in specs:
         yield name, rnd(B, L, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D), \
             causal, sg
 
 
-def attention_pairs(L, causal, seg):
+def attention_pairs(B, L, causal, seg):
     """Attending (query, key) pairs per batch row that this input needs."""
     if seg is None:
         per = L * (L + 1) // 2 if causal else L * L
-        return [per]
+        return [per] * B
     allowed = seg[:, :, None] == seg[:, None, :]
     if causal:
         allowed = allowed & torch.ones(L, L, dtype=torch.bool,
@@ -504,7 +569,7 @@ def check_attention(g):
         lib_out = lib().transpose(1, 2)
         torch.cuda.synchronize()
         check_close(f"sdpa[{name}]", lib_out, want)
-        pairs = sum(attention_pairs(L, causal, seg)) * H
+        pairs = sum(attention_pairs(B, L, causal, seg)) * H
         flops = 4 * pairs * D
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel()) + \
             (0 if seg is None else seg.numel() * 4)
@@ -564,6 +629,23 @@ def msda_uniform_cases(g, bwd):
             yield name, value, shapes, loc, attw, gout
         else:
             yield name, value, shapes, loc, attw
+
+
+def dcnv3_cases(g):
+    """(name, value, shapes, loc, attw) of DCNv3's sampling in each
+    InternImage-H stage at the det26b image, built by `dcnv3_msda_args`
+    as `dcnv3_core` builds them: the 3x3 taps around each pixel plus
+    offsets of a few pixels, the mask softmaxed over the 9 points and
+    rounded to bf16."""
+    for s, (H, W, G) in enumerate(DCNV3_STAGES):
+        x = torch.randn(1, H, W, 32 * G, generator=g, device="cuda").to(
+            torch.bfloat16)
+        off = 2.0 * torch.randn(1, H, W, G * 18, generator=g, device="cuda")
+        mask = torch.softmax(torch.randn(1, H, W, G, 9, generator=g,
+                                         device="cuda"), -1)
+        args, _ = dcnv3_msda_args(x, off, mask.reshape(1, H, W, G * 9).to(
+            torch.bfloat16), group=G)
+        yield (f"dcnv3_stage{s}", *args)
 
 
 def encoder_or_decoder(value, loc):
@@ -721,7 +803,8 @@ def check_msda(g):
     bit-identical across two calls. The grid_sample composition is the
     yardstick (`composite_*`)."""
     cases, timed = [], {}
-    inputs = list(msda_uniform_cases(g, bwd=False)) + captured_msda_fwd()
+    inputs = (list(msda_uniform_cases(g, bwd=False)) + list(dcnv3_cases(g))
+              + captured_msda_fwd())
     for name, value, shapes, loc, attw in inputs:
         got = M.ms_deform_attn(value, shapes, loc, attw)
         again = M.ms_deform_attn(value, shapes, loc, attw)
@@ -798,7 +881,7 @@ def check_attention_bwd(g):
                                 dout.transpose(1, 2), retain_graph=True)
         for n, a, b in zip(("dq", "dk", "dv"), lib(), want):
             check_close(f"sdpa_bwd[{name}].{n}", a.transpose(1, 2), b)
-        pairs = sum(attention_pairs(L, causal, seg)) * H
+        pairs = sum(attention_pairs(B, L, causal, seg)) * H
         flops = 10 * pairs * D     # S again, dP, dV, dQ, dK
         nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel() + \
             (0 if seg is None else seg.numel() * 4)
@@ -1710,6 +1793,324 @@ def run_probes():
     if bad:
         raise AssertionError(f"probes gave wrong results: {bad}")
     emit({"phase": "probes", "launches": launches, **res})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 17-18: the 26B flagship's det path at full width and depth
+# ---------------------------------------------------------------------------
+
+def det26b_prompt_ids(tok, image_tokens, cfg):
+    """The det prompt (`DET26B_CLASSES`, one [DET][EMB x4] block each)
+    with `image_tokens` <im_patch> ids, as the training dataset counts
+    them: 256 a 448 px tile after pixel shuffle."""
+    q, a = det_prompt(DET26B_CLASSES, cfg.num_embs)
+    tok_out = preprocess(
+        preprocess_multimodal([[{"from": "human", "value": q},
+                                {"from": "gpt", "value": a}]]), tok,
+        version="v1", has_image=True, image_token_len=image_tokens,
+        model_max_length=4096)
+    return np.asarray(tok_out["input_ids"][0], np.int64)
+
+
+def det26b_prompt_lengths():
+    """Prompt lengths of the two det26b requests (host only)."""
+    cfg, tok = vllm_26b_det_config(), SimpleTokenizer()
+    per = cfg.vis_encoder.num_patches // 4      # after pixel shuffle
+    return {name: len(det26b_prompt_ids(tok, n * per, cfg))
+            for name, n in DET26B_TILES.items()}
+
+
+def det26b_requests(cfg, tok):
+    """The det26b phase's requests on the card: an 800x1088 uint8 image
+    (numpy seed 4) as a `dynamic_preprocess` tile stack [1, 7, 448, 448,
+    3] (each tile through `clip_preprocess(..., mode="resize")`, as the
+    dataset's anyres branch does) and as one padded 448 px tile [1, 448,
+    448, 3]; the det image `det_test_transform` gives (the 800x1088
+    bucket). Returns {name: (ids [1, L], images, aug, pixel_mask)}."""
+    img = np.random.RandomState(4).randint(0, 256, DET26B_IMAGE, np.uint8)
+    size = cfg.vis_encoder.image_size
+    tiles = dynamic_preprocess(img, image_size=size, max_num=6)
+    pix = {"tiles7": np.stack([clip_preprocess(t, size, mode="resize")
+                               for t in tiles])[None],
+           "tile1": clip_preprocess(img, size)[None]}
+    sample = det_test_transform(
+        {"image": img.astype(np.float32),
+         "boxes": np.zeros((0, 4), np.float32),
+         "labels": np.zeros((0,), np.int32)}, TEST_SCALE, DEFAULT_BUCKETS)
+    aug = torch.from_numpy(sample["image"][None]).to("cuda", torch.bfloat16)
+    pm = torch.from_numpy(sample["pixel_mask"][None]).to("cuda")
+    per = cfg.vis_encoder.num_patches // 4      # after pixel shuffle
+    reqs = {}
+    for name, n in DET26B_TILES.items():
+        if n != (pix[name].shape[1] if pix[name].ndim == 5 else 1):
+            raise AssertionError(f"{name}: {pix[name].shape} is not {n} "
+                                 "tiles")
+        ids = torch.from_numpy(det26b_prompt_ids(tok, n * per, cfg))[None]
+        reqs[name] = (ids.to("cuda"), torch.from_numpy(pix[name]).to(
+            "cuda", torch.bfloat16), aug, pm)
+    return reqs
+
+
+def det26b_plain(model, g32, tid, req, out_k):
+    """The request's text queries and raw tool outputs with the plain
+    versions on the kernel run's proposal choice, against the kernel
+    run's: relative Frobenius error of each (logits on the valid text
+    columns); then the fp32 witness (`det26b_witness`, with `g32` the
+    fp32 copy of `model.gdino`)."""
+    ids, images, aug, pm = req
+    tq_k, mask_k = text_queries(model, ids, images, tid)
+    with plain_versions():
+        tq_p, mask_p = text_queries(model, ids, images, tid)
+        out_p = model.gdino(aug, tq_p, mask_p, pixel_mask=pm,
+                            topk_idx=out_k["topk_idx"])
+        # Grounding-DINO alone: the plain MSDA on the kernel run's queries
+        out_g = model.gdino(aug, tq_k, mask_k, pixel_mask=pm,
+                            topk_idx=out_k["topk_idx"])
+    if not torch.equal(mask_k, mask_p):
+        raise AssertionError("det26b: text-query masks differ")
+    n = int(mask_k.sum())
+    errs, alone = {"text_queries": rel_err(tq_k, tq_p)}, {}
+    for key in ("logits", "pred_boxes", "pred_masks"):
+        a, b, c = (o[key][..., :n] if key == "logits" else o[key]
+                   for o in (out_k, out_p, out_g))
+        errs[key], alone[key] = rel_err(a, b), rel_err(a, c)
+    return errs, alone, det26b_witness(model, g32, aug, pm, tq_k, mask_k,
+                                       out_k, out_g)
+
+
+def det26b_witness(model, g32, aug, pm, tq, mask, out_k, out_g):
+    """Grounding-DINO (InternImage-H included) with its weights widened
+    to fp32 and the plain versions, on the kernel run's text queries and
+    proposal choice, as the witness of the kernel-vs-plain gate: the
+    relative error from it of the kernel run (`kernel`) and of the bf16
+    plain run (`plain`), per tool output and per InternImage stage map,
+    and the stage maps' kernel-vs-plain error. Raises where the kernel
+    run sits more than DET26B_WITNESS_RATIO times as far from fp32 as the
+    plain run does (or as 2^-8, where that is larger)."""
+    with plain_versions():
+        out_32 = g32(aug.float(), tq.float(), mask, pixel_mask=pm,
+                     topk_idx=out_k["topk_idx"])
+        maps_32 = g32.backbone(aug.float())
+        maps_p = model.gdino.backbone(aug)
+    maps_k = model.gdino.backbone(aug)
+    n = int(mask.sum())
+    res = {"kernel": {}, "plain": {}, "kernel_vs_plain": {}}
+    for key in ("logits", "pred_boxes", "pred_masks"):
+        w, k, p = (o[key][..., :n] if key == "logits" else o[key]
+                   for o in (out_32, out_k, out_g))
+        res["kernel"][key], res["plain"][key] = rel_err(k, w), rel_err(p, w)
+    for s, (k, p, w) in enumerate(zip(maps_k, maps_p, maps_32)):
+        res["kernel"][f"stage{s}"] = rel_err(k, w)
+        res["plain"][f"stage{s}"] = rel_err(p, w)
+        res["kernel_vs_plain"][f"stage{s}"] = rel_err(k, p)
+    for key, e in res["kernel"].items():
+        if not e <= DET26B_WITNESS_RATIO * max(res["plain"][key], 2.0 ** -8):
+            raise AssertionError(f"det26b {key}: the kernel run is {e} from "
+                                 f"fp32, the plain run {res['plain'][key]}")
+    return res
+
+
+def near_tie_rule(what, ids, plain_ids, plain_logits):
+    """The card's token rule: greedy tokens `ids` against the plain run's
+    `plain_ids`, chosen by `plain_logits` [n, V]: equal, or differing
+    first where the plain run's top-2 logit gap is within NEAR_TIE_ULPS
+    bf16 ulps of its top logit."""
+    res = {"identical": ids == plain_ids}
+    if not res["identical"]:
+        p = next((i for i, (a, b) in enumerate(zip(ids, plain_ids))
+                  if a != b), min(len(ids), len(plain_ids)))
+        top2 = plain_logits[min(p, len(plain_logits) - 1)].topk(2).values \
+            .tolist()
+        gap, ulps = top2[0] - top2[1], NEAR_TIE_ULPS * bf16_ulp(top2[0])
+        res.update(first_difference=p, plain_top2_gap=gap, near_tie=ulps)
+        if not (p < len(plain_logits) and gap <= ulps):
+            raise AssertionError(f"{what} tokens differ from the plain "
+                                 f"loop's at {p} with no near-tie: {res}")
+    return res
+
+
+def decode_step_ms(core, ids, images, max_len, n=DET26B_DECODE):
+    """Median wall ms of one B1 greedy decode step (`llm_step`) after a
+    prefill of `ids`, each step synced; then one more step under
+    torch.profiler (printed as the `det26b_decode_profile` phase)."""
+    cache = core.new_cache(1, max_len)
+    tid = SpecialTokenIds.synthetic()
+    out = core(ids, images, tid, cache=cache)
+    tok = out["logits"][:, -1].argmax(-1)
+    ts = []
+    for _ in range(n):
+        e = core.embed_tokens(tok[:, None])
+        pos = torch.full((1, 1), cache.index, dtype=torch.long,
+                         device=ids.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok = core.llm_step(e, pos, cache)["logits"][:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    e = core.embed_tokens(tok[:, None])
+    pos = torch.full((1, 1), cache.index, dtype=torch.long, device=ids.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        core.llm_step(e, pos, cache)["logits"][:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    emit({"phase": "det26b_decode_profile", "cache_len": cache.index,
+          **device_summary(prof, wall_ms)})
+    return statistics.median(ts)
+
+
+def run_det26b():
+    """The det26b phase: see the module docstring. Nothing else is
+    resident: the earlier phases' models are freed before it."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = vllm_26b_det_config()
+    tid = SpecialTokenIds.synthetic()
+    tok = SimpleTokenizer()
+    t = time.perf_counter()
+    model = build_model(cfg, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    if dtypes != ["torch.bfloat16"] or any(
+            not p.is_cuda for p in model.parameters()):
+        raise AssertionError(f"det26b: parameters in {dtypes}, not all bf16 "
+                             "on the card")
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    reqs = det26b_requests(cfg, tok)
+    backbone = model.gdino.backbone.cfg
+    per_req = {"flash_attn_fwd": cfg.vis_encoder.num_layers
+               + cfg.llm.num_layers,
+               "ms_deform_attn_fwd": sum(backbone.depths)
+               + cfg.gdino.encoder_layers + cfg.gdino.decoder_layers}
+    Q, T = cfg.gdino.num_queries, cfg.gdino.max_text_len
+    side = tuple(s // 4 for s in DET26B_IMAGE[:2])
+
+    # the main path, with the launch counts taken around it alone
+    A.flash_attention.launches = 0
+    M.ms_deform_attn.launches = 0
+    outs, calls = {}, []
+    with torch.no_grad():
+        for name, (ids, images, aug, pm) in reqs.items():
+            for _ in range(1 + DET26B_REPEATS):
+                f0, m0 = A.flash_attention.launches, M.ms_deform_attn.launches
+                outs[name] = model.infer_det(ids, images, aug, tid,
+                                             pixel_mask=pm)
+                calls.append({"request": name,
+                              "flash_attn_fwd": A.flash_attention.launches
+                              - f0, "ms_deform_attn_fwd":
+                              M.ms_deform_attn.launches - m0})
+        gen = build_generate_fn(model.core, tid,
+                                max_new_tokens=DET26B_DECODE,
+                                max_len=DET26B_MAX_LEN)
+        ids7, images7 = reqs["tiles7"][:2]
+        chat_ids = ids7[:, :int((ids7[0] == tid.det).nonzero()[0])]
+        f0 = A.flash_attention.launches
+        gen_k = gen(chat_ids, images7)
+        gen_flash = A.flash_attention.launches - f0
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches,
+                "ms_deform_attn_fwd": M.ms_deform_attn.launches}
+    for c in calls:
+        if any(c[k] != per_req[k] for k in per_req):
+            raise AssertionError(f"det26b launches {c} != {per_req}")
+    if gen_flash != per_req["flash_attn_fwd"]:
+        raise AssertionError(f"det26b generate: {gen_flash} flash launches")
+    for name, out in outs.items():
+        for key, shape in (("logits", (1, Q, T)), ("pred_boxes", (1, Q, 4)),
+                           ("pred_masks", (1, Q) + side)):
+            x = out[key]
+            if tuple(x.shape) != shape or not torch.isfinite(x).all():
+                raise AssertionError(f"det26b {name} {key}: shape "
+                                     f"{tuple(x.shape)} vs {shape}, finite "
+                                     f"{bool(torch.isfinite(x).all())}")
+        if not ((out["pred_boxes"] >= 0) & (out["pred_boxes"] <= 1)).all():
+            raise AssertionError(f"det26b {name}: boxes outside [0, 1]")
+
+    # the plain versions on the same weights: text queries, tool outputs;
+    # Grounding-DINO in fp32 as their witness
+    errs, gdino_alone, witness = {}, {}, {}
+    g32 = copy.deepcopy(model.gdino).float()
+    with torch.no_grad():
+        for name, req in reqs.items():
+            e, gdino_alone[name], witness[name] = det26b_plain(
+                model, g32, tid, req, outs[name])
+            errs[name] = e
+            if not max(e.values()) <= DET26B_REL_TOL:
+                raise AssertionError(f"det26b {name} kernel vs plain {e} > "
+                                     f"{DET26B_REL_TOL}")
+        kernel_ids = gen_k["out_tokens"][0].tolist()
+        with plain_versions():
+            plain_ids = gen(chat_ids, images7)["out_tokens"][0].tolist()
+            plain_logits = window_teacher_forced(
+                model.core, tid, chat_ids, images7,
+                torch.ones_like(chat_ids, dtype=torch.bool), plain_ids, 1,
+                DET26B_MAX_LEN)
+    del g32
+    decode_rule = near_tie_rule("det26b decode", kernel_ids, plain_ids,
+                                plain_logits)
+
+    # warm timings: each request and its stages (host clock, synced)
+    timings = {}
+    with torch.no_grad():
+        for name, (ids, images, aug, pm) in reqs.items():
+            embeds, _ = model.core.build_prompt_embeds(ids, images, tid)
+            pos = torch.arange(ids.shape[1], device=ids.device)[None]
+            tq, tq_mask = text_queries(model, ids, images, tid)
+            timings[name] = {
+                "request_ms_median": host_ms(lambda: model.infer_det(
+                    ids, images, aug, tid, pixel_mask=pm),
+                    n=DET26B_REPEATS),
+                "vision_ms": host_ms(lambda: model.core.encode_images(
+                    images), n=DET26B_REPEATS),
+                "prefill_ms": host_ms(lambda: model.core.llm(
+                    embeds, pos, compute_logits=False), n=DET26B_REPEATS),
+                "gdino_ms": host_ms(lambda: model.gdino(
+                    aug, tq, tq_mask, pixel_mask=pm), n=DET26B_REPEATS),
+                "prompt_tokens": int(ids.shape[1])}
+        step_ms = decode_step_ms(model.core, chat_ids, images7,
+                                 DET26B_MAX_LEN)
+    emit({"phase": "det26b", "config": "vllm_26b_det_config()",
+          "image": list(DET26B_IMAGE), "tiles": DET26B_TILES,
+          "params": sum(p.numel() for p in model.parameters()),
+          "param_dtypes": dtypes, "weights_gb": weights_gb,
+          "resident_before_gb": resident_gb, "build_model_s": build_s,
+          "calls": calls, "launches": launches,
+          "launches_per_request": per_req, "timings": timings,
+          "plain_rel_err": errs, "plain_rel_tol": DET26B_REL_TOL,
+          "plain_msda_on_kernel_queries_rel_err": gdino_alone,
+          "fp32_witness_rel_err": witness,
+          "fp32_witness_ratio": DET26B_WITNESS_RATIO,
+          "decode": {"prompt_tokens": int(chat_ids.shape[1]),
+                     "new_tokens": DET26B_DECODE, "kernel_ids": kernel_ids,
+                     "plain_ids": plain_ids, **decode_rule,
+                     "flash_per_generate": gen_flash,
+                     "step_ms_median": step_ms},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t_phase})
+    if torch.cuda.max_memory_allocated() >= 80e9:
+        raise AssertionError("det26b: peak memory at or past 80 GB")
+    for name in DET26B_TILES:
+        with torch.no_grad(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            ids, images, aug, pm = reqs[name]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.infer_det(ids, images, aug, tid, pixel_mask=pm)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        emit({"phase": "det26b_profile", "request": name,
+              **device_summary(prof, wall_ms)})
+    del model, reqs, outs, gen, gen_k
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2665,16 +3066,8 @@ def spec_token_rule(core, tid, packed, spec_ids, plain_ids, width,
     win = window_teacher_forced(core, tid, ids, imgs, mask, plain_ids,
                                 width, max_len)
     rel = max(rel_errs(win, step))
-    res = {"identical": spec_ids == plain_ids, "window_vs_step_rel_err": rel}
-    if not res["identical"]:
-        p = next((i for i, (a, b) in enumerate(zip(spec_ids, plain_ids))
-                  if a != b), min(len(spec_ids), len(plain_ids)))
-        top2 = step[min(p, len(step) - 1)].topk(2).values.tolist()
-        gap, ulps = top2[0] - top2[1], NEAR_TIE_ULPS * bf16_ulp(top2[0])
-        res.update(first_difference=p, plain_top2_gap=gap, near_tie=ulps)
-        if not (p < len(step) and gap <= ulps):
-            raise AssertionError(f"speculative tokens differ from the plain "
-                                 f"loop's at {p} with no near-tie: {res}")
+    res = near_tie_rule("speculative", spec_ids, plain_ids, step)
+    res["window_vs_step_rel_err"] = rel
     if not rel <= LOGIT_REL_TOL:
         raise AssertionError(f"window vs step logits: rel err {rel}")
     return res
@@ -3231,6 +3624,10 @@ def main(argv=None) -> int:
         "--kernels", help="comma-separated kernel checks to run alone, of "
         f"{', '.join(KERNEL_CHECKS)}: the device and build phases, those "
         "checks, the nvidia-smi line, and no model phase and no ok line")
+    parser.add_argument(
+        "--phase", choices=["det26b"], help="run this model phase alone "
+        "(with the device and build phases and the nvidia-smi line; no "
+        "kernel phase and no ok line)")
     args = parser.parse_args(argv)
     only = args.kernels.split(",") if args.kernels else []
     unknown = set(only) - set(KERNEL_CHECKS)
@@ -3254,9 +3651,11 @@ def main(argv=None) -> int:
                     for k, v in build.build_log.items()}})
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    if only:
+    if only or args.phase:
         for name in only:
             KERNEL_CHECKS[name](g)
+        if args.phase == "det26b":
+            run_det26b()
         print(smi, flush=True)
         return 0
     attn_cases = check_attention(g)
@@ -3284,10 +3683,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     probe = run_probes()
+    det26b = run_det26b()
     # each path's counts were read around that path's run alone
     by_path = {"det": det, "perception": perception, "train": train,
                "probes": probe, "chat": chat, "slots": slots, "spec": spec,
-               "quant": quant}
+               "quant": quant, "det26b": det26b}
 
     def launches(name):
         per = {p: c[name] for p, c in by_path.items() if name in c}

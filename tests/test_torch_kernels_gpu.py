@@ -5,7 +5,8 @@ JAX) run them with
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
 
 and one kernel's cases alone with `-k flash` (or `-k int4`, `-k msda`;
-`-k int8` the int8 serving modes' library products).
+`-k int8` the int8 serving modes' library products; `-k "dcnv3 or
+internvit or internlm2"` the 26B det path's shapes).
 
 Inputs are made with numpy from a seed. Tolerance: max abs err within
 0.02 + 0.01 * max|plain| (bf16 outputs, each rounded from fp32 sums
@@ -22,6 +23,7 @@ from visionllm_tpu_torch.ops import gather as G
 from visionllm_tpu_torch.ops import ms_deform_attn as M
 from visionllm_tpu_torch.ops import quant as Q8
 from visionllm_tpu_torch.ops import quant4 as Q
+from visionllm_tpu_torch.ops.dcnv3 import dcnv3_msda_args
 
 
 @pytest.fixture
@@ -59,6 +61,11 @@ FLASH = {
     "long_d128": (1, 2048, 8, 8, 128, True, False),
     # a slot service's B1 prefill: a 600-token prompt left-padded to 640
     "slot_prefill_leftpad": (1, 640, 32, 32, 128, True, "leftpad"),
+    # the 26B det path: InternViT-6B over a 7-tile stack (1025 tokens, 25
+    # heads of 128, bidirectional) and InternLM2-20B's causal prefill at
+    # 48 heads over 8 KV heads (6:1)
+    "internvit_b7_l1025": (7, 1025, 25, 25, 128, False, False),
+    "internlm2_gqa_6to1": (1, 1900, 48, 8, 128, True, False),
 }
 
 
@@ -219,6 +226,37 @@ def test_msda_kernel_matches_plain_at_perception_shapes(cuda, case):
     got = M.ms_deform_attn(value, PERCEPTION_SHAPES, loc, attw)
     assert M.ms_deform_attn.launches == n + 1
     want = M.ms_deform_attn_plain(value, PERCEPTION_SHAPES, loc, attw)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+# DCNv3 in InternImage-H at the 800x1088 det bucket: one level (the
+# zero-padded stage map), 9 points, the groups as heads, 32 channels a
+# group; (stage map H, W, groups)
+DCNV3_STAGES = {"stage0": (200, 272, 10), "stage1": (100, 136, 20),
+                "stage2": (50, 68, 40), "stage3": (25, 34, 80)}
+
+
+@pytest.mark.parametrize("stage", list(DCNV3_STAGES))
+def test_msda_kernel_matches_plain_at_dcnv3_shapes(cuda, stage):
+    """Locations and weights as `dcnv3_core` builds them: the 3x3 taps
+    around each pixel plus offsets of a few pixels, and a mask softmaxed
+    over the 9 points and rounded to bf16."""
+    H, W, G = DCNV3_STAGES[stage]
+    rng = np.random.default_rng(list(DCNV3_STAGES).index(stage) + 400)
+    x = _bf16(rng, cuda, 1, H, W, 32 * G)
+    off = torch.from_numpy(2.0 * rng.standard_normal(
+        (1, H, W, G * 18)).astype(np.float32)).to(cuda)
+    logits = torch.from_numpy(rng.standard_normal(
+        (1, H, W, G, 9)).astype(np.float32)).to(cuda)
+    mask = torch.softmax(logits, -1).reshape(1, H, W, G * 9).to(
+        torch.bfloat16)
+    (value, shapes, loc, attw), _ = dcnv3_msda_args(x, off, mask, group=G)
+    assert shapes == ((H + 2, W + 2),) and loc.shape[1:5] == (H * W, G, 1, 9)
+    n = M.ms_deform_attn.launches
+    got = M.ms_deform_attn(value, shapes, loc, attw)
+    assert M.ms_deform_attn.launches == n + 1
+    want = M.ms_deform_attn_plain(value, shapes, loc, attw)
     torch.cuda.synchronize()
     _close(got, want)
 

@@ -129,3 +129,48 @@ def test_perception_entry_points_without_device_raise_on_cpu_host():
         Predictor(cfg, model, SimpleTokenizer())
     pred = Predictor(cfg, model, SimpleTokenizer(), device="cpu")
     assert pred.device.type == "cpu"
+
+
+def test_26b_modules_are_among_the_guarded_sources():
+    """The import guard above walks the whole package: the 26B det
+    path's new modules are in it."""
+    paths = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("visionllm_tpu_torch/models/intern_vit.py",
+                "visionllm_tpu_torch/models/intern_image.py",
+                "visionllm_tpu_torch/ops/dcnv3.py", "chip_smoke.py"):
+        assert rel in paths
+
+
+def test_26b_det_entry_point_without_device_raises_on_cpu_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from visionllm_tpu_torch.config import vllm_26b_det_config
+    from visionllm_tpu_torch.models.composite import build_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(vllm_26b_det_config())
+
+
+def test_26b_det_model_is_laid_out_on_meta():
+    """The full-width 26B det model as `build_model` lays it out before it
+    moves to the card: every parameter on the meta device (no host
+    memory), about 27 B of them, the parts as the JAX config sizes them,
+    and bf16 after the cast, so the card holds about 54 GB."""
+    from visionllm_tpu_torch.config import vllm_26b_det_config
+    from visionllm_tpu_torch.models.composite import VisionLLMWithTools
+    cfg = vllm_26b_det_config()
+    with torch.device("meta"):
+        model = VisionLLMWithTools(cfg).to(dtype=torch.bfloat16)
+    params = list(model.parameters())
+    assert all(p.is_meta and p.dtype == torch.bfloat16 for p in params)
+
+    def count(mod):
+        return sum(p.numel() for p in mod.parameters())
+
+    core = model.core
+    assert count(core.vis_encoder) == 5_905_251_200
+    assert count(core.vl_bridge) == 116_429_824
+    assert count(core.llm) == 19_861_542_912
+    assert 0.9e9 < count(model.gdino) < 1.2e9
+    assert tuple(core.vl_bridge._modules["1"].weight.shape) == (6144, 12800)
+    assert tuple(core.llm.layers[0].k_proj.weight.shape) == (1024, 6144)
+    assert 26.9e9 < count(model) < 27.2e9

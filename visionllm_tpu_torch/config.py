@@ -3,7 +3,9 @@
 `GDinoConfig`, `UniPoseConfig`, `VisionLLMConfig`, `tiny_test_config`
 and, from
 `visionllm_tpu/train/train_step.py`, `OptimizerConfig`, cut to the fields
-this port reads; defaults and the tiny dims are the same)."""
+this port reads; defaults and the tiny dims are the same), and the
+flagship configs of the paths ported: the 7B det, perception and chat
+configs and the 26B det config."""
 
 from __future__ import annotations
 
@@ -19,9 +21,9 @@ def _no_remat(owner: str, remat: str) -> None:
 
 @dataclass(frozen=True)
 class VisionEncoderConfig:
-    """CLIP-ViT-L/336 by default."""
+    """CLIP-ViT-L/336 by default; InternViT-6B with arch="intern_vit"."""
 
-    arch: str = "clip_vit"
+    arch: str = "clip_vit"            # "clip_vit" | "intern_vit"
     image_size: int = 336
     patch_size: int = 14
     hidden_size: int = 1024
@@ -30,8 +32,17 @@ class VisionEncoderConfig:
     num_heads: int = 16
     layer_norm_eps: float = 1e-5
     hidden_act: str = "quick_gelu"
+    # InternViT: RMSNorm of the concatenated q and k, layer scale, and
+    # whether the fused qkv projection has a bias
+    qk_normalization: bool = False
+    use_ls: bool = False
+    qkv_bias: bool = True
     # which hidden_states layer feeds the VL bridge (reference default -2)
     output_layer: int = -2
+
+    def __post_init__(self):
+        if self.arch not in ("clip_vit", "intern_vit"):
+            raise NotImplementedError(f"vision encoder {self.arch!r}")
 
     @property
     def num_patches(self) -> int:
@@ -40,9 +51,12 @@ class VisionEncoderConfig:
 
 @dataclass(frozen=True)
 class LLMConfig:
-    """LLaMA-family decoder (Vicuna-7B default)."""
+    """LLaMA-family decoder (Vicuna-7B default); InternLM2 with
+    arch="internlm2" runs the same decoder (the JAX `llama.py` does not
+    branch on it: InternLM2's packed `wqkv` exists only in the weight
+    converter)."""
 
-    arch: str = "llama"
+    arch: str = "llama"               # "llama" | "internlm2"
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 11008
@@ -65,6 +79,8 @@ class LLMConfig:
 
     def __post_init__(self):
         _no_remat("LLMConfig", self.remat)
+        if self.arch not in ("llama", "internlm2"):
+            raise NotImplementedError(f"LLM {self.arch!r}")
         if self.quant not in ("", "int8", "w8a8", "int4"):
             raise ValueError(f"LLMConfig.quant={self.quant!r}: one of '', "
                              "'int8', 'w8a8', 'int4'")
@@ -81,6 +97,8 @@ class LLMConfig:
 class GDinoConfig:
     """Open-vocabulary Grounding-DINO decoder and its training losses."""
 
+    # "swin_tiny" | "intern_image_h" | "intern_image_tiny" (the JAX
+    # package's test backbone: InternImage with depths (1, 1, 1, 1))
     backbone: str = "swin_tiny"
     # optional kwargs overriding the swin preset's dims; None -> preset
     backbone_overrides: Optional[Mapping[str, Any]] = None
@@ -160,7 +178,10 @@ class VisionLLMConfig:
 
     vis_encoder: VisionEncoderConfig = field(default_factory=VisionEncoderConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
-    vl_bridge_type: str = "mlp2x_gelu"
+    vl_bridge_type: str = "mlp2x_gelu"  # "linear" | "internvl_mlp" | "mlpNx_gelu"
+    # pixel shuffle at 0.5 before the bridge: a quarter of the tokens,
+    # four times the width
+    use_pixelshuffle: bool = False
     num_embs: int = 4
     num_embs_gen: int = 64
     use_gdino: bool = False
@@ -212,6 +233,35 @@ def vllm_7b_chat_config(**overrides: Any) -> VisionLLMConfig:
         vis_encoder=VisionEncoderConfig(),
         llm=LLMConfig(vocab_size=32096),
         vl_bridge_type="mlp2x_gelu",
+    )
+    base.update(overrides)
+    return VisionLLMConfig(**base)
+
+
+def vllm_26b_det_config(**overrides: Any) -> VisionLLMConfig:
+    """The 26B flagship's det path: the JAX `vllm_26b_config(
+    use_unipose=False, use_sd=False, use_ip2p=False,
+    use_region_encoder=False)`, field for field: InternViT-6B/448 (48
+    layers, 25 heads, QK-norm, layer scale, no qkv bias, the last layer),
+    pixel shuffle and the `internvl_mlp` bridge, InternLM2-20B (vocab
+    92576, 48 layers, 48 heads over 8 KV heads, rope theta 1e6), and
+    Grounding-DINO on InternImage-H with text_dim 6144."""
+    base = dict(
+        vis_encoder=VisionEncoderConfig(
+            arch="intern_vit", image_size=448, patch_size=14,
+            hidden_size=3200, intermediate_size=12800, num_layers=48,
+            num_heads=25, layer_norm_eps=1e-6, hidden_act="gelu",
+            qk_normalization=True, use_ls=True, qkv_bias=False,
+            output_layer=-1),
+        llm=LLMConfig(
+            arch="internlm2", vocab_size=92576, hidden_size=6144,
+            intermediate_size=16384, num_layers=48, num_heads=48,
+            num_kv_heads=8, rope_theta=1000000.0,
+            max_position_embeddings=32768),
+        vl_bridge_type="internvl_mlp",
+        use_pixelshuffle=True,
+        use_gdino=True,
+        gdino=GDinoConfig(backbone="intern_image_h", text_dim=6144),
     )
     base.update(overrides)
     return VisionLLMConfig(**base)

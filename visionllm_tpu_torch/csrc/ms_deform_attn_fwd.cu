@@ -34,9 +34,14 @@
 // whose samples fall near one another (blocks of 8 queries of one head
 // measured slower on an H100 at the encoders, no faster at the decoders).
 //
-// Instances: <D 32, L 4, P 4> (Grounding-DINO's encoder and decoder),
-// compiled with every loop bound constant; <0, 0, 0> takes any D that is
-// a multiple of 8, L <= 8 and any P at run time, one round at a time.
+// Instances: <D 32, L 4, P 4> (Grounding-DINO's encoder and decoder) and
+// <D 32, L 1, P 9> (DCNv3 in InternImage: one level, the 3x3 taps, the
+// groups as heads; 9 samples take two rounds of 8 sample groups, the
+// second round one sample), compiled with every loop bound constant, so
+// both rounds' corner loads are in flight together; <0, 0, 0> takes any D
+// that is a multiple of 8, L <= 8 and any P at run time, one round at a
+// time. An instance adds the same products in the same order as the
+// generic one, so the two give the same bits.
 
 #include "msda_layout.cuh"
 
@@ -133,6 +138,9 @@ extern "C" int ms_deform_attn_fwd_bf16(const void* value, const void* loc,
   auto* o = static_cast<__nv_bfloat16*>(out);
   if (D == 32 && L == 4 && P == 4)
     msda_fwd_kernel<32, 4, 4><<<grid, block, 0, s>>>(v, l, a, o, lv, Q, S, H,
+                                                     D, L, P, n_items);
+  else if (D == 32 && L == 1 && P == 9)
+    msda_fwd_kernel<32, 1, 9><<<grid, block, 0, s>>>(v, l, a, o, lv, Q, S, H,
                                                      D, L, P, n_items);
   else
     msda_fwd_kernel<0, 0, 0><<<grid, block, 0, s>>>(v, l, a, o, lv, Q, S, H,

@@ -1,6 +1,7 @@
 """Host-side multimodal utilities: image resizing, CLIP preprocessing and
 prompt <-> token plumbing (counterpart of `visionllm_tpu/data/mm_utils.py`:
 `expand2square`, `resize_image`, `clip_preprocess`,
+`find_closest_aspect_ratio`, `dynamic_preprocess`,
 `tokenizer_image_token`, `expand_image_tokens`, `find_stop`).
 
 The JAX package resizes with Pillow (or its native copy of Pillow's
@@ -191,6 +192,53 @@ def clip_preprocess(img: np.ndarray, image_size: int = 336,
     img = resize_image(img, (image_size, image_size), "bicubic")
     x = img.astype(np.float32) / 255.0
     return (x - CLIP_MEAN) / CLIP_STD
+
+
+def find_closest_aspect_ratio(aspect_ratio: float, target_ratios, width,
+                              height, image_size):
+    """The (cols, rows) grid of `target_ratios` nearest `aspect_ratio`;
+    a tie goes to the later grid when the image covers more than half
+    of its area."""
+    best_diff = float("inf")
+    best = (1, 1)
+    area = width * height
+    for ratio in target_ratios:
+        target = ratio[0] / ratio[1]
+        diff = abs(aspect_ratio - target)
+        if diff < best_diff:
+            best_diff = diff
+            best = ratio
+        elif diff == best_diff:
+            if area > 0.5 * image_size * image_size * ratio[0] * ratio[1]:
+                best = ratio
+    return best
+
+
+def dynamic_preprocess(img: np.ndarray, min_num: int = 1, max_num: int = 6,
+                       image_size: int = 448, use_thumbnail: bool = True
+                       ) -> List[np.ndarray]:
+    """anyres tiling: split into up to max_num tiles of image_size² at the
+    closest grid aspect ratio, plus a global thumbnail. Returns a list of
+    HWC uint8 tiles."""
+    h, w = img.shape[:2]
+    aspect = w / h
+    target_ratios = sorted(
+        {(i, j) for n in range(min_num, max_num + 1)
+         for i in range(1, n + 1) for j in range(1, n + 1)
+         if min_num <= i * j <= max_num},
+        key=lambda x: x[0] * x[1])
+    cols, rows = find_closest_aspect_ratio(aspect, target_ratios, w, h,
+                                           image_size)
+    tw, th = image_size * cols, image_size * rows
+    resized = resize_image(img, (th, tw))
+    tiles = []
+    for i in range(cols * rows):
+        x0 = (i % cols) * image_size
+        y0 = (i // cols) * image_size
+        tiles.append(resized[y0:y0 + image_size, x0:x0 + image_size])
+    if use_thumbnail and len(tiles) != 1:
+        tiles.append(resize_image(img, (image_size, image_size)))
+    return tiles
 
 
 def tokenizer_image_token(prompt: str, tokenizer,

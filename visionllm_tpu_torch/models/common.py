@@ -15,6 +15,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+# flax's nn.LayerNorm and nn.GroupNorm epsilon (torch's default is 1e-5)
+FLAX_LN_EPS = 1e-6
+
+
 class RMSNorm(nn.Module):
     """apex FusedRMSNorm numerics: fp32 variance, then cast back."""
 
@@ -99,6 +103,8 @@ _PARAM_INIT = {
     "tgt_embed": ("normal", 1.0),
     "hw": ("normal", 1.0),
     "hw_append": ("normal", 1.0),
+    "ls1": ("const", 0.1),            # InternViT layer scale
+    "ls2": ("const", 0.1),
 }
 
 

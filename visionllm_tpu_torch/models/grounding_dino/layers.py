@@ -17,10 +17,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from visionllm_tpu_torch.models.common import FLAX_LN_EPS
 from visionllm_tpu_torch.ops import ms_deform_attn as msda
 
 NEG_INF = torch.finfo(torch.float32).min
-LN_EPS = 1e-6     # flax nn.LayerNorm / nn.GroupNorm default
 
 
 def sine_position_embedding(mask: torch.Tensor, dim: int,
@@ -202,8 +202,8 @@ class FusionLayer(nn.Module):
 
     def __init__(self, d_model: int, embed_dim: int, num_heads: int):
         super().__init__()
-        self.layer_norm_vision = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.layer_norm_text = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.layer_norm_vision = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
+        self.layer_norm_text = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
         self.attn = BiMultiHeadAttention(d_model, embed_dim, num_heads)
         self.vision_param = nn.Parameter(torch.full((d_model,), 1e-4))
         self.text_param = nn.Parameter(torch.full((d_model,), 1e-4))
@@ -223,10 +223,10 @@ class TextEnhancerLayer(nn.Module):
     def __init__(self, d_model: int, ffn_dim: int, num_heads: int):
         super().__init__()
         self.self_attn = TorchMHA(d_model, num_heads)
-        self.layer_norm_before = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.layer_norm_before = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
         self.fc1 = nn.Linear(d_model, ffn_dim)
         self.fc2 = nn.Linear(ffn_dim, d_model)
-        self.layer_norm_after = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.layer_norm_after = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
 
     def forward(self, text, *, attn_mask=None, position_embeddings=None):
         """attn_mask: bool [B, Lt, Lt], True = NOT allowed."""
@@ -245,10 +245,10 @@ class DeformableEncoderLayer(nn.Module):
         super().__init__()
         self.self_attn = DeformableAttention(d_model, num_heads, num_levels,
                                              num_points)
-        self.self_attn_layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.self_attn_layer_norm = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
         self.fc1 = nn.Linear(d_model, ffn_dim)
         self.fc2 = nn.Linear(ffn_dim, d_model)
-        self.final_layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.final_layer_norm = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
 
     def forward(self, hidden, *, position_embeddings, reference_points,
                 spatial_shapes, value_mask=None):

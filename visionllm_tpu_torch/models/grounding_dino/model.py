@@ -24,11 +24,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from visionllm_tpu_torch.config import GDinoConfig
-from visionllm_tpu_torch.models.common import MLP
+from visionllm_tpu_torch.models.common import FLAX_LN_EPS, MLP
 from visionllm_tpu_torch.models.grounding_dino.layers import (
-    LN_EPS, NEG_INF, DeformableAttention, DeformableEncoderLayer,
+    NEG_INF, DeformableAttention, DeformableEncoderLayer,
     FusionLayer, TextEnhancerLayer, TorchMHA, encoder_reference_points,
     get_sine_pos_embed, sine_position_embedding)
+from visionllm_tpu_torch.models.intern_image import (
+    InternImage, intern_image_h_config, intern_image_tiny_config)
 from visionllm_tpu_torch.models.swin import SwinBackbone, swin_tiny_config
 from visionllm_tpu_torch.ops.box_ops import inverse_sigmoid
 from visionllm_tpu_torch.train.cdn import build_cdn_queries
@@ -59,6 +61,26 @@ def contrastive_logits(vision_hidden, text_hidden, text_token_mask,
     if pad > 0:
         logits = F.pad(logits, (0, pad), value=NEG_INF)
     return logits[..., :max_text_len]
+
+
+def build_backbone(cfg: GDinoConfig):
+    """(backbone module, its config) for `cfg.backbone`: Swin-T (with
+    `backbone_overrides` on its preset dims), InternImage-H, or the JAX
+    package's test InternImage (depths (1, 1, 1, 1), groups (2, 2, 4, 4);
+    JAX `grounding_dino/model.py:166-175`). Each returns four NHWC maps at
+    strides 4-32, whose widths `stage_dim(0..3)` the projections take."""
+    if cfg.backbone == "swin_tiny":
+        bb_cfg = swin_tiny_config(out_stages=(0, 1, 2, 3),
+                                  **dict(cfg.backbone_overrides or {}))
+        return SwinBackbone(bb_cfg), bb_cfg
+    if cfg.backbone == "intern_image_h":
+        bb_cfg = intern_image_h_config()
+    elif cfg.backbone == "intern_image_tiny":
+        bb_cfg = intern_image_tiny_config(depths=(1, 1, 1, 1),
+                                          groups=(2, 2, 4, 4))
+    else:
+        raise NotImplementedError(f"backbone {cfg.backbone!r} not ported")
+    return InternImage(bb_cfg), bb_cfg
 
 
 def _nchw(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -146,15 +168,15 @@ class GDinoDecoderLayer(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.self_attn = TorchMHA(d, cfg.num_heads)
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.self_attn_layer_norm = nn.LayerNorm(d, eps=FLAX_LN_EPS)
         self.encoder_attn_text = TorchMHA(d, cfg.num_heads)
-        self.encoder_attn_text_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.encoder_attn_text_layer_norm = nn.LayerNorm(d, eps=FLAX_LN_EPS)
         self.encoder_attn = DeformableAttention(
             d, cfg.num_heads, cfg.num_feature_levels, cfg.num_points)
-        self.encoder_attn_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.encoder_attn_layer_norm = nn.LayerNorm(d, eps=FLAX_LN_EPS)
         self.fc1 = nn.Linear(d, cfg.ffn_dim)
         self.fc2 = nn.Linear(cfg.ffn_dim, d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.final_layer_norm = nn.LayerNorm(d, eps=FLAX_LN_EPS)
 
     def forward(self, hidden, *, query_pos, reference_points, spatial_shapes,
                 vision, vision_valid_mask, text, text_pad_mask,
@@ -186,40 +208,36 @@ class GroundingDino(nn.Module):
 
     def __init__(self, cfg: GDinoConfig):
         super().__init__()
-        if cfg.backbone != "swin_tiny":
-            raise NotImplementedError(f"backbone {cfg.backbone!r} not ported")
         self.cfg = cfg
         d = cfg.d_model
-        swin_cfg = swin_tiny_config(out_stages=(0, 1, 2, 3),
-                                    **dict(cfg.backbone_overrides or {}))
-        self.backbone = SwinBackbone(swin_cfg)
+        self.backbone, bb_cfg = build_backbone(cfg)
         # input projections: 1x1 conv + GN for backbone strides 8/16/32,
         # an extra 3x3 stride-2 conv from the stride-32 feature
         for i in range(3):
             self.add_module(f"input_proj_{i}",
-                            nn.Conv2d(swin_cfg.stage_dim(i + 1), d, 1))
+                            nn.Conv2d(bb_cfg.stage_dim(i + 1), d, 1))
             self.add_module(f"input_proj_norm_{i}",
-                            nn.GroupNorm(32, d, eps=LN_EPS))
-        self.input_proj_3 = nn.Conv2d(swin_cfg.stage_dim(3), d, 3, stride=2,
+                            nn.GroupNorm(32, d, eps=FLAX_LN_EPS))
+        self.input_proj_3 = nn.Conv2d(bb_cfg.stage_dim(3), d, 3, stride=2,
                                       padding=1)
-        self.input_proj_norm_3 = nn.GroupNorm(32, d, eps=LN_EPS)
+        self.input_proj_norm_3 = nn.GroupNorm(32, d, eps=FLAX_LN_EPS)
         self.level_embed = nn.Parameter(torch.zeros(cfg.num_feature_levels, d))
         for i in range(cfg.encoder_layers):
             self.add_module(f"encoder_layer_{i}", GDinoEncoderLayer(cfg))
         for i in range(cfg.decoder_layers):
             self.add_module(f"decoder_layer_{i}", GDinoDecoderLayer(cfg))
-        self.decoder_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.decoder_layer_norm = nn.LayerNorm(d, eps=FLAX_LN_EPS)
         self.reference_points_head = MLP(2 * d, d, d, 2)
         self.enc_output = nn.Linear(d, d)
-        self.enc_output_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.enc_output_norm = nn.LayerNorm(d, eps=FLAX_LN_EPS)
         self.encoder_output_bbox_embed = MLP(d, d, 4, 3)
         self.query_position_embeddings = nn.Parameter(
             torch.zeros(cfg.num_queries, d))
         # mask FPN (stride-4 path)
-        self.lateral_conv = nn.Conv2d(swin_cfg.stage_dim(0), d, 1, bias=False)
-        self.lateral_norm = nn.GroupNorm(32, d, eps=LN_EPS)
+        self.lateral_conv = nn.Conv2d(bb_cfg.stage_dim(0), d, 1, bias=False)
+        self.lateral_norm = nn.GroupNorm(32, d, eps=FLAX_LN_EPS)
         self.output_conv = nn.Conv2d(d, d, 3, padding=1, bias=False)
-        self.output_norm = nn.GroupNorm(32, d, eps=LN_EPS)
+        self.output_norm = nn.GroupNorm(32, d, eps=FLAX_LN_EPS)
         self.mask_features = nn.Conv2d(d, cfg.mask_dim, 1)
         self.model_mask_embed = MLP(d, d, cfg.mask_dim, 3)
         self.bbox_embed = MLP(d, d, 4, 3)

@@ -29,9 +29,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from visionllm_tpu_torch.config import UniPoseConfig
-from visionllm_tpu_torch.models.common import MLP
+from visionllm_tpu_torch.models.common import FLAX_LN_EPS, MLP
 from visionllm_tpu_torch.models.grounding_dino.layers import (
-    LN_EPS, DeformableAttention, DeformableEncoderLayer, FusionLayer,
+    DeformableAttention, DeformableEncoderLayer, FusionLayer,
     TorchMHA, encoder_reference_points, get_sine_pos_embed,
     sine_position_embedding)
 from visionllm_tpu_torch.models.grounding_dino.model import (
@@ -55,10 +55,10 @@ class TextEncoderLayer(nn.Module):
     def __init__(self, d_model: int, ffn_dim: int, num_heads: int):
         super().__init__()
         self.self_attn = TorchMHA(d_model, num_heads)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm1 = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
         self.linear1 = nn.Linear(d_model, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
 
     def forward(self, text, *, attn_mask, pos):
         q = text + pos
@@ -102,15 +102,15 @@ class UniPoseDecoderLayer(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.self_attn = TorchMHA(d, cfg.num_heads)
-        self.norm2 = nn.LayerNorm(d, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(d, eps=FLAX_LN_EPS)
         self.ca_text = TorchMHA(d, cfg.num_heads)
-        self.catext_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.catext_norm = nn.LayerNorm(d, eps=FLAX_LN_EPS)
         self.cross_attn = DeformableAttention(
             d, cfg.num_heads, cfg.num_feature_levels, cfg.num_points)
-        self.norm1 = nn.LayerNorm(d, eps=LN_EPS)
+        self.norm1 = nn.LayerNorm(d, eps=FLAX_LN_EPS)
         self.linear1 = nn.Linear(d, cfg.ffn_dim)
         self.linear2 = nn.Linear(cfg.ffn_dim, d)
-        self.norm3 = nn.LayerNorm(d, eps=LN_EPS)
+        self.norm3 = nn.LayerNorm(d, eps=FLAX_LN_EPS)
 
     def forward(self, hidden, *, query_pos, reference_points, spatial_shapes,
                 vision, vision_valid_mask, text, text_pad_mask, groups=None,
@@ -171,19 +171,19 @@ class UniPose(nn.Module):
             self.add_module(f"input_proj_{i}",
                             nn.Conv2d(swin_cfg.stage_dim(i + 1), d, 1))
             self.add_module(f"input_proj_norm_{i}",
-                            nn.GroupNorm(32, d, eps=LN_EPS))
+                            nn.GroupNorm(32, d, eps=FLAX_LN_EPS))
         self.input_proj_3 = nn.Conv2d(swin_cfg.stage_dim(3), d, 3, stride=2,
                                       padding=1)
-        self.input_proj_norm_3 = nn.GroupNorm(32, d, eps=LN_EPS)
+        self.input_proj_norm_3 = nn.GroupNorm(32, d, eps=FLAX_LN_EPS)
         self.level_embed = nn.Parameter(torch.zeros(cfg.num_feature_levels, d))
         for i in range(cfg.encoder_layers):
             self.add_module(f"encoder_layer_{i}", UniPoseEncoderLayer(cfg))
         for i in range(cfg.decoder_layers):
             self.add_module(f"decoder_layer_{i}", UniPoseDecoderLayer(cfg))
-        self.decoder_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.decoder_norm = nn.LayerNorm(d, eps=FLAX_LN_EPS)
         self.ref_point_head = MLP(2 * d, d, d, 2)
         self.enc_output = nn.Linear(d, d)
-        self.enc_output_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.enc_output_norm = nn.LayerNorm(d, eps=FLAX_LN_EPS)
         self.enc_out_bbox_embed = MLP(d, d, 4, 3)
         self.tgt_embed = nn.Parameter(torch.zeros(cfg.num_queries, d))
         self.bbox_embed = MLP(d, d, 4, 3)

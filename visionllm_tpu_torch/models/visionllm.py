@@ -2,7 +2,8 @@
 super-link routing of [EMB] hidden states to the tool decoders.
 
 Counterpart of `visionllm_tpu/models/visionllm.py` for the det and chat
-paths: token embeddings, the [EMB]-table splice, the <im_patch>
+paths: the vision tower (CLIP-ViT, or InternViT with pixel shuffle
+before the bridge), token embeddings, the [EMB]-table splice, the <im_patch>
 image-feature scatter (flattened for [N, H, W, 3] images, per sample for
 [B, T, H, W, 3] tile stacks), the LLM prefill with an optional KV cache,
 the decode step `llm_step`, the cached extend window `llm_window`,
@@ -22,8 +23,9 @@ import torch.nn as nn
 from visionllm_tpu_torch import constants as C
 from visionllm_tpu_torch.config import VisionLLMConfig
 from visionllm_tpu_torch.models.clip_vit import ClipVisionTower
+from visionllm_tpu_torch.models.intern_vit import InternVisionTower
 from visionllm_tpu_torch.models.llama import KVCache, LlamaModel
-from visionllm_tpu_torch.models.vl_bridge import VLBridge
+from visionllm_tpu_torch.models.vl_bridge import VLBridge, pixel_shuffle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,13 +113,15 @@ def compact_masked_rows(x: torch.Tensor, mask: torch.Tensor, out_len: int
 class VisionLLM(nn.Module):
     def __init__(self, cfg: VisionLLMConfig):
         super().__init__()
-        if cfg.vis_encoder.arch != "clip_vit":
-            raise NotImplementedError(cfg.vis_encoder.arch)
         self.cfg = cfg
         hid = cfg.llm.hidden_size
-        self.vis_encoder = ClipVisionTower(cfg.vis_encoder)
-        self.vl_bridge = VLBridge(cfg.vl_bridge_type,
-                                  cfg.vis_encoder.hidden_size, hid)
+        tower = (InternVisionTower if cfg.vis_encoder.arch == "intern_vit"
+                 else ClipVisionTower)
+        self.vis_encoder = tower(cfg.vis_encoder)
+        # pixel shuffle folds 2x2 patches into one token of 4x the width
+        width = cfg.vis_encoder.hidden_size * (4 if cfg.use_pixelshuffle
+                                               else 1)
+        self.vl_bridge = VLBridge(cfg.vl_bridge_type, width, hid)
         self.llm = LlamaModel(cfg.llm)
         self.emb_embeddings_det = nn.Parameter(torch.zeros(cfg.num_embs, hid))
         self.emb_embeddings_pose = nn.Parameter(torch.zeros(cfg.num_embs, hid))
@@ -130,11 +134,18 @@ class VisionLLM(nn.Module):
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """images [N, H, W, 3] NHWC -> (llm-space features [N, P, hid],
         all ViT hidden states [n_layers + 1, N, 1 + P, D]). Tile stacks
-        [B, T, H, W, 3] are flattened to [B*T, ...] first."""
+        [B, T, H, W, 3] are flattened to [B*T, ...] first. With
+        `use_pixelshuffle` the patch grid is shuffled at 0.5 first, so P
+        is a quarter of the patches (256 a 448 px tile)."""
         if images.ndim == 5:
             images = images.reshape(-1, *images.shape[2:])
         hs = self.vis_encoder(images)
         feats = hs[self.cfg.vis_encoder.output_layer][:, 1:]   # drop CLS
+        if self.cfg.use_pixelshuffle:
+            N, P, D = feats.shape
+            side = int(P ** 0.5)
+            feats = pixel_shuffle(feats.reshape(N, side, side, D), 0.5)
+            feats = feats.reshape(N, -1, feats.shape[-1])
         return self.vl_bridge(feats), hs
 
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:

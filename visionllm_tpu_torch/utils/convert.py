@@ -6,7 +6,8 @@ and fills the module's parameters. The port names its parameters after
 the flax ones, so the map is mechanical:
 
   * Dense `kernel` [in, out]         -> Linear `weight` [out, in]
-  * Conv `kernel` HWIO               -> Conv2d `weight` OIHW
+  * Conv `kernel` HWIO               -> Conv2d `weight` OIHW (a
+    depthwise conv's [K, K, 1, C] -> [C, 1, K, K], as DCNv3's `dw_conv`)
   * Embed `embedding`                -> Embedding `weight`
   * LayerNorm / GroupNorm `scale`    -> `weight`
   * `nn.scan`-stacked `layers/layer/...` (stacked on axis 0)
@@ -19,7 +20,10 @@ the flax ones, so the map is mechanical:
     like a Dense kernel (scanned stacks are sliced per layer first);
     `scale` [out] as it is (a tree of the JAX `quantize_serving_params`
     loads byte for byte)
-  * every other leaf keeps its name.
+  * every other leaf keeps its name: plain parameters (InternViT's
+    `ls1` / `ls2`, class and position embeddings), and modules named by
+    index or position (the `internvl_mlp` bridge's "0" / "1" / "3",
+    InternImage's `stage{s}_block{b}`).
 
 It raises on any flax leaf that maps to no parameter and on any
 parameter that no leaf fills.
