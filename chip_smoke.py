@@ -41,7 +41,8 @@ Phases, each printing one JSON line:
              grid_sample composition (`composite_*`) where no single
              library call computes MSDA. The flash forward also runs the
              26B det path's InternViT (B7 L1025, 25 heads, bidirectional)
-             and InternLM2 prefill (L1868, 48 heads over 8).
+             and InternLM2 prefill (L1868, 48 heads over 8), and the gen
+             phase's [EDIT] prefill (L614).
              The lane gather adds seeded random indices (out-of-range
              ones too) at [8, 57344], [8, 57343] and a two-CTA extent,
              each case with the cluster size it launched;
@@ -55,8 +56,8 @@ Phases, each printing one JSON line:
              times a request and its stages;
 5. profile - one more det request under torch.profiler: device kernel
              time, the device's idle share, the kernels that take the
-             most and each kernel of the port's own (as in phases 7, 9,
-             11);
+             most and each kernel of the port's own (as in the other
+             `*_profile` phases);
 6. perception - the perception front door, after the det model is
              freed: `vllm_7b_perception_config()` (the det path's model
              plus UniPose with Swin-T, 68 body points, 50 groups) at full
@@ -177,7 +178,29 @@ Phases, each printing one JSON line:
 15. train_profile - one more step under torch.profiler;
 16. probes - the gather probes' entry point
              (`visionllm_tpu_torch/tools/msda_kernel_attempts.py`);
-17. det26b - the 26B flagship's det path, with nothing else resident:
+17. gen     - the [GEN] and [EDIT] tools, after the train model is
+             freed: `build_model(vllm_7b_gen_config())` (CLIP-L/336,
+             LLaMA-7B, the SD-1.5 and InstructPix2Pix heads at 512 px) in
+             bf16 with the mappers and GroupNorms in fp32. A [GEN] request
+             (the JAX gen dataset's question template, vicuna_v1, text
+             only: its prefill takes the einsum branch) and an [EDIT]
+             request (a uint8 512x512 image, to CLIP at 336 px and to the
+             VAE at 512 px in [-1, 1]) each make their image GEN_WALL_RUNS
+             times as a user does: greedy `build_generate_fn` with the
+             first token forced, the 64 [EMB] rows, the head's `generate`
+             (50 DDIM steps, guidance 7.5, image guidance 1.5) from
+             generator seed GEN_SEED. Checks: the forced tokens, flash 0
+             and 56 (24 CLIP + 32 LLaMA) launches a generate call, images
+             [1, 512, 512, 3] finite and bit-identical across the runs, the
+             rows and the logits after the last forced row against the
+             plain flash run within GEN_REL_TOL (and the distance between
+             the images of the two runs' rows). Then the generate call,
+             mapper, UNet step (B 2 and B 3, with its FLOP bound and the
+             fp32 score bytes of the 64² attentions), 50-step loop, VAE
+             encode and decode and whole image ms, the weights' and the
+             peak memory;
+18. gen_profile - one [EDIT] image under torch.profiler;
+19. det26b - the 26B flagship's det path, with nothing else resident:
              `build_model(vllm_26b_det_config())` at full width and depth
              (InternViT-6B/448 48 layers, pixel shuffle and `internvl_mlp`,
              InternLM2-20B 48 layers at 48 heads over 8 KV heads,
@@ -199,7 +222,7 @@ Phases, each printing one JSON line:
              run's by the near-tie token rule. Then request, vision,
              prefill and Grounding-DINO ms, the decode ms a step, the
              weights' and the peak memory (which must stay under 80 GB);
-18. det26b_profile - each request once under torch.profiler.
+20. det26b_profile - each request once under torch.profiler.
 
 Then it prints the `{"kernels": [...]}` line, the card's name and power
 limit, and as its last line `{"ok": true, "device": {...}}`. Any failed
@@ -237,25 +260,30 @@ from visionllm_tpu_torch import constants as C
 from visionllm_tpu_torch.config import (LLMConfig, OptimizerConfig,
                                         vllm_7b_chat_config,
                                         vllm_7b_det_config,
+                                        vllm_7b_gen_config,
                                         vllm_7b_perception_config,
                                         vllm_26b_det_config)
+from visionllm_tpu_torch.data.conversation import get_conv_template
 from visionllm_tpu_torch.data.mm_utils import (clip_preprocess,
-                                               dynamic_preprocess)
+                                               dynamic_preprocess,
+                                               expand_image_tokens,
+                                               tokenizer_image_token)
 from visionllm_tpu_torch.data.preprocess import (preprocess,
                                                  preprocess_multimodal)
 from visionllm_tpu_torch.data.transforms import (DEFAULT_BUCKETS,
                                                  TEST_SCALE,
                                                  det_test_transform)
-from visionllm_tpu_torch.generation import (_tool_kind, advance_tool_state,
-                                            build_generate_fn,
-                                            build_speculative_generate_fn,
-                                            nucleus_filter)
+from visionllm_tpu_torch.generation import (
+    _tool_kind, advance_tool_state, build_generate_fn,
+    build_speculative_generate_fn, extract_tool_queries_from_generation,
+    nucleus_filter)
 from visionllm_tpu_torch.infer import (COCO_KEYPOINT_NAMES, Predictor,
                                        det_prompt, grd_prompt, pose_prompt,
                                        prompt_ids)
 from visionllm_tpu_torch.kernels import build
 from visionllm_tpu_torch.models.composite import build_core, build_model
 from visionllm_tpu_torch.models.llama import KVCache
+from visionllm_tpu_torch.models.stable_diffusion import unet as SDU
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
 from visionllm_tpu_torch.ops import attention as A
 from visionllm_tpu_torch.ops import gather as G
@@ -339,6 +367,23 @@ DET26B_REL_TOL = 5e-2
 # from the fp32 run as the bf16 plain run does (or as bf16's unit
 # roundoff, 2^-8, where that is larger)
 DET26B_WITNESS_RATIO = 2.0
+# the gen phase: the first question templates of the JAX gen datasets
+# (`visionllm_tpu/data/gen_dataset.py:23-40`) with a caption and an
+# instruction, vicuna_v1; DDIM steps and guidance at the JAX `generate`
+# defaults; every image from generator seed GEN_SEED (the main path makes
+# each GEN_WALL_RUNS times, and they must be identical); the image
+# [EDIT] edits; kernel run vs plain run of the rows and of the logits
+# after the last forced row, relative
+GEN_QUESTION = ("Can you generate an image of a red bicycle leaning on a "
+                "stone wall?")
+EDIT_QUESTION = "Please edit the image: make it snow."
+GEN_IMAGE = (512, 512, 3)
+GEN_STEPS, GEN_GUIDANCE, GEN_IMAGE_GUIDANCE = 50, 7.5, 1.5
+GEN_SEED = 0
+GEN_WALL_RUNS = 3
+GEN_TIMED = 5
+GEN_MAX_LEN = 768
+GEN_REL_TOL = 5e-2
 # DCNv3 in InternImage-H at that image's 800x1088 bucket: each stage's
 # (map H, W, groups); one level of the zero-padded map, 9 points, 32
 # channels a group
@@ -522,6 +567,9 @@ def attention_cases(g, more=False):
                   ("internlm2_gqa_6to1_prefill", 1,
                    det26b_prompt_lengths()["tiles7"], 48, 8, 128, True,
                    None)]
+        # the [EDIT] request's LLaMA prefill (its CLIP is clip_l)
+        specs += [("gen_edit_prefill", 1, gen_prompt_lengths()["edit"], 32,
+                   32, 128, True, None)]
     for name, B, L, H, Hkv, D, causal, sg in specs:
         yield name, rnd(B, L, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D), \
             causal, sg
@@ -1289,7 +1337,25 @@ def profile_request(model, req, tid):
         model.infer_det(ids, images, aug, tid)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    emit({"phase": "profile", **device_summary(prof, wall_ms)})
+    summary = device_summary(prof, wall_ms)
+    emit({"phase": "profile", **summary,
+          "public_reading": public_device_busy(prof, summary)})
+
+
+def public_device_busy(prof, summary):
+    """`device_summary`'s busy ms and kernel count read again through the
+    profiler's public `prof.events()`, beside the raw kineto reading
+    (`prof.profiler.kineto_results`, a private API of the installed
+    torch), so that one profile shows whether the two agree."""
+    busy, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.device_time_total / 1e3
+            n += 1
+    return {"device_busy_ms": busy, "device_kernels": n,
+            "busy_ms_diff": busy - summary["device_busy_ms"],
+            "kernels_diff": n - summary["device_kernels"],
+            "torch": torch.__version__}
 
 
 # the port's own kernels (csrc/*.cu, each in an anonymous namespace), as
@@ -1305,12 +1371,16 @@ PORT_KERNEL = re.compile(
 def device_summary(prof, wall_ms):
     """Summed device kernel time (one stream, so their union), the
     device's idle share of the wall, the kernels that take the most, and
-    every kernel of the port's own."""
+    every kernel of the port's own. Read from the profiler's raw kineto
+    events (`prof.profiler.kineto_results`, a private API, written
+    against torch 2.11: `public_device_busy` holds it against the public
+    `prof.events()` in the det profile), since building the Python
+    events took about two minutes for the 218k kernels of one gen image."""
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            tot, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (tot + e.device_time_total / 1e3, n + 1)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            tot, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (tot + e.duration_ns() / 1e6, n + 1)
     busy_ms = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     port = {}
@@ -1797,7 +1867,318 @@ def run_probes():
 
 
 # ---------------------------------------------------------------------------
-# phases 17-18: the 26B flagship's det path at full width and depth
+# phases 17-18: the [GEN] and [EDIT] tools at full width, 512 px
+# ---------------------------------------------------------------------------
+
+def gen_prompt_ids(tok, question, image_tokens):
+    """The vicuna_v1 chat prompt of `question` up to the assistant's turn
+    (as `ChatService` renders it), with `image_tokens` <im_patch> ids for
+    an <image> question."""
+    conv = get_conv_template("vicuna_v1")
+    if image_tokens:
+        question = "<image>\n" + question
+    conv.append_message(conv.roles[0], question)
+    conv.append_message(conv.roles[1], None)
+    ids = tokenizer_image_token(conv.get_prompt(), tok)
+    if image_tokens:
+        ids = expand_image_tokens(
+            ids, image_tokens, tok.convert_tokens_to_ids(C.DEFAULT_TOKENS[
+                "imp"]))
+    return np.asarray(ids, np.int64)
+
+
+def gen_prompt_lengths():
+    """Prompt lengths of the [GEN] and [EDIT] requests (host only; the
+    kernel phase runs flash at the [EDIT] one)."""
+    cfg, tok = vllm_7b_gen_config(), SimpleTokenizer()
+    return {"gen": len(gen_prompt_ids(tok, GEN_QUESTION, 0)),
+            "edit": len(gen_prompt_ids(tok, EDIT_QUESTION,
+                                       cfg.vis_encoder.num_patches))}
+
+
+def gen_requests(cfg, tok):
+    """The phase's two requests on the card, as {tool: (ids [1, L], CLIP
+    pixels or None, the image to edit or None)}: [GEN] text only; [EDIT]
+    with a uint8 512x512 image (numpy seed 5) given to CLIP at 336 px
+    (`clip_preprocess`) and to the VAE at 512 px in [-1, 1]."""
+    img = np.random.RandomState(5).randint(0, 256, GEN_IMAGE, np.uint8)
+    size = cfg.vis_encoder.image_size
+    clip = torch.from_numpy(clip_preprocess(img, size)[None]).to(
+        "cuda", torch.bfloat16)
+    src = torch.from_numpy(img[None].astype(np.float32) / 127.5 - 1.0).to(
+        "cuda")
+    ids = {tool: torch.from_numpy(gen_prompt_ids(tok, q, n))[None].to("cuda")
+           for tool, q, n in (("gen", GEN_QUESTION, 0),
+                              ("edit", EDIT_QUESTION,
+                               cfg.vis_encoder.num_patches))}
+    return {"gen": (ids["gen"], None, None), "edit": (ids["edit"], clip, src)}
+
+
+def gen_rows(model, gen, tid, tool, req):
+    """The generate call with the first token forced to [GEN] / [EDIT],
+    and its num_embs_gen rows -> (rows [1, n, C], generate output)."""
+    ids, clip, _ = req
+    first = torch.tensor([getattr(tid, tool)], dtype=torch.int32,
+                         device="cuda")
+    out = gen(ids, clip, first_token=first)
+    rows, mask = extract_tool_queries_from_generation(
+        model.cfg, tid, out["out_tokens"], out["out_hidden"])[tool]
+    if not (bool(mask[0, 0]) and not bool(mask[0, 1:].any())):
+        raise AssertionError(f"gen {tool}: row mask {mask[0, :4].tolist()}")
+    return rows[:, 0], out
+
+
+def gen_image(model, tool, rows, src, seed=GEN_SEED):
+    """The head's `generate` on `rows` from a seeded card generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if tool == "gen":
+        return model.sd.generate(rows, g, GEN_STEPS, GEN_GUIDANCE)
+    return model.ip2p.generate(rows, src, g, GEN_STEPS, GEN_GUIDANCE,
+                               GEN_IMAGE_GUIDANCE)
+
+
+def gen_whole_image(model, gen, tid, tool, req):
+    """One image as a user makes it: the generate call, its rows, the
+    head's generate. Returns (image, rows, generate output, flash
+    launches, {generate_ms, head_ms, wall_ms} on the host clock, each
+    stage ended by a device sync)."""
+    torch.cuda.synchronize()
+    f0, t0 = A.flash_attention.launches, time.perf_counter()
+    rows, out = gen_rows(model, gen, tid, tool, req)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    image = gen_image(model, tool, rows, req[2])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return image, rows, out, A.flash_attention.launches - f0, {
+        "generate_ms": (t1 - t0) * 1e3, "head_ms": (t2 - t1) * 1e3,
+        "wall_ms": (t2 - t0) * 1e3}
+
+
+def last_forced_logits(core, out):
+    """The logits after the last forced [EMB] row (the last step that
+    both runs feed the same tokens): the LM head on that row's hidden
+    state."""
+    h = out["out_hidden"][:, core.cfg.num_embs_gen]
+    return core.llm.lm_head(h.to(core.llm.lm_head.weight.dtype)).float()
+
+
+def unet_cost(unet, B, in_channels, ctx_len, ctx_dim):
+    """FLOPs of one UNet pass at batch B from this run's shapes (every conv
+    and dense product, and each attention's QK^T and PV), the bytes of its
+    weights, and the fp32 score bytes of its attentions at the largest
+    token count (the 64^2 level), counted by forward hooks on a pass."""
+    S = unet.cfg.sample_size
+    cost = {"flops": 0, "score_bytes_top": 0, "top_attn_calls": 0}
+
+    def conv(mod, inp, out):
+        cost["flops"] += 2 * out.numel() * mod.weight[0].numel()
+
+    def dense(mod, inp, out):
+        cost["flops"] += 2 * out.numel() * mod.in_features
+
+    def attn(mod, inp, out):
+        x = inp[0]
+        ctx = inp[1] if len(inp) > 1 and inp[1] is not None else x
+        Bq, L, inner = x.shape
+        cost["flops"] += 4 * Bq * L * ctx.shape[1] * inner
+        if L == S * S and ctx is x:
+            cost["score_bytes_top"] += Bq * mod.heads * L * L * 4
+            cost["top_attn_calls"] += 1
+
+    hooks = []
+    for mod in unet.modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            hooks.append(mod.register_forward_hook(conv))
+        elif isinstance(mod, torch.nn.Linear):
+            hooks.append(mod.register_forward_hook(dense))
+        elif isinstance(mod, SDU.CrossAttention):
+            hooks.append(mod.register_forward_hook(attn))
+    try:
+        with torch.no_grad():
+            unet(torch.zeros(B, S, S, in_channels, device="cuda"),
+                 torch.zeros(B, dtype=torch.int32, device="cuda"),
+                 torch.zeros(B, ctx_len, ctx_dim, device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    cost["weight_bytes"] = sum(p.numel() * p.element_size()
+                               for p in unet.parameters())
+    return cost
+
+
+def unet_step_ms(head, B):
+    """Median wall ms of one UNet pass at batch B (one DDIM step's UNet
+    call)."""
+    cfg = head.unet.cfg
+    S, ctx = cfg.sample_size, head.cfg.num_queries
+    x = torch.randn(B, S, S, cfg.in_channels, device="cuda")
+    t = torch.full((B,), 501, dtype=torch.int32, device="cuda")
+    c = torch.randn(B, ctx, cfg.cross_attention_dim, device="cuda")
+    with torch.no_grad():
+        return host_ms(lambda: head.unet(x.to(head.dtype), t, c),
+                       n=GEN_TIMED)
+
+
+def gen_timings(model, tid, reqs, rows, walls):
+    """Each stage's ms (host clock, synced; medians), the 50-step loops,
+    the UNet step at B 2 ([GEN]) and B 3 ([EDIT]) with its FLOP bound,
+    and the whole image's wall (median of the main path's GEN_WALL_RUNS
+    runs)."""
+    res = {}
+    with torch.no_grad():
+        for tool, head in (("gen", model.sd), ("edit", model.ip2p)):
+            src = reqs[tool][2]
+            cond = head.map_embeddings(rows[tool])
+            lat = torch.randn(1, head.cfg.sample_size, head.cfg.sample_size,
+                              4, device="cuda")
+            B = 2 if tool == "gen" else 3
+            r = {"generate_ms_median": statistics.median(
+                     w["generate_ms"] for w in walls[tool]),
+                 "head_generate_ms_median": statistics.median(
+                     w["head_ms"] for w in walls[tool]),
+                 "wall_ms_median": statistics.median(
+                     w["wall_ms"] for w in walls[tool]),
+                 "wall_ms_runs": [w["wall_ms"] for w in walls[tool]],
+                 "mapper_ms": host_ms(lambda: head.map_embeddings(
+                     rows[tool]), n=GEN_TIMED),
+                 "unet_batch": B,
+                 "unet_step_ms": unet_step_ms(head, B),
+                 "vae_decode_ms": host_ms(lambda: head.vae.decode(
+                     lat.to(head.dtype)), n=3)}
+            if tool == "gen":
+                r["loop_ms"] = host_ms(lambda: head.denoise(
+                    cond, lat, GEN_STEPS, GEN_GUIDANCE), n=1)
+            else:
+                img_cond = head.image_latents(src)
+                r["vae_encode_ms"] = host_ms(lambda: head.image_latents(src),
+                                             n=3)
+                r["loop_ms"] = host_ms(lambda: head.denoise(
+                    cond, img_cond, lat, GEN_STEPS, GEN_GUIDANCE,
+                    GEN_IMAGE_GUIDANCE), n=1)
+            cost = unet_cost(head.unet, B, head.unet.cfg.in_channels,
+                             head.cfg.num_queries,
+                             head.unet.cfg.cross_attention_dim)
+            r["unet_step_cost"] = {
+                **cost, "flop_bound_ms": cost["flops"] / BF16_TENSOR_FLOPS
+                * 1e3, "weight_bytes_bound_ms": cost["weight_bytes"]
+                / HBM_BYTES_PER_S * 1e3}
+            res[tool] = r
+    return res
+
+
+def run_gen():
+    """The gen phase: see the module docstring."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = vllm_7b_gen_config()
+    tid, tok = SpecialTokenIds.synthetic(), SimpleTokenizer()
+    n_gen = cfg.num_embs_gen
+    t = time.perf_counter()
+    model = build_model(cfg, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    fp32 = {id(p) for m in model.fp32_modules() for p in m.parameters()}
+    for name, p in model.named_parameters():
+        want = torch.float32 if id(p) in fp32 else torch.bfloat16
+        if p.dtype != want or not p.is_cuda:
+            raise AssertionError(f"gen: {name} is {p.dtype} on {p.device}, "
+                                 f"want {want} on the card")
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    reqs = gen_requests(cfg, tok)
+    gen = build_generate_fn(model.core, tid, max_new_tokens=n_gen + 3,
+                            max_len=GEN_MAX_LEN)
+    want_flash = {"gen": 0, "edit": cfg.vis_encoder.num_layers
+                  + cfg.llm.num_layers}
+
+    # the main path, with the launch count taken around it alone
+    A.flash_attention.launches = 0
+    images, rows, outs, walls, calls = {}, {}, {}, {}, []
+    with torch.no_grad():
+        for tool, req in reqs.items():
+            runs = [gen_whole_image(model, gen, tid, tool, req)
+                    for _ in range(GEN_WALL_RUNS)]
+            images[tool], rows[tool], outs[tool] = runs[0][:3]
+            walls[tool] = [r[4] for r in runs]
+            calls += [{"tool": tool, "flash_attn_fwd": r[3]} for r in runs]
+            for r in runs[1:]:
+                if not (torch.equal(r[0], runs[0][0])
+                        and torch.equal(r[1], runs[0][1])):
+                    raise AssertionError(f"gen {tool}: the same seed gave "
+                                         "another image or other rows")
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches}
+    for c in calls:
+        if c["flash_attn_fwd"] != want_flash[c["tool"]]:
+            raise AssertionError(f"gen launches {c}, want {want_flash}")
+    for tool in reqs:
+        toks = outs[tool]["out_tokens"][0].tolist()
+        if toks[0] != getattr(tid, tool) or toks[1:1 + n_gen] != \
+                [tid.emb] * n_gen:
+            raise AssertionError(f"gen {tool}: tokens {toks[:4]}...")
+        img = images[tool]
+        if tuple(img.shape) != (1,) + GEN_IMAGE or not torch.isfinite(
+                img).all():
+            raise AssertionError(f"gen {tool}: image {tuple(img.shape)}, "
+                                 f"finite {bool(torch.isfinite(img).all())}")
+
+    # the plain flash version on the same weights: rows, the logits after
+    # the last forced row, and the image from the plain run's rows
+    plain = {}
+    with torch.no_grad():
+        for tool, req in reqs.items():
+            with plain_versions():
+                rows_p, out_p = gen_rows(model, gen, tid, tool, req)
+            e = {"rows": rel_err(rows[tool], rows_p),
+                 "last_forced_logits": rel_err(
+                     last_forced_logits(model.core, outs[tool]),
+                     last_forced_logits(model.core, out_p)),
+                 "rows_identical": bool(torch.equal(rows[tool], rows_p))}
+            if not max(e["rows"], e["last_forced_logits"]) <= GEN_REL_TOL:
+                raise AssertionError(f"gen {tool} kernel vs plain {e} > "
+                                     f"{GEN_REL_TOL}")
+            e["image_from_plain_rows"] = 0.0 if e["rows_identical"] else \
+                rel_err(images[tool], gen_image(model, tool, rows_p, req[2]))
+            e["plain_tokens_equal"] = outs[tool]["out_tokens"].equal(
+                out_p["out_tokens"])
+            plain[tool] = e
+        timings = gen_timings(model, tid, reqs, rows, walls)
+    emit({"phase": "gen", "config": "vllm_7b_gen_config()",
+          "image": list(GEN_IMAGE), "steps": GEN_STEPS,
+          "guidance": GEN_GUIDANCE, "image_guidance": GEN_IMAGE_GUIDANCE,
+          "memory_format": str(SDU.MAP_FORMAT),
+          "prompt_tokens": {k: int(r[0].shape[1]) for k, r in reqs.items()},
+          "params": sum(p.numel() for p in model.parameters()),
+          "head_params": {k: sum(p.numel() for p in getattr(
+              model, k).parameters()) for k in ("sd", "ip2p")},
+          "weights_gb": weights_gb, "resident_before_gb": resident_gb,
+          "build_model_s": build_s, "calls": calls, "launches": launches,
+          "flash_per_generate": want_flash, "plain_rel_err": plain,
+          "plain_rel_tol": GEN_REL_TOL, "timings": timings,
+          "image_stats": {k: {"mean": v.float().mean().item(),
+                              "std": v.float().std().item()}
+                          for k, v in images.items()},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t_phase})
+
+    # gen_profile: one [EDIT] image under torch.profiler
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        _, _, _, _, w = gen_whole_image(model, gen, tid, "edit",
+                                        reqs["edit"])
+    emit({"phase": "gen_profile", "request": "edit", **w,
+          **device_summary(prof, w["wall_ms"])})
+    del model, reqs, gen, images, rows, outs, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 19-20: the 26B flagship's det path at full width and depth
 # ---------------------------------------------------------------------------
 
 def det26b_prompt_ids(tok, image_tokens, cfg):
@@ -3625,7 +4006,8 @@ def main(argv=None) -> int:
         f"{', '.join(KERNEL_CHECKS)}: the device and build phases, those "
         "checks, the nvidia-smi line, and no model phase and no ok line")
     parser.add_argument(
-        "--phase", choices=["det26b"], help="run this model phase alone "
+        "--phase", choices=["gen", "det26b"], help="run this model phase "
+        "alone with its profile "
         "(with the device and build phases and the nvidia-smi line; no "
         "kernel phase and no ok line)")
     args = parser.parse_args(argv)
@@ -3654,6 +4036,8 @@ def main(argv=None) -> int:
     if only or args.phase:
         for name in only:
             KERNEL_CHECKS[name](g)
+        if args.phase == "gen":
+            run_gen()
         if args.phase == "det26b":
             run_det26b()
         print(smi, flush=True)
@@ -3683,11 +4067,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     probe = run_probes()
+    gen = run_gen()
     det26b = run_det26b()
     # each path's counts were read around that path's run alone
     by_path = {"det": det, "perception": perception, "train": train,
                "probes": probe, "chat": chat, "slots": slots, "spec": spec,
-               "quant": quant, "det26b": det26b}
+               "quant": quant, "gen": gen, "det26b": det26b}
 
     def launches(name):
         per = {p: c[name] for p, c in by_path.items() if name in c}

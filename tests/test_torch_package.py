@@ -174,3 +174,43 @@ def test_26b_det_model_is_laid_out_on_meta():
     assert tuple(core.vl_bridge._modules["1"].weight.shape) == (6144, 12800)
     assert tuple(core.llm.layers[0].k_proj.weight.shape) == (1024, 6144)
     assert 26.9e9 < count(model) < 27.2e9
+
+
+def test_gen_modules_are_among_the_guarded_sources():
+    """The import guard above walks the whole package: the generation
+    heads' modules are in it."""
+    paths = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for name in ("__init__", "scheduler", "unet", "vae", "sd_head"):
+        assert (f"visionllm_tpu_torch/models/stable_diffusion/{name}.py"
+                in paths)
+    assert "visionllm_tpu_torch/tools/sd_layout_probe.py" in paths
+
+
+def test_layout_probe_builds_as_build_model_and_needs_a_card():
+    """The layout probe builds its modules as `build_model` does (bf16,
+    the norms fp32, the conv weights in `MAP_FORMAT`) and runs on the
+    card only."""
+    from visionllm_tpu_torch.models.stable_diffusion import unet as SDU
+    from visionllm_tpu_torch.models.stable_diffusion.sd_head import (
+        unet_cfg_for)
+    from visionllm_tpu_torch.tools import sd_layout_probe as probe
+    unet = probe.build(lambda: SDU.UNet2DCondition(unet_cfg_for(16, 8, 32)),
+                       torch.device("cpu"))
+    for m in unet.modules():
+        want = (torch.float32 if isinstance(m, (SDU.GroupNorm32,
+                                                SDU.LayerNorm))
+                else torch.bfloat16)
+        assert all(p.dtype == want for p in m.parameters(recurse=False))
+    assert unet.conv_in.weight.is_contiguous(memory_format=SDU.MAP_FORMAT)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            probe.main()
+
+
+def test_gen_entry_point_without_device_raises_on_cpu_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from visionllm_tpu_torch.config import vllm_7b_gen_config
+    from visionllm_tpu_torch.models.composite import build_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(vllm_7b_gen_config())

@@ -1,11 +1,11 @@
-"""Config dataclasses of the det, perception, chat and det-training paths
-(own copies of the JAX package's `VisionEncoderConfig`, `LLMConfig`,
-`GDinoConfig`, `UniPoseConfig`, `VisionLLMConfig`, `tiny_test_config`
-and, from
-`visionllm_tpu/train/train_step.py`, `OptimizerConfig`, cut to the fields
-this port reads; defaults and the tiny dims are the same), and the
-flagship configs of the paths ported: the 7B det, perception and chat
-configs and the 26B det config."""
+"""Config dataclasses of the det, perception, chat, generation and
+det-training paths (own copies of the JAX package's
+`VisionEncoderConfig`, `LLMConfig`, `GDinoConfig`, `UniPoseConfig`,
+`SDConfig`, `IP2PConfig`, `VisionLLMConfig`, `tiny_test_config` and,
+from `visionllm_tpu/train/train_step.py`, `OptimizerConfig`, cut to the
+fields this port reads; defaults and the tiny dims are the same), and
+the flagship configs of the paths ported: the 7B det, perception, chat
+and generation configs and the 26B det config."""
 
 from __future__ import annotations
 
@@ -172,9 +172,43 @@ class UniPoseConfig:
 
 
 @dataclass(frozen=True)
+class SDConfig:
+    """Stable-Diffusion-1.5 generation head driven by [GEN] embeddings."""
+
+    llm_hidden_size: int = 4096
+    sd_hidden_size: int = 768         # CLIP text embedding dim of SD-1.5
+    num_encoder_layers: int = 1
+    num_decoder_layers: int = 1
+    num_queries: int = 77
+    num_embs_gen: int = 64
+    caption_distill_weight: float = 0.1
+    # UNet / VAE geometry (SD-1.5)
+    sample_size: int = 64
+    in_channels: int = 4
+    cross_attention_dim: int = 768
+
+
+@dataclass(frozen=True)
+class IP2PConfig:
+    """InstructPix2Pix editing head driven by [EDIT] embeddings."""
+
+    llm_hidden_size: int = 4096
+    sd_hidden_size: int = 768
+    num_encoder_layers: int = 1
+    num_decoder_layers: int = 1
+    num_queries: int = 77
+    num_embs_gen: int = 64
+    # UNet input = concat(noisy latents, conditioning image latents)
+    in_channels: int = 8
+    sample_size: int = 64
+    cross_attention_dim: int = 768
+    cfg_drop_prob: float = 0.05
+
+
+@dataclass(frozen=True)
 class VisionLLMConfig:
-    """Top-level composition config of the det, perception and chat
-    paths."""
+    """Top-level composition config of the det, perception, chat and
+    generation paths."""
 
     vis_encoder: VisionEncoderConfig = field(default_factory=VisionEncoderConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
@@ -188,6 +222,10 @@ class VisionLLMConfig:
     gdino: Optional[GDinoConfig] = None
     use_unipose: bool = False
     unipose: Optional[UniPoseConfig] = None
+    use_sd: bool = False
+    sd: Optional[SDConfig] = None
+    use_ip2p: bool = False
+    ip2p: Optional[IP2PConfig] = None
     max_num_patches: int = 100
 
 
@@ -209,7 +247,9 @@ def vllm_7b_perception_config(**overrides: Any) -> VisionLLMConfig:
     """The 7B flagship's perception tools: the JAX `vllm_7b_config(
     use_sd=False, use_ip2p=False, use_region_encoder=False)`, field for
     field: CLIP-ViT-L/336 + `mlp2x_gelu` + Vicuna-7B (vocab 32096) +
-    Grounding-DINO and UniPose, each with Swin-T at its defaults."""
+    Grounding-DINO and UniPose, each with Swin-T at its defaults (the
+    generation heads' configs are carried, as JAX carries them, and
+    off)."""
     base = dict(
         vis_encoder=VisionEncoderConfig(),
         llm=LLMConfig(vocab_size=32096),
@@ -218,6 +258,8 @@ def vllm_7b_perception_config(**overrides: Any) -> VisionLLMConfig:
         gdino=GDinoConfig(),
         use_unipose=True,
         unipose=UniPoseConfig(),
+        sd=SDConfig(),
+        ip2p=IP2PConfig(),
     )
     base.update(overrides)
     return VisionLLMConfig(**base)
@@ -233,6 +275,30 @@ def vllm_7b_chat_config(**overrides: Any) -> VisionLLMConfig:
         vis_encoder=VisionEncoderConfig(),
         llm=LLMConfig(vocab_size=32096),
         vl_bridge_type="mlp2x_gelu",
+    )
+    base.update(overrides)
+    return VisionLLMConfig(**base)
+
+
+def vllm_7b_gen_config(**overrides: Any) -> VisionLLMConfig:
+    """The 7B flagship's generation tools: the JAX `vllm_7b_config(
+    use_gdino=False, use_unipose=False, use_region_encoder=False)`, field
+    for field: CLIP-ViT-L/336 + `mlp2x_gelu` + Vicuna-7B (vocab 32096) +
+    the [GEN] head (`SDConfig()`: the LLM2SD mapper 4096 -> 768 with 77
+    queries, the SD-1.5 UNet with 4 input channels and its VAE at 512 px,
+    `sample_size` 64) and the [EDIT] head (`IP2PConfig()`: the same with
+    8 UNet input channels); the Grounding-DINO and UniPose configs are
+    carried, as JAX carries them, and off."""
+    base = dict(
+        vis_encoder=VisionEncoderConfig(),
+        llm=LLMConfig(vocab_size=32096),
+        vl_bridge_type="mlp2x_gelu",
+        gdino=GDinoConfig(),
+        unipose=UniPoseConfig(),
+        use_sd=True,
+        sd=SDConfig(),
+        use_ip2p=True,
+        ip2p=IP2PConfig(),
     )
     base.update(overrides)
     return VisionLLMConfig(**base)

@@ -105,6 +105,7 @@ _PARAM_INIT = {
     "hw_append": ("normal", 1.0),
     "ls1": ("const", 0.1),            # InternViT layer scale
     "ls2": ("const", 0.1),
+    "mapper_queries": ("normal", 1.0),   # the LLM2SD mapper's queries
 }
 
 

@@ -1,12 +1,16 @@
-"""Composite model: VisionLLM core + Grounding-DINO + UniPose in one
-module tree, with the det-VQA inference entry `infer_det`, the pose
-inference entry `infer_pose` and the det training forward `forward_det`
-(counterpart of `visionllm_tpu/models/composite.py:73-97`, `:158-180`).
+"""Composite model: VisionLLM core + Grounding-DINO + UniPose + the
+[GEN] and [EDIT] heads in one module tree, with the det-VQA inference
+entry `infer_det`, the pose inference entry `infer_pose` and the det
+training forward `forward_det` (counterpart of
+`visionllm_tpu/models/composite.py:39-55`, `:73-97`, `:158-180`). The
+heads' inference entries are their own `generate` methods (`model.sd`,
+`model.ip2p`).
 
 `build_model` is the entry point: it builds the model on CUDA unless the
 caller names another device, in the requested dtype (bf16 by default, as
 the JAX package deploys the whole composite), with weights drawn from a
-seeded `torch.Generator`. `build_core` does the same for the `VisionLLM`
+seeded `torch.Generator`; the heads' mapper and GroupNorms stay fp32, as
+flax computes them. `build_core` does the same for the `VisionLLM`
 core alone (the chat path) and quantizes its LLM when `cfg.llm.quant`
 is "int4", "int8" or "w8a8". Load real weights with
 `utils.convert.load_jax_params`.
@@ -25,6 +29,8 @@ from visionllm_tpu_torch.config import VisionLLMConfig
 from visionllm_tpu_torch.device import resolve_device
 from visionllm_tpu_torch.models.common import init_weights
 from visionllm_tpu_torch.models.grounding_dino.model import GroundingDino
+from visionllm_tpu_torch.models.stable_diffusion.sd_head import (
+    InstructPix2PixWithLLMEmb, StableDiffusionWithLLMEmb)
 from visionllm_tpu_torch.models.unipose.model import UniPose
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
 from visionllm_tpu_torch.ops.quant import quantize_serving_params
@@ -33,18 +39,30 @@ from visionllm_tpu_torch.train.losses import lm_cross_entropy
 
 class VisionLLMWithTools(nn.Module):
     """The core with the tools `cfg` turns on: `gdino` (`use_gdino`) for
-    det, grounding and segmentation, `unipose` (`use_unipose`) for pose.
-    An entry point raises when its tool is missing."""
+    det, grounding and segmentation, `unipose` (`use_unipose`) for pose,
+    `sd` (`use_sd`) for [GEN] and `ip2p` (`use_ip2p`) for [EDIT]. An
+    entry point raises when its tool is missing."""
 
     def __init__(self, cfg: VisionLLMConfig):
         super().__init__()
-        if not (cfg.use_gdino or cfg.use_unipose):
-            raise ValueError("the composite needs a tool: use_gdino=True "
-                             "or use_unipose=True")
+        if not (cfg.use_gdino or cfg.use_unipose or cfg.use_sd
+                or cfg.use_ip2p):
+            raise ValueError("the composite needs a tool: use_gdino, "
+                             "use_unipose, use_sd or use_ip2p=True")
         self.cfg = cfg
         self.core = VisionLLM(cfg)
         self.gdino = GroundingDino(cfg.gdino) if cfg.use_gdino else None
         self.unipose = UniPose(cfg.unipose) if cfg.use_unipose else None
+        self.sd = StableDiffusionWithLLMEmb(cfg.sd) if cfg.use_sd else None
+        self.ip2p = (InstructPix2PixWithLLMEmb(cfg.ip2p) if cfg.use_ip2p
+                     else None)
+
+    def fp32_modules(self):
+        """The modules that keep fp32 parameters under a bf16 model: the
+        generation heads' mappers and GroupNorms."""
+        for head in (self.sd, self.ip2p):
+            if head is not None:
+                yield from head.fp32_modules()
 
     def _tool(self, name: str) -> nn.Module:
         tool = getattr(self, name)
@@ -129,11 +147,14 @@ def build_model(cfg: VisionLLMConfig, *,
                 dtype: torch.dtype = torch.bfloat16,
                 seed: int = 0) -> VisionLLMWithTools:
     """Build `VisionLLMWithTools` directly on `device` (CUDA when None;
-    raises when there is none) in `dtype`, with seeded random weights."""
+    raises when there is none) in `dtype` (`fp32_modules` in fp32), with
+    seeded random weights."""
     dev = resolve_device(device)
     with torch.device("meta"):
-        model = VisionLLMWithTools(cfg)
-    model = model.to(dtype=dtype).to_empty(device=dev)
+        model = VisionLLMWithTools(cfg).to(dtype=dtype)
+        for mod in model.fp32_modules():
+            mod.float()
+    model = model.to_empty(device=dev)
     init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     return model.eval()
 

@@ -1,14 +1,14 @@
 """The composite VisionLLM core: vision encoder -> VL bridge -> LLM, with
 super-link routing of [EMB] hidden states to the tool decoders.
 
-Counterpart of `visionllm_tpu/models/visionllm.py` for the det and chat
-paths: the vision tower (CLIP-ViT, or InternViT with pixel shuffle
+Counterpart of `visionllm_tpu/models/visionllm.py` for the det, chat and
+generation paths: the vision tower (CLIP-ViT, or InternViT with pixel shuffle
 before the bridge), token embeddings, the [EMB]-table splice, the <im_patch>
 image-feature scatter (flattened for [N, H, W, 3] images, per sample for
 [B, T, H, W, 3] tile stacks), the LLM prefill with an optional KV cache,
 the decode step `llm_step`, the cached extend window `llm_window`,
-`new_cache` (an int8 one under `kv_quant="int8"`) and
-`extract_text_query`. Every step is a
+`new_cache` (an int8 one under `kv_quant="int8"`), `extract_text_query`
+and `extract_gen_embs`. Every step is a
 fixed-shape tensor op, as in the JAX package.
 """
 
@@ -227,6 +227,19 @@ class VisionLLM(nn.Module):
         tq = rows.reshape(B, max_patches, cfg.num_embs, Cdim)
         tq_mask = valid.reshape(B, max_patches, cfg.num_embs)[..., 0]
         return tq, tq_mask
+
+    def extract_gen_embs(self, hidden: torch.Tensor,
+                         input_ids: torch.Tensor, tid: SpecialTokenIds,
+                         tool_code: int) -> torch.Tensor:
+        """Hidden states at the num_embs_gen [EMB] rows after [GEN] or
+        [EDIT] (`tool_code` C.TOOL_GEN or C.TOOL_EDIT; one trigger a
+        sample) -> [B, num_embs_gen, C]."""
+        cfg = self.cfg
+        ctx, _ = tool_context(input_ids, tid)
+        is_emb = (input_ids >= tid.emb) & (input_ids < tid.emb + cfg.num_embs)
+        rows, _ = compact_masked_rows(hidden, is_emb & (ctx == tool_code),
+                                      cfg.num_embs_gen)
+        return rows
 
     def build_prompt_embeds(self, input_ids: torch.Tensor,
                             images: Optional[torch.Tensor],
