@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels flash_bwd,msda_bwd   # checks alone
-    python3 chip_smoke.py --phase det26b                 # one model phase
+    python3 chip_smoke.py --phase flagship               # one model phase
 
 Phases, each printing one JSON line:
 
@@ -200,7 +200,52 @@ Phases, each printing one JSON line:
              encode and decode and whole image ms, the weights' and the
              peak memory;
 18. gen_profile - one [EDIT] image under torch.profiler;
-19. det26b - the 26B flagship's det path, with nothing else resident:
+19. flagship - the whole 7B flagship, after the gen model is freed:
+             `build_model(vllm_7b_config())` (CLIP-L/336, LLaMA-7B,
+             Grounding-DINO and UniPose on Swin-T, both SD heads and the
+             region encoder) in bf16, the mappers, norms and the region
+             encoder's LayerNorms in fp32. From that one model, once each:
+             `infer_det` on the det prompt and on the det prompt with a
+             <region> (flash 56, MSDA 12); `Predictor` detect and pose on
+             an 800x1088 uint8 image; a [GEN] and an [EDIT] image (50
+             DDIM steps; flash 0 and 56). Then region prompts on a uint8
+             480x640 image with max_regions 8 (`RoundTripTokenizer`,
+             FLAGSHIP_NEW tokens, prompts left-padded to 640):
+             `ChatService(max_batch=1)` answers one box, the mask of that
+             box, three regions (two boxes and a blob) directly and over
+             HTTP /v1/generate with an RLE mask, and the first prompt
+             with another box; `ChatService(spec_k=7)` and a
+             B1-admission `ChatService(slots=2)` the box request;
+             `ChatService(slots=4, prefill_chunk=256, sessions=2)` the box
+             request admitted while a text request decodes, then a
+             session: a follow-up with the same regions must report
+             `session_reused`, one with a changed region must not. Flash
+             56 per B1 dispatch, speculative or B1-admission request, 24
+             per chunked admission (the region encoder reads the ViT
+             pass's levels: no second pass); `ChatService(max_batch=4)`
+             must refuse regions in JAX's words. Checks against the plain
+             versions on the same weights within LOGIT_REL_TOL: both det
+             requests (text queries, logits, boxes), detect and pose (raw
+             outputs), the gen rows and logits, the box request's region
+             rows [1, 4096], first-step and teacher-forced logits; every
+             other mode's tokens by the near-tie rule against the B1
+             run's. What the region path gave each call, recorded as it
+             ran (`RegionTrace`): the mask and its box, and HTTP and the
+             direct call, the same masks and bit-identical <region> rows;
+             spec and both slot modes the B1 request's masks, rows and
+             first-step logits within LOGIT_REL_TOL; the reused session
+             turn no second region assembly, the changed one its B1
+             reference's masks, rows and logits; another box's rows
+             REGION_SEPARATION times farther off than any of those errors
+             or the kernel-vs-plain one. Then TTFT with and without the
+             regions (median of 5),
+             the slot refill gap of a region admission (chunked and B1),
+             the region encoder's FLOP and byte bound at R = 8, weights
+             and peak memory;
+20. flagship_profile - the three-region request's generate call under
+             torch.profiler, its region encoder in a synced range: the
+             encoder's device ms and kernels beside its bound;
+21. det26b - the 26B flagship's det path, with nothing else resident:
              `build_model(vllm_26b_det_config())` at full width and depth
              (InternViT-6B/448 48 layers, pixel shuffle and `internvl_mlp`,
              InternLM2-20B 48 layers at 48 heads over 8 KV heads,
@@ -222,7 +267,7 @@ Phases, each printing one JSON line:
              run's by the near-tie token rule. Then request, vision,
              prefill and Grounding-DINO ms, the decode ms a step, the
              weights' and the peak memory (which must stay under 80 GB);
-20. det26b_profile - each request once under torch.profiler.
+22. det26b_profile - each request once under torch.profiler.
 
 Then it prints the `{"kernels": [...]}` line, the card's name and power
 limit, and as its last line `{"ok": true, "device": {...}}`. Any failed
@@ -258,7 +303,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from visionllm_tpu_torch import constants as C
 from visionllm_tpu_torch.config import (LLMConfig, OptimizerConfig,
-                                        vllm_7b_chat_config,
+                                        vllm_7b_chat_config, vllm_7b_config,
                                         vllm_7b_det_config,
                                         vllm_7b_gen_config,
                                         vllm_7b_perception_config,
@@ -291,6 +336,7 @@ from visionllm_tpu_torch.ops import ms_deform_attn as M
 from visionllm_tpu_torch.ops import quant as Q8
 from visionllm_tpu_torch.ops import quant4 as Q
 from visionllm_tpu_torch.ops.dcnv3 import dcnv3_msda_args
+from visionllm_tpu_torch.ops.rle import rle_encode
 from visionllm_tpu_torch.serve import (ChatService, _Request, make_server,
                                        perception_json)
 from visionllm_tpu_torch.slots import build_slot_fns
@@ -2178,7 +2224,721 @@ def run_gen():
 
 
 # ---------------------------------------------------------------------------
-# phases 19-20: the 26B flagship's det path at full width and depth
+# phases 19-20: the whole 7B flagship with region prompts, at full width
+# ---------------------------------------------------------------------------
+
+# the region requests: a uint8 image (numpy seed 9) with boxes and masks
+# in its own geometry; each service answers FLAGSHIP_NEW greedy tokens
+# from prompts left-padded to FLAGSHIP_PROMPT (768 with 256-token chunks)
+FLAGSHIP_IMAGE = (480, 640, 3)
+FLAGSHIP_BOXES = ([120.0, 80.0, 360.0, 300.0], [400.0, 200.0, 610.0, 460.0])
+FLAGSHIP_OTHER_BOX = [20.0, 300.0, 200.0, 470.0]
+FLAGSHIP_NEW = 16
+FLAGSHIP_PROMPT = 640
+FLAGSHIP_CHUNK = 256
+FLAGSHIP_MAX_REGIONS = 8
+FLAGSHIP_TIMED = 5
+# another box's region rows must lie this many times farther from the
+# box's than rounding puts them (kernel vs plain, mode vs B1)
+REGION_SEPARATION = 10
+# the det and pose tools' image: 800x1088, its own bucket at the 800 px
+# test scale
+FLAGSHIP_DET_IMAGE = (800, 1088, 3)
+MICRO_BATCH_REFUSAL = (
+    "region prompts are not supported with request micro-batching — "
+    "serve with --max-batch 1 or --slots")
+
+
+def flagship_regions():
+    """The image and its regions: {name: (prompt, regions)}. "box" and
+    "mask" are the same region (a box and the mask it covers); "three"
+    holds two boxes and an RLE-sent blob mask; "other_box" is the first
+    prompt with another box."""
+    img = np.random.RandomState(9).randint(0, 256, FLAGSHIP_IMAGE, np.uint8)
+    h, w = FLAGSHIP_IMAGE[:2]
+    x0, y0, x1, y1 = map(int, FLAGSHIP_BOXES[0])
+    box_mask = np.zeros((h, w), np.float32)
+    box_mask[y0:y1, x0:x1] = 1
+    yy, xx = np.mgrid[:h, :w]
+    blob = (((yy - 360) / 90.0) ** 2 + ((xx - 480) / 130.0) ** 2
+            <= 1).astype(np.float32)
+    reqs = {"box": ("What is <regions>?", [FLAGSHIP_BOXES[0]]),
+            "mask": ("What is <regions>?", [box_mask]),
+            "three": ("Compare <regions>.", [*FLAGSHIP_BOXES, blob]),
+            "other_box": ("What is <regions>?", [FLAGSHIP_OTHER_BOX])}
+    return img, reqs
+
+
+def region_packed(svc, img, prompt, regions, history=None):
+    """A region request as `svc` runs it at B1: left-padded ids, [1, 1,
+    S, S, 3] pixels, mask, and the [1, max_regions, S, S] region masks."""
+    regs = svc._check_regions(regions, img)
+    ids, pix, _ = svc._encode(prompt, img, history,
+                              num_regions=len(regions))
+    req = _Request(ids, pix, regions=regs)
+    ids, imgs, mask, _ = svc._pack([req])
+    return ids, imgs, mask, svc._regions_arg([req])
+
+
+def region_rows(core, tid, packed):
+    """The rows a request's <region> tokens receive, fp32 [n, C]."""
+    ids, imgs, _, regs = packed
+    emb, _ = core.build_prompt_embeds(ids, imgs, tid, regions=regs)
+    return emb[ids == tid.reg].float()
+
+
+class RegionTrace:
+    """Records, reading only, what the region path gave each call while
+    it is open: for every prompt assembly that carries regions, its
+    region masks and the fp32 rows its <region> tokens receive; for every
+    admission, the fp32 logits [V] that chose its first token (the last
+    position of a B1 prefill through `core.forward`, or the last window
+    of a chunked admission or a session extension). `call(fn)` returns
+    fn's result and what that call recorded."""
+
+    def __init__(self, core, tid, svcs):
+        self.embeds, self.firsts = [], []
+        self._stack = ExitStack()
+        embed, forward = core.build_prompt_embeds, core.forward
+
+        def embed_w(input_ids, images, tid_, regions=None, **kw):
+            out = embed(input_ids, images, tid_, regions=regions, **kw)
+            if regions is not None:
+                self.embeds.append((regions.clone(),
+                                    out[0][input_ids == tid.reg].float()))
+            return out
+
+        def forward_w(*a, **kw):
+            out = forward(*a, **kw)
+            if out["logits"] is not None:
+                self.firsts.append(out["logits"][0, -1].float().clone())
+            return out
+
+        def finish_w(fn):
+            def finish(last):
+                self.firsts.append(last[0].float().clone())
+                return fn(last)
+            return finish
+
+        self._stack.enter_context(mock.patch.object(
+            core, "build_prompt_embeds", embed_w))
+        self._stack.enter_context(mock.patch.object(core, "forward",
+                                                    forward_w))
+        for svc in svcs:
+            for name in ("_chunk_finish", "_sess_finish"):
+                if hasattr(svc, name):
+                    self._stack.enter_context(mock.patch.object(
+                        svc, name, finish_w(getattr(svc, name))))
+
+    def call(self, fn):
+        """(fn(), {"masks", "rows"}: the call's first prompt assembly with
+        regions, None where it assembled none; "first": its first
+        admission's logits)."""
+        e0, f0 = len(self.embeds), len(self.firsts)
+        out = fn()
+        embeds, firsts = self.embeds[e0:], self.firsts[f0:]
+        if not firsts:
+            raise AssertionError("flagship: a call admitted nothing")
+        masks, rows = embeds[0] if embeds else (None, None)
+        return out, {"masks": masks, "rows": rows, "first": firsts[0]}
+
+    def close(self):
+        self._stack.close()
+
+
+def b1_reference(svc, img, prompt, regions, history=None):
+    """The B1 dispatch service's answer to a region request and its
+    teacher-forced fp32 logits [n, V] (prefill and decode steps on its
+    tokens): what every other mode is held to."""
+    out = svc.generate(prompt, image=img, regions=regions, history=history)
+    ids, imgs, mask, regs = region_packed(svc, img, prompt, regions,
+                                          history)
+    toks = torch.tensor([out["ids"]], dtype=torch.int32, device=ids.device)
+    logits = teacher_forced(svc, ids, imgs, mask, toks, len(out["ids"]),
+                            regions=regs)[:, 0]
+    return out["ids"], logits
+
+
+def chunked_first_logits(svc, img, prompt, regions):
+    """The fp32 last-position logits [V] of a region request's chunked
+    admission (the embedding assembly, then the cached extend windows)
+    in `svc`'s slot engine."""
+    regs = svc._check_regions(regions, img)
+    ids, pix, _ = svc._encode(prompt, img, num_regions=len(regions))
+    req = _Request(ids, pix, regions=regs)
+    ids, im, _, vrow = slot_row(svc, req)
+    W = svc.prefill_chunk
+    emb = svc._chunk_embed(ids, im, regions=svc._regions_arg([req]))
+    row = svc._chunk_row()
+    for k in range(svc.max_prompt // W):
+        row, last = svc._chunk_run(emb[:, k * W:(k + 1) * W], row, vrow)
+    return last[0].float()
+
+
+def flagship_launches(cfg):
+    """Kernel launches of one call of each kind: (flash, MSDA)."""
+    clip, llm = cfg.vis_encoder.num_layers, cfg.llm.num_layers
+    det = cfg.gdino.encoder_layers + cfg.gdino.decoder_layers
+    pose = cfg.unipose.encoder_layers + cfg.unipose.decoder_layers
+    return {"infer_det": (clip + llm, det), "detect": (clip + llm, det),
+            "pose": (clip + llm, pose), "gen": (0, 0),
+            "edit": (clip + llm, 0), "region_b1": (clip + llm, 0),
+            "region_chunked": (clip, 0)}
+
+
+def flagship_det_ids(tid, cfg, regions=0):
+    """The det prompt (`bench.py:255-258`), with `regions` <region>
+    tokens after the image when given."""
+    ids = [1, 10, 11] + [tid.imp] * cfg.image_token_len + [12]
+    for i in range(regions):
+        ids += [tid.reg, 13 + i]
+    return ids + [tid.det] + [tid.emb + i for i in range(cfg.num_embs)] \
+        + [2]
+
+
+def det_plain_errs(model, tid, ids, images, aug, regions=None):
+    """One det request with the kernels against the same request with the
+    plain versions on the kernel run's proposal choice: relative error of
+    the text queries, the logits over the valid text columns and the
+    boxes."""
+    def run(choices=None):
+        out = model.core(ids, images, tid, compute_logits=False,
+                         regions=regions)
+        tq, mask = model.core.extract_text_query(out["hidden"], ids, tid)
+        return tq, mask, model.gdino(aug, tq, mask, **(choices or {}))
+
+    tq_k, mask, out_k = run()
+    with plain_versions():
+        tq_p, _, out_p = run({"topk_idx": out_k["topk_idx"]})
+    n = mask.shape[1]
+    cols = mask[0]
+    return {"text_queries": rel_err(tq_k, tq_p),
+            "logits": rel_err(out_k["logits"][..., :n][..., cols],
+                              out_p["logits"][..., :n][..., cols]),
+            "pred_boxes": rel_err(out_k["pred_boxes"], out_p["pred_boxes"])}
+
+
+def region_encoder_cost(enc, R, size, feat_dim, patches):
+    """FLOPs and bytes of the region encoder on R regions of one image at
+    `size` px from this run's shapes: every conv and dense product
+    (forward hooks), the pooling weights (two products a region) and the
+    three pooled levels; bytes as each distinct input is read once (the
+    fp32 image, R fp32 masks, the three bf16 ViT levels of that image,
+    the weights: the call's per-region copies of the image and levels
+    are its own) and the output written once."""
+    dev = enc.up_dim.weight.device
+    flops = {"n": 0}
+
+    def hook(mod, inp, out):
+        k = mod.weight[0].numel() if isinstance(mod, torch.nn.Conv2d) \
+            else mod.in_features
+        flops["n"] += 2 * out.numel() * k
+
+    hooks = [m.register_forward_hook(hook) for m in enc.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    feats = [torch.zeros(R, patches, feat_dim, device=dev,
+                         dtype=enc.up_dim.weight.dtype)] * 3
+    try:
+        with torch.no_grad():
+            out = enc(torch.zeros(R, size, size, 3, device=dev),
+                      torch.zeros(R, size, size, device=dev), feats)
+    finally:
+        for h in hooks:
+            h.remove()
+    side = int(patches ** 0.5)
+    pool = 2 * R * (side * size * size + side * size * side) \
+        + 3 * 2 * R * patches * enc.cfg.embed_dim
+    nbytes = (size * size * 3 * 4 + R * size * size * 4
+              + 3 * patches * feat_dim * feats[0].element_size()
+              + sum(p.numel() * p.element_size() for p in enc.parameters())
+              + out.numel() * out.element_size())
+    t, by = bound(nbytes, flops["n"] + pool, BF16_TENSOR_FLOPS)
+    return {"regions": R, "flops": flops["n"] + pool, "bytes": nbytes,
+            "bound_ms": t, "bound_by": by}
+
+
+def range_device_ms(prof, label, slack_ms):
+    """Device ms and kernel count of the kernels that start inside the
+    `record_function` range `label` (within `slack_ms` of its ends: the
+    range is synced and kept `2 * slack_ms` from any other work), read
+    from the raw kineto events as `device_summary` reads them."""
+    events = list(prof.profiler.kineto_results.events())
+    rng = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+           if e.name() == label and e.device_type() == DeviceType.CPU]
+    if len(rng) != 1:
+        raise AssertionError(f"{label}: {len(rng)} ranges in the profile")
+    lo, hi = rng[0][0] - slack_ms * 1e6, rng[0][1] + slack_ms * 1e6
+    ns, n = 0, 0
+    for e in events:
+        if (e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+                and lo <= e.start_ns() <= hi):
+            ns += e.duration_ns()
+            n += 1
+    return ns / 1e6, n
+
+
+def profile_region_request(svc, packed, gap_s=0.02):
+    """One region request's generate call under torch.profiler, its region
+    encoder call in a synced `record_function` range `gap_s` away from
+    the rest: the request's device summary and the encoder's device ms
+    and kernel count."""
+    ids, imgs, mask, regs = packed
+    enc = svc.core.region_encoder
+    forward = enc.forward
+    label = "flagship:region_encoder"
+
+    def ranged(*a, **kw):
+        torch.cuda.synchronize()
+        time.sleep(gap_s)
+        with record_function(label):
+            out = forward(*a, **kw)
+            torch.cuda.synchronize()
+        time.sleep(gap_s)
+        return out
+
+    live = torch.ones(1, dtype=torch.bool, device=ids.device)
+    with torch.no_grad(), mock.patch.object(enc, "forward", ranged), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        svc.generate_fn(ids, imgs, attn_mask=mask, live=live, regions=regs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    enc_ms, enc_n = range_device_ms(prof, label, gap_s * 1e3 / 2)
+    return {**device_summary(prof, wall_ms),
+            "sleep_in_wall_ms": 2 * gap_s * 1e3,
+            "region_encoder_device_ms": enc_ms,
+            "region_encoder_kernels": enc_n}
+
+
+def ttft_ms(svc, packed, regions):
+    """Median ms of a B1 prefill to its first token (host clock, synced),
+    with or without the request's regions."""
+    ids, imgs, mask, regs = packed
+    core = svc.core
+
+    def first():
+        cache = core.new_cache(1, svc.max_prompt + svc.max_new_tokens + 8)
+        out = core(ids, imgs, svc.tid, attn_mask=mask, cache=cache,
+                   regions=regs if regions else None)
+        return out["logits"][:, -1].argmax(-1).item()
+
+    with torch.no_grad():
+        first()
+        return host_ms(first, n=FLAGSHIP_TIMED)
+
+
+def region_refill_gap(svc, img, prompt, regions, filler):
+    """The chunked slot service's engine on a fresh state with every slot
+    but one live (`filler` requests): the longest gap between the ticks
+    those slots see while the last slot is refilled with a region
+    request, by chunk windows and by a B1 prefill (ms, host clock)."""
+    state, valid = svc._slot_init()
+    regs = svc._check_regions(regions, img)
+    ids_r, pix, _ = svc._encode(prompt, img, num_regions=len(regions))
+    req = _Request(ids_r, pix, regions=regs)
+    with torch.no_grad():
+        for s in range(svc.slots - 1):
+            ids, im, mask, _ = slot_row(svc, filler)
+            pre = svc._slot_prefill(ids, im, mask)
+            svc._slot_insert(state, s, pre["first"], pre["embed"],
+                             pre["cache"], pre["valid"], valid)
+
+        def tick():
+            svc._slot_step(state, valid)["token"].cpu()
+            return time.perf_counter()
+
+        def gap(chunked):
+            slot = svc.slots - 1
+            state.live[slot] = False
+            ids, im, mask, vrow = slot_row(svc, req)
+            r = svc._regions_arg([req])
+            times = [tick()]
+            if chunked:
+                W = svc.prefill_chunk
+                emb = svc._chunk_embed(ids, im, regions=r)
+                row = svc._chunk_row()
+                for k in range(svc.max_prompt // W):
+                    row, last = svc._chunk_run(emb[:, k * W:(k + 1) * W],
+                                               row, vrow)
+                    times.append(tick())
+                first, embed, _ = svc._chunk_finish(last)
+                svc._slot_insert(state, slot, first[0], embed, row, vrow,
+                                 valid)
+            else:
+                pre = svc._slot_prefill(ids, im, mask, regions=r)
+                svc._slot_insert(state, slot, pre["first"], pre["embed"],
+                                 pre["cache"], pre["valid"], valid)
+            times.append(tick())
+            return max(b - a for a, b in zip(times, times[1:])) * 1e3
+
+        tick()
+        gap(True)                                   # warm
+        return {"live_slots": svc.slots - 1, "chunked": gap(True),
+                "monolithic": gap(False)}
+
+
+def check_region_path(seen, refs, first_b1, rows_plain_err):
+    """Holds what the region path gave each call (`RegionTrace`) rather
+    than the tokens it emitted, which random weights make alike: the box
+    and its mask, and the HTTP request and the direct call, give the same
+    masks and bit-identical <region> rows; the speculative and both slot
+    modes the B1 box request's masks, and rows and first-step logits
+    within LOGIT_REL_TOL of it (`first_b1`, its teacher-forced first
+    step); a session turn that reuses its prefix assembles no regions
+    again, one with a changed region those of its B1 reference
+    (`refs`); and another box's rows lie REGION_SEPARATION times farther
+    from the box's than the kernel-vs-plain rows error
+    (`rows_plain_err`) and any mode's. Returns the errors."""
+    for a, b in ((("b1", "mask"), ("b1", "box")),
+                 (("http", "three"), ("b1", "three"))):
+        for key in ("masks", "rows"):
+            if not torch.equal(seen[a][key], seen[b][key]):
+                raise AssertionError(f"flagship: {a}'s region {key} differ "
+                                     f"from {b}'s")
+    pairs = {f"{m}:box": (seen[m, "box"], seen["b1", "box"])
+             for m in ("spec", "slots_b1", "slots")}
+    pairs["session:changed"] = (seen["session", "changed"], refs["changed"])
+    rows, first = {}, {}
+    for name, (got, want) in pairs.items():
+        if not torch.equal(got["masks"], want["masks"]):
+            raise AssertionError(f"flagship {name}: region masks differ "
+                                 "from the B1 request's")
+        rows[name] = rel_err(got["rows"], want["rows"])
+    if seen["session", "same"]["rows"] is not None:
+        raise AssertionError("flagship: the reused session turn assembled "
+                             "its regions again")
+    for name, (got, want) in {**pairs, "session:same": (
+            seen["session", "same"], refs["same"])}.items():
+        first[name] = rel_err(got["first"], want["first"] if name.startswith(
+            "session") else first_b1)
+    for m in ("box", "mask"):
+        first["b1:" + m] = rel_err(seen["b1", m]["first"], first_b1)
+    first["http:three"] = rel_err(seen["http", "three"]["first"],
+                                  seen["b1", "three"]["first"])
+    for k, e in {**rows, **first}.items():
+        if not e <= LOGIT_REL_TOL:
+            raise AssertionError(f"flagship {k}: {e} from the B1 request's "
+                                 f"> {LOGIT_REL_TOL} (rows {rows}, first-step "
+                                 f"logits {first})")
+    other = rel_err(seen["b1", "other_box"]["rows"], seen["b1", "box"]["rows"])
+    noise = max(rows_plain_err, *rows.values())
+    if not other >= REGION_SEPARATION * noise:
+        raise AssertionError(f"flagship: another box's rows differ by {other}, "
+                             f"under {REGION_SEPARATION} x {noise}")
+    return {"rows_rel_err": rows, "first_step_rel_err": first,
+            "other_box_rows_rel_diff": other,
+            "separation": REGION_SEPARATION}
+
+
+def run_flagship():
+    """Phases `flagship` and `flagship_profile`: see the module docstring.
+    Returns the launch counts of the phase's main path."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = vllm_7b_config()
+    tid = SpecialTokenIds.synthetic()
+    tok, gen_tok = RoundTripTokenizer(), SimpleTokenizer()
+    want = flagship_launches(cfg)
+    t = time.perf_counter()
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    fp32 = {id(p) for m in model.fp32_modules() for p in m.parameters()}
+    for name, p in model.named_parameters():
+        dt = torch.float32 if id(p) in fp32 else torch.bfloat16
+        if p.dtype != dt or p.device.type != "cuda":
+            raise AssertionError(f"flagship: {name} is {p.dtype} on "
+                                 f"{p.device}, want {dt} on the card")
+    if not any(n.startswith("core.region_encoder.stem_norm") for n, p in
+               model.named_parameters() if id(p) in fp32):
+        raise AssertionError("flagship: the region encoder's norms are "
+                             "not among the fp32 parts")
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    core = model.core
+    size = cfg.vis_encoder.image_size
+    g = torch.Generator(device="cuda").manual_seed(1)
+    det_ids = torch.tensor([flagship_det_ids(tid, cfg)], device="cuda")
+    det_reg_ids = torch.tensor([flagship_det_ids(tid, cfg, 1)],
+                               device="cuda")
+    det_img = (0.3 * torch.randn(1, size, size, 3, generator=g,
+                                 device="cuda")).to(torch.bfloat16)
+    det_aug = (0.3 * torch.randn(1, DET_SIZE, DET_SIZE, 3, generator=g,
+                                 device="cuda")).to(torch.bfloat16)
+    det_region = torch.zeros(1, 1, size, size, device="cuda")
+    det_region[0, 0, size // 4:size // 2, size // 5:size * 3 // 5] = 1
+    perc_img = np.random.RandomState(4).randint(0, 256, FLAGSHIP_DET_IMAGE,
+                                                np.uint8)
+    pred = Predictor(cfg, model, gen_tok)
+    gen_reqs = gen_requests(cfg, gen_tok)
+    gen = build_generate_fn(core, tid, max_new_tokens=cfg.num_embs_gen + 3,
+                            max_len=GEN_MAX_LEN)
+    img, regions = flagship_regions()
+    common = dict(max_new_tokens=FLAGSHIP_NEW, max_prompt=FLAGSHIP_PROMPT,
+                  max_regions=FLAGSHIP_MAX_REGIONS)
+    svcs = {"b1": ChatService(cfg, core, tok, **common),
+            "spec": ChatService(cfg, core, tok, spec_k=SPEC_K, **common),
+            "slots": ChatService(cfg, core, tok, slots=4,
+                                 prefill_chunk=FLAGSHIP_CHUNK, sessions=2,
+                                 **common),
+            "slots_b1": ChatService(cfg, core, tok, slots=2, **common)}
+    rec = SlotRecorder(svcs["slots"], 1)
+    srv = make_server(svcs["b1"], host="127.0.0.1", port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/v1/generate"
+    calls = []
+
+    def counted(what, kind, fn):
+        f0, m0 = A.flash_attention.launches, M.ms_deform_attn.launches
+        out = fn()
+        got = (A.flash_attention.launches - f0,
+               M.ms_deform_attn.launches - m0)
+        calls.append({"call": what, "flash_attn_fwd": got[0],
+                      "ms_deform_attn_fwd": got[1]})
+        if kind is not None and got != want[kind]:
+            raise AssertionError(f"flagship {what}: launches {got}, want "
+                                 f"{want[kind]} ({kind})")
+        return out
+
+    def ask(name, mode):
+        prompt, regs = regions[name]
+        answers[mode, name], seen[mode, name] = trace.call(
+            lambda: counted(mode, "region_b1", lambda: svcs[mode].generate(
+                prompt, image=img, regions=regs)))
+
+    # the main path, with the launch counts taken around it alone; the
+    # trace keeps each region call's masks, rows and first-step logits
+    trace = RegionTrace(core, tid, svcs.values())
+    A.flash_attention.launches = 0
+    M.ms_deform_attn.launches = 0
+    answers, seen = {}, {}
+    with torch.no_grad():
+        det_out = counted("infer_det", "infer_det", lambda: model.infer_det(
+            det_ids, det_img, det_aug, tid))
+        det_reg_out = counted("infer_det:region", "infer_det",
+                              lambda: model.infer_det(
+                                  det_reg_ids, det_img, det_aug, tid,
+                                  regions=det_region))
+        perc = {task: counted(f"predictor:{task}", task,
+                              lambda task=task: perception_json(
+                                  perception_call(pred, task, perc_img)))
+                for task in ("detect", "pose")}
+        images, rows, outs = {}, {}, {}
+        for tool, req in gen_reqs.items():
+            images[tool], rows[tool], outs[tool] = counted(
+                f"gen:{tool}", tool,
+                lambda tool=tool, req=req: gen_whole_image(
+                    model, gen, tid, tool, req))[:3]
+        for name in ("box", "mask", "three", "other_box"):
+            ask(name, "b1")
+        prompt, regs = regions["three"]
+        blob = regs[2].astype(np.uint8)
+        answers["http", "three"], seen["http", "three"] = trace.call(
+            lambda: counted("b1:http", "region_b1", lambda: post_json(url, {
+                "prompt": prompt, "image_b64": base64.b64encode(
+                    img.tobytes()).decode(), "image_shape": list(img.shape),
+                "region_boxes": [list(b) for b in FLAGSHIP_BOXES],
+                "region_masks": [rle_encode(blob)]})))
+        ask("box", "spec")
+        ask("box", "slots_b1")
+        # slots: a region request admitted while a text request decodes
+        f0 = A.flash_attention.launches
+        filler = dict(prompt="tell me a long story about the sea",
+                      max_new_tokens=FLAGSHIP_NEW)
+        box = {}
+        th = threading.Thread(target=lambda: box.update(
+            out=svcs["slots"].generate(**filler)), daemon=True)
+        th.start()
+        while not rec.first_token and th.is_alive():
+            time.sleep(0.005)
+        answers["slots", "box"], seen["slots", "box"] = trace.call(
+            lambda: svcs["slots"].generate(regions["box"][0], image=img,
+                                           regions=regions["box"][1]))
+        th.join(600)
+        filler_out = box["out"]
+        # two sessions: each parks a first turn, and its follow-up
+        # extends that prefix, with the same regions or a changed one
+        prompt, regs = regions["box"]
+        follow_ups = {"same": regs, "changed": [FLAGSHIP_OTHER_BOX]}
+        turn1, hists = {}, {}
+        for name, rg in follow_ups.items():
+            turn1[name] = svcs["slots"].generate(prompt, image=img,
+                                                 regions=regs, session=name)
+            hists[name] = [prompt, turn1[name]["text"]]
+            answers["session", name], seen["session", name] = trace.call(
+                lambda rg=rg, name=name: svcs["slots"].generate(
+                    "tell me more", image=img, regions=rg,
+                    history=hists[name], session=name))
+        fresh = sum(not a.get("session_reused", False)
+                    for a in (filler_out, answers["slots", "box"],
+                              *turn1.values(), answers["session", "same"],
+                              answers["session", "changed"]))
+        got = A.flash_attention.launches - f0
+        calls.append({"call": "slots", "flash_attn_fwd": got,
+                      "fresh_admissions": fresh})
+        if got != fresh * want["region_chunked"][0]:
+            raise AssertionError(f"flagship slots: flash {got}, want "
+                                 f"{want['region_chunked'][0]} x {fresh}")
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches,
+                "ms_deform_attn_fwd": M.ms_deform_attn.launches}
+
+    # the main path's outputs
+    Q, T = cfg.gdino.num_queries, cfg.gdino.max_text_len
+    for out in (det_out, det_reg_out):
+        for key, shape in (("logits", (1, Q, T)), ("pred_boxes", (1, Q, 4))):
+            x = out[key]
+            if tuple(x.shape) != shape or not torch.isfinite(x).all():
+                raise AssertionError(f"flagship infer_det {key}: "
+                                     f"{tuple(x.shape)}")
+    for task, reply in perc.items():
+        check_perception_reply(task, reply, FLAGSHIP_DET_IMAGE[:2])
+    for tool in gen_reqs:
+        toks = outs[tool]["out_tokens"][0].tolist()
+        n_gen = cfg.num_embs_gen
+        if toks[0] != getattr(tid, tool) or toks[1:1 + n_gen] != \
+                [tid.emb] * n_gen:
+            raise AssertionError(f"flagship {tool}: tokens {toks[:4]}")
+        if tuple(images[tool].shape) != (1,) + GEN_IMAGE or \
+                not torch.isfinite(images[tool]).all():
+            raise AssertionError(f"flagship {tool}: image")
+    if answers["b1", "mask"]["ids"] != answers["b1", "box"]["ids"]:
+        raise AssertionError("flagship: the mask region's tokens differ "
+                             "from its box's")
+    if answers["http", "three"]["ids"] != answers["b1", "three"]["ids"]:
+        raise AssertionError("flagship: the HTTP answer differs from the "
+                             "direct call's")
+    if not answers["session", "same"]["session_reused"] or \
+            answers["session", "changed"]["session_reused"]:
+        raise AssertionError("flagship: session reuse "
+                             f"{answers['session', 'same']} / "
+                             f"{answers['session', 'changed']}")
+    if rec.live_at_admission and max(
+            n for r, n in rec.live_at_admission.items()
+            if r.regions is not None and r.session is None) < 1:
+        raise AssertionError("flagship: the region request was not "
+                             "admitted while another slot decoded")
+    refused = None
+    batched = ChatService(cfg, core, tok, max_batch=4, **common)
+    try:
+        batched.generate(regions["box"][0], image=img,
+                         regions=regions["box"][1])
+    except ValueError as e:
+        refused = str(e)
+    finally:
+        batched.close()
+    if refused != MICRO_BATCH_REFUSAL:
+        raise AssertionError(f"flagship: micro-batching said {refused!r}")
+
+    # against the plain versions and the B1 reference
+    errs, rules = {}, {}
+    with torch.no_grad():
+        errs["infer_det"] = det_plain_errs(model, tid, det_ids, det_img,
+                                           det_aug)
+        errs["infer_det:region"] = det_plain_errs(
+            model, tid, det_reg_ids, det_img, det_aug, det_region)
+        for task in ("detect", "pose"):
+            errs[task] = compare_perception_plain(pred, task, perc_img)
+        for tool, req in gen_reqs.items():
+            with plain_versions():
+                rows_p, out_p = gen_rows(model, gen, tid, tool, req)
+            errs[tool] = {"rows": rel_err(rows[tool], rows_p),
+                          "last_forced_logits": rel_err(
+                              last_forced_logits(core, outs[tool]),
+                              last_forced_logits(core, out_p))}
+        b1 = svcs["b1"]
+        packed = region_packed(b1, img, *regions["box"])
+        toks = torch.tensor([answers["b1", "box"]["ids"]], dtype=torch.int32,
+                            device="cuda")
+        n_tok = toks.shape[1]
+        rows_k = region_rows(core, tid, packed)
+        lk = teacher_forced(b1, *packed[:3], toks, n_tok,
+                            regions=packed[3])[:, 0]
+        with plain_versions():
+            rows_p = region_rows(core, tid, packed)
+            lp = teacher_forced(b1, *packed[:3], toks, n_tok,
+                                regions=packed[3])[:, 0]
+        if tuple(rows_k.shape) != (1, cfg.llm.hidden_size):
+            raise AssertionError(f"flagship region rows {rows_k.shape}")
+        errs["region"] = {
+            "rows": rel_err(rows_k, rows_p),
+            "first_step_logits": rel_err(lk[0], lp[0]),
+            "teacher_forced_logits_max": max(rel_errs(lk, lp)),
+            "chunked_first_step_vs_b1": rel_err(chunked_first_logits(
+                svcs["slots"], img, *regions["box"]), lk[0])}
+        other = region_packed(b1, img, *regions["other_box"])
+        other_diff = rel_err(teacher_forced(b1, *other[:3], toks[:, :1], 1,
+                                            regions=other[3])[0, 0], lk[0])
+        for mode in ("spec", "slots_b1", "slots"):
+            rules[mode] = near_tie_rule(f"flagship {mode}",
+                                        answers[mode, "box"]["ids"],
+                                        answers["b1", "box"]["ids"], lk)
+        refs = {}
+        for name, rg in follow_ups.items():
+            (ref_ids, ref_logits), refs[name] = trace.call(
+                lambda rg=rg, name=name: b1_reference(
+                    b1, img, "tell me more", rg, history=hists[name]))
+            refs[name]["first"] = ref_logits[0]
+            rules["session:" + name] = near_tie_rule(
+                f"flagship session {name}", answers["session", name]["ids"],
+                ref_ids, ref_logits)
+    trace.close()
+    for k, e in errs.items():
+        if not max(e.values()) <= LOGIT_REL_TOL:
+            raise AssertionError(f"flagship {k} kernel vs plain {e} > "
+                                 f"{LOGIT_REL_TOL}")
+    # deterministic kernels: equal logits would mean the box went nowhere
+    if not other_diff > 0:
+        raise AssertionError("flagship: another box gave the same "
+                             "first-step logits")
+    region_path = check_region_path(seen, refs, lk[0], errs["region"]["rows"])
+
+    # times
+    timings = {"ttft_ms_regions": ttft_ms(b1, packed, True),
+               "ttft_ms_no_regions": ttft_ms(b1, packed, False)}
+    three = region_packed(b1, img, *regions["three"])
+    prof = profile_region_request(b1, three)
+    timings["region_encoder_cost"] = region_encoder_cost(
+        core.region_encoder, FLAGSHIP_MAX_REGIONS, size,
+        cfg.vis_encoder.hidden_size, cfg.vis_encoder.num_patches)
+    timings["refill_gap_ms"] = region_refill_gap(
+        svcs["slots"], img, *regions["box"], _Request(*svcs["slots"]._encode(
+            filler["prompt"], None)[:2]))
+    srv.shutdown()
+    srv.server_close()
+    for s in svcs.values():
+        s.close()
+    emit({"phase": "flagship", "config": "vllm_7b_config()",
+          "nvidia_smi": nvidia_smi(),
+          "params": sum(p.numel() for p in model.parameters()),
+          "region_encoder_params": sum(
+              p.numel() for p in core.region_encoder.parameters()),
+          "build_model_s": build_s, "weights_gb": weights_gb,
+          "image": list(FLAGSHIP_IMAGE), "max_regions": FLAGSHIP_MAX_REGIONS,
+          "region_prompt_tokens": int(packed[0].shape[1]),
+          "calls": calls, "launches": launches,
+          "launches_per_call": {k: list(v) for k, v in want.items()},
+          "answers": {f"{m}:{n}": a["ids"] for (m, n), a in answers.items()},
+          "token_rules": rules, "plain_rel_err": errs,
+          "other_box_first_step_rel_diff": other_diff,
+          "region_path": region_path,
+          "plain_rel_tol": LOGIT_REL_TOL, "micro_batching_refused": refused,
+          "timings": timings,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t_phase})
+    emit({"phase": "flagship_profile", "request": "three regions, B1",
+          "bound_ms": timings["region_encoder_cost"]["bound_ms"], **prof})
+    del model, core, pred, gen, svcs, rec, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 21-22: the 26B flagship's det path at full width and depth
 # ---------------------------------------------------------------------------
 
 def det26b_prompt_ids(tok, image_tokens, cfg):
@@ -2522,17 +3282,19 @@ def post_json(url, obj):
         return json.loads(r.read())
 
 
-def teacher_forced(svc, ids, imgs, mask, tokens, n_gen, step_ms=None):
-    """Prefill + (n_gen - 1) decode steps of `svc`'s core, fed the tokens
-    `tokens` [B, >= n_gen] emitted by a generate call (through the same
-    emb-countdown state machine), returning each step's last-position
-    fp32 logits [n_gen, B, V]. Appends each decode step's synced wall ms
-    to `step_ms` when given."""
+def teacher_forced(svc, ids, imgs, mask, tokens, n_gen, step_ms=None,
+                   regions=None):
+    """Prefill (with `regions` [B, R, S, S] when given) + (n_gen - 1)
+    decode steps of `svc`'s core, fed the tokens `tokens` [B, >= n_gen]
+    emitted by a generate call (through the same emb-countdown state
+    machine), returning each step's last-position fp32 logits
+    [n_gen, B, V]. Appends each decode step's synced wall ms to `step_ms`
+    when given."""
     core, tid, cfg = svc.core, svc.tid, svc.core.cfg
     B, L = ids.shape
     max_len = svc.max_prompt + svc.max_new_tokens + 8
     cache = core.new_cache(B, max_len)
-    out = core(ids, imgs, tid, attn_mask=mask, cache=cache)
+    out = core(ids, imgs, tid, attn_mask=mask, cache=cache, regions=regions)
     logits = [out["logits"][:, -1].float()]
     first = tokens[:, 0]
     kind = _tool_kind(first, tid)
@@ -4006,7 +4768,8 @@ def main(argv=None) -> int:
         f"{', '.join(KERNEL_CHECKS)}: the device and build phases, those "
         "checks, the nvidia-smi line, and no model phase and no ok line")
     parser.add_argument(
-        "--phase", choices=["gen", "det26b"], help="run this model phase "
+        "--phase", choices=["gen", "flagship", "det26b"],
+        help="run this model phase "
         "alone with its profile "
         "(with the device and build phases and the nvidia-smi line; no "
         "kernel phase and no ok line)")
@@ -4038,6 +4801,8 @@ def main(argv=None) -> int:
             KERNEL_CHECKS[name](g)
         if args.phase == "gen":
             run_gen()
+        if args.phase == "flagship":
+            run_flagship()
         if args.phase == "det26b":
             run_det26b()
         print(smi, flush=True)
@@ -4068,11 +4833,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     probe = run_probes()
     gen = run_gen()
+    flagship = run_flagship()
     det26b = run_det26b()
     # each path's counts were read around that path's run alone
     by_path = {"det": det, "perception": perception, "train": train,
                "probes": probe, "chat": chat, "slots": slots, "spec": spec,
-               "quant": quant, "gen": gen, "det26b": det26b}
+               "quant": quant, "gen": gen, "flagship": flagship,
+               "det26b": det26b}
 
     def launches(name):
         per = {p: c[name] for p, c in by_path.items() if name in c}

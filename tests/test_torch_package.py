@@ -214,3 +214,74 @@ def test_gen_entry_point_without_device_raises_on_cpu_host():
     from visionllm_tpu_torch.models.composite import build_model
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(vllm_7b_gen_config())
+
+
+def test_region_modules_are_among_the_guarded_sources():
+    """The import guard above walks the whole package: the region
+    encoder and the region-eval helpers are in it."""
+    paths = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("visionllm_tpu_torch/models/region_encoder.py",
+                "visionllm_tpu_torch/eval/region_eval.py"):
+        assert rel in paths
+
+
+def test_whole_7b_entry_point_without_device_raises_on_cpu_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from visionllm_tpu_torch.config import vllm_7b_config
+    from visionllm_tpu_torch.models.composite import build_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(vllm_7b_config())
+
+
+def _config_diff(got, want, path=""):
+    """Field paths where two config dataclasses differ (the port's fields
+    against the JAX one's of the same name)."""
+    import dataclasses
+    out = []
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b):
+            out += _config_diff(a, b, f"{path}{f.name}.")
+        elif a != b:
+            out.append((path + f.name, a, b))
+    return out
+
+
+def test_whole_7b_config_matches_jax_field_for_field():
+    """`vllm_7b_config()` against the JAX preset: no field of the port's
+    (nested configs included) differs, and every tool the JAX preset
+    turns on is on."""
+    import dataclasses
+    from visionllm_tpu import config as jconfig
+    from visionllm_tpu_torch.config import vllm_7b_config
+    got, want = vllm_7b_config(), jconfig.vllm_7b_config()
+    assert _config_diff(got, want) == []
+    for name in ("region_encoder", "unipose", "sd", "ip2p"):
+        assert ({f.name for f in dataclasses.fields(getattr(got, name))}
+                == {f.name for f in dataclasses.fields(getattr(want, name))})
+    assert all(getattr(got, f"use_{t}") for t in
+               ("gdino", "unipose", "sd", "ip2p", "region_encoder"))
+
+
+def test_whole_7b_model_is_laid_out_on_meta():
+    """`vllm_7b_config()` as `build_model` lays it out before it moves to
+    the card: every tool and the region encoder, about 9.13 B parameters
+    (the gen config's 8.99 B, Grounding-DINO and UniPose at about 65 M
+    each and 4.5 M of region encoder), bf16 but for the fp32 parts."""
+    from visionllm_tpu_torch.config import vllm_7b_config
+    from visionllm_tpu_torch.models.composite import VisionLLMWithTools
+    from visionllm_tpu_torch.models.region_encoder import LayerNorm2d
+    with torch.device("meta"):
+        model = VisionLLMWithTools(vllm_7b_config()).to(dtype=torch.bfloat16)
+        for mod in model.fp32_modules():
+            mod.float()
+    enc = model.core.region_encoder
+    assert enc is not None and model.gdino is not None
+    assert model.unipose is not None and model.sd is not None
+    norms = [m for m in enc.modules() if isinstance(m, LayerNorm2d)]
+    assert len(norms) == 2 and all(
+        p.dtype == torch.float32 for m in norms for p in m.parameters())
+    assert enc.stem_conv0.weight.dtype == torch.bfloat16
+    n = sum(p.numel() for p in model.parameters())
+    assert 9.1e9 < n < 9.15e9, n

@@ -77,9 +77,10 @@ def _fields(obj):
 def test_config_matches_jax(which):
     """Every field the port keeps equals the JAX config's; UniPose's and
     the generation heads' configs field for field. The port's tiny config
-    leaves the generation heads off (the parity tests load JAX trees
-    without `sd` / `ip2p` keys and pass the heads in as overrides), so it
-    is held to JAX's tiny config with them off."""
+    leaves the generation heads and the region encoder off (the parity
+    tests load JAX trees without `sd` / `ip2p` / `region_encoder` keys
+    and pass those in as overrides), so it is held to JAX's tiny config
+    with them off."""
     if which == "perception":
         want = jconfig.vllm_7b_config(use_sd=False, use_ip2p=False,
                                       use_region_encoder=False)
@@ -90,14 +91,15 @@ def test_config_matches_jax(which):
         got = tconfig.vllm_7b_gen_config()
     else:
         want = jconfig.tiny_test_config(use_sd=False, sd=None,
-                                        use_ip2p=False, ip2p=None)
+                                        use_ip2p=False, ip2p=None,
+                                        use_region_encoder=False)
         got = tconfig.tiny_test_config()
     for name, val in _fields(got).items():
         ref = getattr(want, name)
         if dataclasses.is_dataclass(val):
             theirs = _fields(ref)
             assert {k: theirs[k] for k in _fields(val)} == _fields(val), name
-            if name in ("unipose", "sd", "ip2p"):
+            if name in ("unipose", "sd", "ip2p", "region_encoder"):
                 assert _fields(val) == theirs, name
         else:
             assert val == ref, name

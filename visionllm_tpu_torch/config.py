@@ -1,11 +1,12 @@
-"""Config dataclasses of the det, perception, chat, generation and
-det-training paths (own copies of the JAX package's
+"""Config dataclasses of the det, perception, chat, generation, region
+and det-training paths (own copies of the JAX package's
 `VisionEncoderConfig`, `LLMConfig`, `GDinoConfig`, `UniPoseConfig`,
-`SDConfig`, `IP2PConfig`, `VisionLLMConfig`, `tiny_test_config` and,
-from `visionllm_tpu/train/train_step.py`, `OptimizerConfig`, cut to the
-fields this port reads; defaults and the tiny dims are the same), and
-the flagship configs of the paths ported: the 7B det, perception, chat
-and generation configs and the 26B det config."""
+`SDConfig`, `IP2PConfig`, `RegionEncoderConfig`, `VisionLLMConfig`,
+`tiny_test_config` and, from `visionllm_tpu/train/train_step.py`,
+`OptimizerConfig`, cut to the fields this port reads; defaults and the
+tiny dims are the same), and the flagship configs of the paths ported:
+the whole 7B flagship (`vllm_7b_config`), its det, perception, chat and
+generation cuts, and the 26B det config."""
 
 from __future__ import annotations
 
@@ -206,9 +207,23 @@ class IP2PConfig:
 
 
 @dataclass(frozen=True)
+class RegionEncoderConfig:
+    """The visual-prompt encoder: a mask and its image to one LLM token
+    (`models/region_encoder.py`)."""
+
+    hidden_dim: int = 256
+    embed_dim: int = 1024             # ViT feature dim
+    out_dim: int = 4096               # LLM dim
+    patch_size: int = 14
+    # the reference's random-point count; the closed-form pooling reads
+    # no points, so only the JAX training data reads it
+    num_sample_points: int = 2304
+
+
+@dataclass(frozen=True)
 class VisionLLMConfig:
-    """Top-level composition config of the det, perception, chat and
-    generation paths."""
+    """Top-level composition config of the det, perception, chat,
+    generation and region paths."""
 
     vis_encoder: VisionEncoderConfig = field(default_factory=VisionEncoderConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
@@ -218,6 +233,8 @@ class VisionLLMConfig:
     use_pixelshuffle: bool = False
     num_embs: int = 4
     num_embs_gen: int = 64
+    use_region_encoder: bool = False
+    region_encoder: Optional[RegionEncoderConfig] = None
     use_gdino: bool = False
     gdino: Optional[GDinoConfig] = None
     use_unipose: bool = False
@@ -227,6 +244,41 @@ class VisionLLMConfig:
     use_ip2p: bool = False
     ip2p: Optional[IP2PConfig] = None
     max_num_patches: int = 100
+
+    @property
+    def image_token_len(self) -> int:
+        """<im_patch> tokens an image (a tile) fills: the vision
+        encoder's patches, a quarter of them under pixel shuffle (the
+        count of the JAX dataset, `llava_dataset.py:80-82`)."""
+        n = self.vis_encoder.num_patches
+        return n // 4 if self.use_pixelshuffle else n
+
+
+def vllm_7b_config(**overrides: Any) -> VisionLLMConfig:
+    """The whole 7B flagship, the JAX `vllm_7b_config()` field for field:
+    `vllm_7b_gen_config()` (CLIP-ViT-L/336 + `mlp2x_gelu` + Vicuna-7B
+    vocab 32096 + the [GEN] and [EDIT] heads) with these on as well:
+    `use_gdino` with `GDinoConfig()` (Grounding-DINO on Swin-T),
+    `use_unipose` with `UniPoseConfig()` (UniPose on Swin-T) and
+    `use_region_encoder` with `RegionEncoderConfig()` (hidden 256, CLIP's
+    1024 features to the LLM's 4096, patch 14)."""
+    base = dict(
+        vis_encoder=VisionEncoderConfig(),
+        llm=LLMConfig(vocab_size=32096),
+        vl_bridge_type="mlp2x_gelu",
+        use_gdino=True,
+        gdino=GDinoConfig(),
+        use_unipose=True,
+        unipose=UniPoseConfig(),
+        use_sd=True,
+        sd=SDConfig(),
+        use_ip2p=True,
+        ip2p=IP2PConfig(),
+        use_region_encoder=True,
+        region_encoder=RegionEncoderConfig(),
+    )
+    base.update(overrides)
+    return VisionLLMConfig(**base)
 
 
 def vllm_7b_det_config(**overrides: Any) -> VisionLLMConfig:
@@ -248,8 +300,8 @@ def vllm_7b_perception_config(**overrides: Any) -> VisionLLMConfig:
     use_sd=False, use_ip2p=False, use_region_encoder=False)`, field for
     field: CLIP-ViT-L/336 + `mlp2x_gelu` + Vicuna-7B (vocab 32096) +
     Grounding-DINO and UniPose, each with Swin-T at its defaults (the
-    generation heads' configs are carried, as JAX carries them, and
-    off)."""
+    generation heads' and the region encoder's configs are carried, as
+    JAX carries them, and off)."""
     base = dict(
         vis_encoder=VisionEncoderConfig(),
         llm=LLMConfig(vocab_size=32096),
@@ -260,6 +312,7 @@ def vllm_7b_perception_config(**overrides: Any) -> VisionLLMConfig:
         unipose=UniPoseConfig(),
         sd=SDConfig(),
         ip2p=IP2PConfig(),
+        region_encoder=RegionEncoderConfig(),
     )
     base.update(overrides)
     return VisionLLMConfig(**base)
@@ -287,14 +340,15 @@ def vllm_7b_gen_config(**overrides: Any) -> VisionLLMConfig:
     the [GEN] head (`SDConfig()`: the LLM2SD mapper 4096 -> 768 with 77
     queries, the SD-1.5 UNet with 4 input channels and its VAE at 512 px,
     `sample_size` 64) and the [EDIT] head (`IP2PConfig()`: the same with
-    8 UNet input channels); the Grounding-DINO and UniPose configs are
-    carried, as JAX carries them, and off."""
+    8 UNet input channels); the Grounding-DINO, UniPose and region
+    encoder configs are carried, as JAX carries them, and off."""
     base = dict(
         vis_encoder=VisionEncoderConfig(),
         llm=LLMConfig(vocab_size=32096),
         vl_bridge_type="mlp2x_gelu",
         gdino=GDinoConfig(),
         unipose=UniPoseConfig(),
+        region_encoder=RegionEncoderConfig(),
         use_sd=True,
         sd=SDConfig(),
         use_ip2p=True,
@@ -335,7 +389,9 @@ def vllm_26b_det_config(**overrides: Any) -> VisionLLMConfig:
 
 def tiny_test_config(**overrides: Any) -> VisionLLMConfig:
     """A minuscule config for unit tests (same dims as the JAX package's
-    `tiny_test_config` for the fields kept here)."""
+    `tiny_test_config` for the fields kept here). The region encoder's
+    tiny config is carried and off: the parity tests load JAX trees
+    without `region_encoder` keys, and turn it on as an override."""
     base = dict(
         vis_encoder=VisionEncoderConfig(
             image_size=56, patch_size=14, hidden_size=32, intermediate_size=64,
@@ -355,6 +411,9 @@ def tiny_test_config(**overrides: Any) -> VisionLLMConfig:
             d_model=32, num_queries=20, encoder_layers=1, decoder_layers=3,
             num_heads=4, ffn_dim=64, text_dim=64, num_body_points=4,
             num_groups=5, max_obj_patches=8, max_kpt_patches=8),
+        region_encoder=RegionEncoderConfig(
+            hidden_dim=16, embed_dim=32, out_dim=64, patch_size=14,
+            num_sample_points=32),
         num_embs_gen=8,
         max_num_patches=10,
     )

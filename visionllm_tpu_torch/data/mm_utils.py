@@ -2,7 +2,10 @@
 prompt <-> token plumbing (counterpart of `visionllm_tpu/data/mm_utils.py`:
 `expand2square`, `resize_image`, `clip_preprocess`,
 `find_closest_aspect_ratio`, `dynamic_preprocess`,
-`tokenizer_image_token`, `expand_image_tokens`, `find_stop`).
+`tokenizer_image_token`, `expand_image_tokens`, `find_stop`; and of
+`visionllm_tpu/eval/region_eval.py`'s region helpers `region_str`,
+`boxes_to_masks` and `clip_region_masks`, which serving and the region
+eval share).
 
 The JAX package resizes with Pillow (or its native copy of Pillow's
 resampler). The port does without Pillow: `resize_image` repeats
@@ -22,7 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from visionllm_tpu_torch.constants import IMAGE_TOKEN_INDEX
+from visionllm_tpu_torch.constants import DEFAULT_TOKENS, IMAGE_TOKEN_INDEX
 
 # CLIP normalization constants (CLIPImageProcessor defaults)
 CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -284,3 +287,39 @@ def find_stop(text: str, stop_strs: Sequence[str]) -> Optional[int]:
         if i >= 0 and (pos is None or i < pos):
             pos = i
     return pos
+
+
+def region_str(n: int = 1, named: bool = True) -> str:
+    """'<reg>region1<region></reg>, ...' for n regions (the caption eval's
+    unnumbered '<reg>region<region></reg>' with named=False)."""
+    parts = [DEFAULT_TOKENS["sor"] + (f"region{i + 1}" if named
+                                      else "region")
+             + DEFAULT_TOKENS["reg"] + DEFAULT_TOKENS["eor"]
+             for i in range(n)]
+    return ", ".join(parts)
+
+
+def boxes_to_masks(boxes: np.ndarray, h: int, w: int) -> np.ndarray:
+    """xyxy boxes [N, 4] -> binary masks [N, h, w]: rows y0..ceil(y1),
+    columns x0..ceil(x1), the lower corner truncated."""
+    masks = np.zeros((len(boxes), h, w), np.float32)
+    for i, (x0, y0, x1, y1) in enumerate(boxes):
+        masks[i, int(y0):int(math.ceil(y1)), int(x0):int(math.ceil(x1))] = 1
+    return masks
+
+
+def clip_region_masks(masks: np.ndarray, image_size: int,
+                      aspect: str = "pad") -> np.ndarray:
+    """[R, H, W] original-geometry masks -> [R, image_size, image_size]
+    in the CLIP input's geometry: padded to a centred square with zeros
+    (aspect "pad", as `clip_preprocess` pads the image), resized by
+    nearest neighbour, thresholded at half."""
+    out = []
+    for m in masks:
+        m255 = (m[..., None] * 255).astype(np.uint8)
+        if aspect == "pad":
+            m255 = expand2square(m255, (0,))
+        out.append((resize_image(m255[..., 0], (image_size, image_size),
+                                 "nearest") > 127).astype(np.float32))
+    return np.stack(out) if out else np.zeros(
+        (0, image_size, image_size), np.float32)

@@ -148,9 +148,12 @@ def build_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
                       max_new_tokens: int = 256, eos_id: int = 2,
                       max_len: int = 4096, sampling: bool = False):
     """Returns the `generate(input_ids, images, first_token=None,
-    attn_mask=None, live=None)` closure of the JAX `build_generate_fn`.
+    attn_mask=None, live=None, regions=None)` closure of the JAX
+    `build_generate_fn`.
 
     input_ids [B, L]; images [N, H, W, 3] or [B, T, H, W, 3] or None;
+    `regions` [B, R, H, W] visual-prompt masks condition the prefill
+    through the region encoder (`VisionLLM.build_prompt_embeds`);
     `first_token` [B] overrides the first sampled token; `attn_mask`
     [B, L] marks valid prompt tokens of LEFT-padded batches (pads are
     excluded from attention in prefill and decode); `live` [B] marks real
@@ -169,11 +172,13 @@ def build_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
                  attn_mask: Optional[torch.Tensor] = None,
                  live: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
-                 temperature=None, top_p=None) -> Dict[str, Any]:
+                 temperature=None, top_p=None,
+                 regions: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         B, L = input_ids.shape
         dev = input_ids.device
         cache = core.new_cache(B, max_len)
-        out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache)
+        out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache,
+                   regions=regions)
         last = out["logits"][:, -1, :]
         if sampling:
             if generator is None:
@@ -273,7 +278,8 @@ def build_speculative_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
     """Speculative greedy decoding (JAX `generation.py:339-607`): the same
     tokens and hidden states as `build_generate_fn`, usually in fewer
     forwards. Returns `generate(input_ids [1, L], images,
-    first_token=None, attn_mask=None)`, whose dict adds `num_windows` to
+    first_token=None, attn_mask=None, regions=None)` (`regions` into the
+    prefill, as in `build_generate_fn`), whose dict adds `num_windows` to
     `build_generate_fn`'s keys.
 
     Each window is one cached extend forward (`VisionLLM.llm_window`) of
@@ -310,7 +316,8 @@ def build_speculative_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
     @torch.no_grad()
     def generate(input_ids: torch.Tensor, images: Optional[torch.Tensor],
                  first_token: Optional[int] = None,
-                 attn_mask: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                 attn_mask: Optional[torch.Tensor] = None,
+                 regions: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         B, L = input_ids.shape
         if B != 1:
             raise ValueError("speculative decoding is single-sequence "
@@ -318,7 +325,8 @@ def build_speculative_generate_fn(core: VisionLLM, tid: SpecialTokenIds, *,
         dev = input_ids.device
         buf = L + max_new_tokens + W + 2
         cache = core.new_cache(1, max_len)
-        out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache)
+        out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache,
+                   regions=regions)
         last = out["logits"][:, -1, :]
         first = torch.argmax(last, dim=-1).to(torch.int32)
         if first_token is not None:

@@ -86,16 +86,17 @@ def pose_prompt(keypoint_names: Sequence[str],
 
 
 def prompt_ids(tokenizer, question: str, answer: str, *,
-               image_size: int = 336, conv_version: str = "v1",
+               image_tokens: int = 576, conv_version: str = "v1",
                model_max_length: int = 4096) -> np.ndarray:
     """The test-mode conversation's ids (the <image> sentinel expanded to
-    the vision encoder's patches), right-padded to a multiple of 32."""
+    `image_tokens` <im_patch> ids: `VisionLLMConfig.image_token_len`,
+    576 for CLIP-L/336), right-padded to a multiple of 32."""
     conversations = [{"from": "human", "value": question},
                      {"from": "gpt", "value": answer}]
     tok = preprocess(
         preprocess_multimodal([conversations]), tokenizer,
         version=conv_version, has_image=True,
-        image_token_len=(image_size // 14) ** 2,
+        image_token_len=image_tokens,
         model_max_length=model_max_length)
     ids = np.asarray(tok["input_ids"][0], np.int64)
     pad = (-len(ids)) % 32
@@ -167,7 +168,7 @@ class Predictor:
             self.test_scale, self.buckets)
         clip_img = clip_preprocess(image, self.image_size)
         ids = prompt_ids(self.tokenizer, question, answer,
-                         image_size=self.image_size,
+                         image_tokens=self.cfg.image_token_len,
                          conv_version=self.conv_version,
                          model_max_length=self.model_max_length)
         dev = self.device

@@ -1,5 +1,5 @@
-"""Shared building blocks: RMSNorm, rotary embeddings, MLPs, and the
-seeded random init used when no checkpoint is loaded.
+"""Shared building blocks: RMSNorm, rotary embeddings, flax's dtype-casting
+conv, MLPs, and the seeded random init used when no checkpoint is loaded.
 
 Counterpart of `visionllm_tpu/models/common.py`. Parameter names follow
 the flax ones so `utils/convert.py` maps a flax tree mechanically.
@@ -72,6 +72,13 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     q_out = q * cos_b + _rotate_half(q) * sin_b
     k_out = k * cos_b + _rotate_half(k) * sin_b
     return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
+class Conv(nn.Conv2d):
+    """flax `nn.Conv(dtype=...)`: the input cast to the weight's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
 
 
 class MLP(nn.Module):

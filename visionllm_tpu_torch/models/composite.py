@@ -1,16 +1,18 @@
-"""Composite model: VisionLLM core + Grounding-DINO + UniPose + the
-[GEN] and [EDIT] heads in one module tree, with the det-VQA inference
-entry `infer_det`, the pose inference entry `infer_pose` and the det
-training forward `forward_det` (counterpart of
-`visionllm_tpu/models/composite.py:39-55`, `:73-97`, `:158-180`). The
+"""Composite model: VisionLLM core (with the region encoder when the
+config turns it on) + Grounding-DINO + UniPose + the [GEN] and [EDIT]
+heads in one module tree, with the det-VQA inference entry `infer_det`
+(region prompts through `regions`), the pose inference entry
+`infer_pose` and the det training forward `forward_det` (counterpart of
+`visionllm_tpu/models/composite.py:39-55`, `:73-97`, `:156-180`). The
 heads' inference entries are their own `generate` methods (`model.sd`,
 `model.ip2p`).
 
 `build_model` is the entry point: it builds the model on CUDA unless the
 caller names another device, in the requested dtype (bf16 by default, as
 the JAX package deploys the whole composite), with weights drawn from a
-seeded `torch.Generator`; the heads' mapper and GroupNorms stay fp32, as
-flax computes them. `build_core` does the same for the `VisionLLM`
+seeded `torch.Generator`; the heads' mappers and norms and the region
+encoder's LayerNorms stay fp32, as flax keeps them (`fp32_modules`).
+`build_core` does the same for the `VisionLLM`
 core alone (the chat path) and quantizes its LLM when `cfg.llm.quant`
 is "int4", "int8" or "w8a8". Load real weights with
 `utils.convert.load_jax_params`.
@@ -59,7 +61,9 @@ class VisionLLMWithTools(nn.Module):
 
     def fp32_modules(self):
         """The modules that keep fp32 parameters under a bf16 model: the
-        generation heads' mappers and GroupNorms."""
+        region encoder's LayerNorms and the generation heads' mappers,
+        GroupNorms and LayerNorms."""
+        yield from self.core.fp32_modules()
         for head in (self.sd, self.ip2p):
             if head is not None:
                 yield from head.fp32_modules()
@@ -74,15 +78,19 @@ class VisionLLMWithTools(nn.Module):
     @torch.no_grad()
     def infer_det(self, input_ids: torch.Tensor, images: torch.Tensor,
                   images_aug: torch.Tensor, tid: SpecialTokenIds,
-                  pixel_mask: Optional[torch.Tensor] = None
+                  pixel_mask: Optional[torch.Tensor] = None,
+                  regions: Optional[torch.Tensor] = None
                   ) -> Dict[str, torch.Tensor]:
         """Single-image det given a ready prompt: ViT encode -> bridge ->
         LLM prefill -> [EMB] text queries -> Grounding-DINO.
 
         input_ids [B, L]; images [N, H, W, 3] CLIP pixels (NHWC);
-        images_aug [B, H', W', 3] det pixels (NHWC)."""
+        images_aug [B, H', W', 3] det pixels (NHWC); `regions`
+        [B, R, H, W] visual-prompt masks for the prompt's <region>
+        tokens."""
         gdino = self._tool("gdino")
-        out = self.core(input_ids, images, tid, compute_logits=False)
+        out = self.core(input_ids, images, tid, compute_logits=False,
+                        regions=regions)
         tq, tq_mask = self.core.extract_text_query(out["hidden"], input_ids,
                                                    tid)
         return gdino(images_aug, tq, tq_mask, pixel_mask=pixel_mask)
@@ -164,7 +172,8 @@ def build_core(cfg: VisionLLMConfig, *,
                dtype: torch.dtype = torch.bfloat16,
                seed: int = 0) -> VisionLLM:
     """Build the `VisionLLM` core alone on `device` (CUDA when None;
-    raises when there is none) in `dtype` with seeded random weights.
+    raises when there is none) in `dtype` (`fp32_modules` in fp32) with
+    seeded random weights.
     With `cfg.llm.quant` set the LLM is drawn in `dtype` and then
     quantized one Linear at a time (`quantize_serving_params`: int4, or
     int8 for "int8" and "w8a8")."""
@@ -172,8 +181,10 @@ def build_core(cfg: VisionLLMConfig, *,
     dense_cfg = dataclasses.replace(
         cfg, llm=dataclasses.replace(cfg.llm, quant=""))
     with torch.device("meta"):
-        core = VisionLLM(dense_cfg)
-    core = core.to(dtype=dtype).to_empty(device=dev)
+        core = VisionLLM(dense_cfg).to(dtype=dtype)
+        for mod in core.fp32_modules():
+            mod.float()
+    core = core.to_empty(device=dev)
     init_weights(core, torch.Generator(device=dev).manual_seed(seed))
     if cfg.llm.quant:
         quantize_serving_params(core, bits=4 if cfg.llm.quant == "int4"

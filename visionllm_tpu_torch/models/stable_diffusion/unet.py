@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from visionllm_tpu_torch.models.common import FLAX_LN_EPS
+from visionllm_tpu_torch.models.common import FLAX_LN_EPS, Conv
 
 
 @dataclass(frozen=True)
@@ -70,13 +70,6 @@ class GroupNorm32(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.group_norm(x.float(), self.num_groups, self.weight.float(),
                             self.bias.float(), self.eps)
-
-
-class Conv(nn.Conv2d):
-    """flax `nn.Conv(dtype=...)`: the input cast to the weight's dtype."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
 
 
 class Dense(nn.Linear):

@@ -5,7 +5,9 @@ Counterpart of `visionllm_tpu/models/visionllm.py` for the det, chat and
 generation paths: the vision tower (CLIP-ViT, or InternViT with pixel shuffle
 before the bridge), token embeddings, the [EMB]-table splice, the <im_patch>
 image-feature scatter (flattened for [N, H, W, 3] images, per sample for
-[B, T, H, W, 3] tile stacks), the LLM prefill with an optional KV cache,
+[B, T, H, W, 3] tile stacks), the region encoder's <region> rows
+(`encode_regions`, from the last three ViT levels of the same vision
+pass), the LLM prefill with an optional KV cache,
 the decode step `llm_step`, the cached extend window `llm_window`,
 `new_cache` (an int8 one under `kv_quant="int8"`), `extract_text_query`
 and `extract_gen_embs`. Every step is a
@@ -25,6 +27,8 @@ from visionllm_tpu_torch.config import VisionLLMConfig
 from visionllm_tpu_torch.models.clip_vit import ClipVisionTower
 from visionllm_tpu_torch.models.intern_vit import InternVisionTower
 from visionllm_tpu_torch.models.llama import KVCache, LlamaModel
+from visionllm_tpu_torch.models.region_encoder import (LayerNorm2d,
+                                                       RegionEncoder)
 from visionllm_tpu_torch.models.vl_bridge import VLBridge, pixel_shuffle
 
 
@@ -129,6 +133,15 @@ class VisionLLM(nn.Module):
             torch.zeros(cfg.num_embs_gen, hid))
         self.emb_embeddings_edit = nn.Parameter(
             torch.zeros(cfg.num_embs_gen, hid))
+        self.region_encoder = (RegionEncoder(cfg.region_encoder)
+                               if cfg.use_region_encoder else None)
+
+    def fp32_modules(self):
+        """The modules that keep fp32 parameters under a bf16 core: the
+        region encoder's channel LayerNorms (flax creates them fp32)."""
+        if self.region_encoder is not None:
+            yield from (m for m in self.region_encoder.modules()
+                        if isinstance(m, LayerNorm2d))
 
     def encode_images(self, images: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -150,6 +163,17 @@ class VisionLLM(nn.Module):
 
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.llm.embed(input_ids)
+
+    def encode_regions(self, images: torch.Tensor, region_masks: torch.Tensor,
+                       vit_hs: torch.Tensor, image_index: torch.Tensor
+                       ) -> torch.Tensor:
+        """Region features [n_reg, hid] for <region> tokens: images
+        [n_reg, H, W, 3] (each region's image), masks [n_reg, H, W], the
+        ViT hidden states `encode_images` returned and, per region, the
+        index of its image in them; the last three levels with the CLS
+        row dropped (no second ViT pass)."""
+        feats = [vit_hs[lvl][image_index, 1:] for lvl in (-3, -2, -1)]
+        return self.region_encoder(images, region_masks, feats)
 
     def new_cache(self, batch: int, max_len: int) -> KVCache:
         """An empty KV cache for this core on its device: int8 with
@@ -243,23 +267,37 @@ class VisionLLM(nn.Module):
 
     def build_prompt_embeds(self, input_ids: torch.Tensor,
                             images: Optional[torch.Tensor],
-                            tid: SpecialTokenIds
+                            tid: SpecialTokenIds,
+                            regions: Optional[torch.Tensor] = None,
+                            region_features: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Token embeddings + [EMB] splice + image-feature scatter
         (per sample for [B, T, H, W, 3] tile stacks, as at
-        `visionllm.py:405-415` of the JAX package). Returns
+        `visionllm.py:405-415` of the JAX package) + region rows. Returns
         (inputs_embeds, ignore_flag): the flag is 1.0 when the
         <im_patch> count does not fit the image features (more than the
         tile stack holds, or not exactly the flat images' count), which
         zeroes the LM loss instead of training on misaligned features
-        (JAX `visionllm.py:385-404`), else 0.0."""
+        (JAX `visionllm.py:385-404`), else 0.0.
+
+        `regions` [B, R, H, W] are binary prompt masks on each sample's
+        image (the last tile of a stack, its global view): every slot
+        runs through the region encoder, the empty ones are compacted
+        away, and the valid rows fill the <region> tokens in flattened
+        order (JAX `visionllm.py:419-440`). `region_features` [n, hid]
+        fill them directly."""
         inputs_embeds = self.embed_tokens(input_ids)
         inputs_embeds = self.splice_emb_embeddings(inputs_embeds, input_ids,
                                                    tid)
         ignore_flag = torch.zeros((), dtype=torch.float32,
                                   device=input_ids.device)
+        if regions is not None and (self.region_encoder is None
+                                    or images is None):
+            raise ValueError("region prompts need a region encoder "
+                             "(use_region_encoder=True) and the images "
+                             "they refer to")
         if images is not None:
-            image_features, _ = self.encode_images(images)
+            image_features, vit_hs = self.encode_images(images)
             n_imp = (input_ids == tid.imp).sum()
             expected = image_features.shape[0] * image_features.shape[1]
             bad = n_imp > expected if images.ndim == 5 else n_imp != expected
@@ -273,17 +311,45 @@ class VisionLLM(nn.Module):
             else:
                 inputs_embeds = self.scatter_image_features(
                     inputs_embeds, input_ids, image_features, tid.imp)
+        if regions is not None:
+            B, R = regions.shape[:2]
+            dev = input_ids.device
+            if images.ndim == 5:        # a tile stack: the last tile
+                T = images.shape[1]
+                base = images[:, -1]
+                sample_idx = (torch.arange(B, device=dev) + 1) * T - 1
+            else:
+                base = images
+                sample_idx = torch.arange(B, device=dev)
+            masks = regions.reshape(B * R, *regions.shape[2:])
+            feats = self.encode_regions(
+                base.repeat_interleave(R, dim=0), masks, vit_hs,
+                sample_idx.repeat_interleave(R))              # [B*R, hid]
+            valid = masks.reshape(B * R, -1).sum(-1) > 0
+            rows, _ = compact_masked_rows(feats[None], valid[None], B * R)
+            inputs_embeds = self.scatter_image_features(
+                inputs_embeds, input_ids, rows[0][:, None, :], tid.reg)
+        if region_features is not None:
+            inputs_embeds = self.scatter_image_features(
+                inputs_embeds, input_ids, region_features[:, None, :],
+                tid.reg)
         return inputs_embeds, ignore_flag
 
     def forward(self, input_ids: torch.Tensor, images: Optional[torch.Tensor],
                 tid: SpecialTokenIds, attn_mask: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
-                compute_logits: bool = True) -> Dict[str, torch.Tensor]:
+                compute_logits: bool = True,
+                regions: Optional[torch.Tensor] = None,
+                region_features: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
         """Returns dict(hidden, logits, ignore_flag): the prefill over the
-        assembled prompt; a given cache is filled from its index on."""
-        inputs_embeds, ignore_flag = self.build_prompt_embeds(input_ids,
-                                                              images, tid)
+        assembled prompt (with the region rows of `regions` [B, R, H, W]
+        or `region_features`, `build_prompt_embeds`); a given cache is
+        filled from its index on."""
+        inputs_embeds, ignore_flag = self.build_prompt_embeds(
+            input_ids, images, tid, regions=regions,
+            region_features=region_features)
         if positions is None:
             B, L = input_ids.shape
             positions = torch.arange(L, device=input_ids.device).expand(B, L)

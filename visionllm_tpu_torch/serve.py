@@ -1,6 +1,6 @@
 """Chat serving: `ChatService` with request micro-batching or continuous
 batching, and a minimal HTTP front for chat and perception (counterpart
-of `visionllm_tpu/serve.py` without region prompts).
+of `visionllm_tpu/serve.py`).
 
 * `ChatService` owns a built `VisionLLM` core and a tokenizer. Prompts
   are LEFT-padded to `max_prompt` under an attention mask (exact: RoPE is
@@ -27,6 +27,15 @@ of `visionllm_tpu/serve.py` without region prompts).
   depend on its neighbours. `sessions=M` parks a finished session turn's
   KV, and the next turn of that session runs only its new tokens
   (`session_chunk`-wide windows). `generate_stream` yields text deltas.
+* Region prompts (a config with `use_region_encoder`): `regions=[...]`,
+  each an xyxy box [4] or a binary mask [H, W] in the original image's
+  geometry, fill the conversation's one `<regions>` placeholder with
+  '<reg>region1<region></reg>, ...'. The masks go to the CLIP geometry,
+  padded with empty ones to [max_regions, S, S], and condition the
+  prefill through the region encoder (B1 dispatch, speculative, slots
+  with B1 or chunked admissions). Micro-batching with `max_batch > 1`
+  refuses them, and a session turn reuses its parked KV only with the
+  same region masks.
 
 Endpoints (`make_server`)
   GET  /healthz      -> {"ok": true, "model": ..., "devices": [...]}
@@ -59,15 +68,16 @@ most 32 perception requests wait or run at once: the next is shed with a
 503, as /v1/generate sheds when its queue is full. Floats are rounded to
 5 decimals; masks are COCO-compressed RLE (`ops/rle.py`).
 
-Not ported: region prompts (refused with the JAX service's ValueError,
-or NotImplementedError for a config with a region encoder). The
-constructor refuses mode conflicts, and chunked prefill or sessions on an
-int8 KV cache, with the JAX service's ValueErrors. `close()` stops the service: a later `generate` raises
-RuntimeError, and no queued, backlogged, decoding or streaming request
-is left waiting (the JAX slot loop leaves them, `serve.py:706`). A parked
-session's fill index is the host's count, so a follow-up turn lands
-right after its cached prefix even after a length stop inside a decode
-span (the JAX scheduler overshoots there, `serve.py:642`).
+The constructor refuses mode conflicts, and chunked prefill or sessions
+on an int8 KV cache, with the JAX service's ValueErrors, and an
+`image_size` other than the config's (JAX counts (image_size // 14) ** 2
+image tokens whatever the encoder yields; the port counts
+`cfg.image_token_len`). `close()` stops the service: a later `generate`
+raises RuntimeError, and no queued, backlogged, decoding or streaming
+request is left waiting (the JAX slot loop leaves them, `serve.py:706`).
+A parked session's fill index is the host's count, so a follow-up turn
+lands right after its cached prefix even after a length stop inside a
+decode span (the JAX scheduler overshoots there, `serve.py:642`).
 """
 
 from __future__ import annotations
@@ -87,9 +97,11 @@ import torch
 
 from visionllm_tpu_torch.constants import DEFAULT_TOKENS
 from visionllm_tpu_torch.data.conversation import get_conv_template
-from visionllm_tpu_torch.data.mm_utils import (clip_preprocess,
+from visionllm_tpu_torch.data.mm_utils import (boxes_to_masks,
+                                               clip_preprocess,
+                                               clip_region_masks,
                                                expand_image_tokens,
-                                               find_stop,
+                                               find_stop, region_str,
                                                tokenizer_image_token)
 from visionllm_tpu_torch.device import resolve_device
 from visionllm_tpu_torch.generation import (build_generate_fn,
@@ -115,13 +127,15 @@ def _image_key(image: Optional[np.ndarray]) -> Optional[str]:
 class _Request:
     __slots__ = ("ids", "image", "event", "tokens", "logprobs", "error",
                  "stream_q", "temperature", "top_p", "seed", "session",
-                 "session_hit")
+                 "session_hit", "regions")
 
     def __init__(self, ids: np.ndarray, image: Optional[np.ndarray],
                  temperature: float = 0.0, top_p: float = 1.0,
-                 seed: Optional[int] = None, session: Optional[str] = None):
+                 seed: Optional[int] = None, session: Optional[str] = None,
+                 regions: Optional[np.ndarray] = None):
         self.ids = ids
         self.image = image           # preprocessed [S, S, 3] or None
+        self.regions = regions       # [max_regions, S, S] masks or None
         self.event = threading.Event()
         self.tokens: Optional[np.ndarray] = None
         self.logprobs: Optional[np.ndarray] = None
@@ -149,11 +163,12 @@ class ChatService:
     """One built core + tokenizer; thread-safe generation with request
     micro-batching or continuous-batching slots (see the module
     docstring). The core must live on `device` (CUDA unless given; raises
-    when there is none). `max_regions` bounds region prompts, which are
-    not ported; it is taken for the JAX service's signature."""
+    when there is none). `image_size` defaults to the config's and must
+    equal it; `max_regions` bounds the regions of a request."""
 
     def __init__(self, cfg, core: VisionLLM, tokenizer, *,
-                 image_size: int = 336, conv_version: str = "vicuna_v1",
+                 image_size: Optional[int] = None,
+                 conv_version: str = "vicuna_v1",
                  max_new_tokens: int = 256, max_prompt: int = 1024,
                  max_batch: int = 1, batch_window_ms: float = 4.0,
                  spec_k: int = 0, slots: int = 0, prefill_chunk: int = 0,
@@ -201,6 +216,13 @@ class ChatService:
                 "session reuse with an int8 KV cache is not exact: the "
                 "extend window reads the cache back — run --sessions "
                 "without --kv-quant")
+        if image_size is None:
+            image_size = cfg.vis_encoder.image_size
+        if image_size != cfg.vis_encoder.image_size:
+            raise ValueError(
+                f"image_size {image_size} is not the vision encoder's "
+                f"{cfg.vis_encoder.image_size}: the prompt's image tokens "
+                "must match its features")
         self.device = resolve_device(device)
         dev_of_core = next(core.parameters()).device
         if dev_of_core.type != self.device.type:
@@ -210,6 +232,7 @@ class ChatService:
         self.core = core
         self.tokenizer = tokenizer
         self.image_size = image_size
+        self.max_regions = max_regions
         self.conv_version = conv_version
         self.max_prompt = max_prompt
         self.max_new_tokens = max_new_tokens
@@ -218,7 +241,7 @@ class ChatService:
         self.slots = slots
         self.spec_k = spec_k
         self.sampling = sampling
-        self.img_len = (image_size // 14) ** 2
+        self.img_len = cfg.image_token_len
         self.tid = SpecialTokenIds.from_tokenizer(tokenizer)
         eos = getattr(tokenizer, "eos_token_id", None)
         self.eos_id = 2 if eos is None else int(eos)
@@ -373,12 +396,14 @@ class ChatService:
     # ---- request assembly (caller thread) ----
 
     def _encode(self, prompt: str, image: Optional[np.ndarray],
-                history: Optional[List] = None):
+                history: Optional[List] = None, num_regions: int = 0):
         """`history`: prior turns as [user, assistant, ...] strings or
         [{"role", "content"}, ...], rendered through the conversation
         template ahead of the new prompt; <image> attaches to the first
-        user turn. Returns (ids int32 [<= max_prompt], pixels or None,
-        conversation)."""
+        user turn. With `num_regions` the conversation's one <regions>
+        placeholder (a history turn may hold it: clients echo their first
+        prompt back) becomes `region_str(num_regions)`. Returns (ids
+        int32 [<= max_prompt], pixels or None, conversation)."""
         conv = get_conv_template(self.conv_version)
         turns: List[str] = []
         for i, h in enumerate(history or []):
@@ -394,6 +419,16 @@ class ChatService:
         if len(turns) % 2:
             raise ValueError("history must end with an assistant turn")
         turns.append(prompt)
+        if num_regions:
+            if sum(t.count("<regions>") for t in turns) != 1:
+                raise ValueError(
+                    "region-prompted requests must place exactly one "
+                    "<regions> placeholder in the conversation (e.g. "
+                    "'What is <regions>?'); it expands to the region "
+                    "token structure for all passed regions")
+            i = next(i for i, t in enumerate(turns) if "<regions>" in t)
+            turns[i] = turns[i].replace("<regions>",
+                                        region_str(num_regions), 1)
         if image is not None:
             turns[0] = "<image>\n" + turns[0]
         for i, text in enumerate(turns):
@@ -408,25 +443,63 @@ class ChatService:
             img = clip_preprocess(image, self.image_size, "pad")
         return np.asarray(ids, np.int32)[-self.max_prompt:], img, conv
 
-    def _check_regions(self, regions: Optional[List]) -> None:
-        """The JAX service's first region check: a config without a
-        region encoder refuses region prompts."""
+    def _check_regions(self, regions: Optional[List],
+                       image: Optional[np.ndarray]) -> Optional[np.ndarray]:
+        """The JAX service's region checks, in its order and words; the
+        padded masks (`_region_masks`), or None without regions."""
         if regions is None:
-            return
-        if not getattr(self.cfg, "use_region_encoder", False):
+            return None
+        if not self.cfg.use_region_encoder:
             raise ValueError("this model config has no RegionEncoder "
                              "(use_region_encoder=False)")
-        raise NotImplementedError("region prompts are not ported")
+        if image is None:
+            raise ValueError("region prompts need the image they "
+                             "refer to (pass image/image_b64)")
+        if self.max_batch > 1:
+            raise ValueError(
+                "region prompts are not supported with request "
+                "micro-batching — serve with --max-batch 1 or --slots")
+        return self._region_masks(regions, image)
+
+    def _region_masks(self, regions: List, image: np.ndarray) -> np.ndarray:
+        """Regions, each an xyxy box [4] or a binary mask [H, W] in the
+        original image's geometry -> [max_regions, S, S] masks in the CLIP
+        input's geometry, the slots past the request's regions empty
+        (the device compacts them away)."""
+        h, w = image.shape[:2]
+        masks = []
+        for r in regions:
+            r = np.asarray(r, np.float32)
+            if r.ndim == 1 and r.shape[0] == 4:
+                masks.append(boxes_to_masks(r[None], h, w)[0])
+            elif r.ndim == 2 and r.shape == (h, w):
+                masks.append((r > 0).astype(np.float32))
+            else:
+                raise ValueError(
+                    f"each region must be an xyxy box [4] or a mask "
+                    f"matching the image [{h}, {w}]; got {r.shape}")
+        if not 0 < len(masks) <= self.max_regions:
+            raise ValueError(
+                f"1..{self.max_regions} regions supported per request "
+                f"(max_regions), got {len(masks)}")
+        out = np.zeros((self.max_regions, self.image_size,
+                        self.image_size), np.float32)
+        out[:len(masks)] = clip_region_masks(np.stack(masks),
+                                              self.image_size)
+        return out
 
     def _check_request(self, temperature: float, session: Optional[str],
-                       regions: Optional[List], sampling_hint: str) -> None:
+                       regions: Optional[List], image: Optional[np.ndarray],
+                       sampling_hint: str) -> Optional[np.ndarray]:
+        """The JAX service's request checks, in its order; returns the
+        padded region masks (or None)."""
         if temperature > 0 and not self.sampling:
             raise ValueError("temperature > 0 requires a sampling "
                              f"server ({sampling_hint})")
         if session is not None and self.max_sessions <= 0:
             raise ValueError("session KV reuse requires a session "
                              "server (serve --slots N --sessions M)")
-        self._check_regions(regions)
+        return self._check_regions(regions, image)
 
     def generate(self, prompt: str, image: Optional[np.ndarray] = None,
                  max_new_tokens: Optional[int] = None,
@@ -438,12 +511,15 @@ class ChatService:
                  regions: Optional[List] = None) -> dict:
         """One answer. Temperature > 0 needs a sampling server, a session
         a session server (the JAX service's ValueErrors); `top_p` and
-        `seed` are read only when sampling."""
-        self._check_request(temperature, session, regions,
-                            "ChatService(sampling=True) / serve --sampling")
-        ids, img, conv = self._encode(prompt, image, history)
+        `seed` are read only when sampling. `regions` (boxes [4] or masks
+        [H, W] on `image`) fill the prompt's <regions> placeholder."""
+        regs = self._check_request(
+            temperature, session, regions, image,
+            "ChatService(sampling=True) / serve --sampling")
+        ids, img, conv = self._encode(prompt, image, history,
+                                      num_regions=len(regions or ()))
         req = _Request(ids, img, temperature=temperature, top_p=top_p,
-                       seed=seed, session=session)
+                       seed=seed, session=session, regions=regs)
         t0 = time.perf_counter()
         self._submit(req)
         req.event.wait()
@@ -488,11 +564,12 @@ class ChatService:
         if self.slots <= 0:
             raise ValueError("streaming requires continuous batching "
                              "(slots > 0)")
-        self._check_request(temperature, session, regions,
-                            "serve --sampling")
-        ids, img, conv = self._encode(prompt, image, history)
+        regs = self._check_request(temperature, session, regions, image,
+                                   "serve --sampling")
+        ids, img, conv = self._encode(prompt, image, history,
+                                      num_regions=len(regions or ()))
         r = _Request(ids, img, temperature=temperature, top_p=top_p,
-                     seed=seed, session=session)
+                     seed=seed, session=session, regions=regs)
         r.stream_q = queue.Queue()
         stop = conv.sep2 or conv.sep
         limit = min(max_new_tokens or self.max_new_tokens,
@@ -533,8 +610,9 @@ class ChatService:
         """(slot, delta ids, previous fill) when `r` can extend its parked
         session, else None after evicting the stale entry. Reuse needs the
         new ids to start with the EXACT cached prefix, the same image
-        pixels (the <image> placeholder expands to the same ids for any
-        pixels), a delta free of image, region and [EMB] tokens (those
+        pixels and region masks (the <image> and <regions> placeholders
+        expand to the same ids for any pixels and masks), a delta free
+        of image, region and [EMB] tokens (those
         need the prompt assembly), and room in the KV buffer for the
         window-padded delta plus a full answer."""
         ent = self._sessions.get(r.session)
@@ -543,7 +621,8 @@ class ChatService:
         cached, ids = ent["ids"], np.asarray(r.ids, np.int32)
         ok = (len(ids) > len(cached)
               and bool(np.array_equal(ids[:len(cached)], cached))
-              and ent["img"] == _image_key(r.image))
+              and ent["img"] == _image_key(r.image)
+              and ent["reg"] == _image_key(r.regions))
         if ok:
             delta = ids[len(cached):]
             guard = {self.tid.img, self.tid.imp, self.tid.reg} | set(
@@ -595,7 +674,8 @@ class ChatService:
             "slot": slot,
             "ids": np.concatenate([np.asarray(r.ids, np.int32),
                                    np.asarray(stream[:-1], np.int32)]),
-            "img": _image_key(r.image), "fill": fill, "stamp": self._stamp}
+            "img": _image_key(r.image), "reg": _image_key(r.regions),
+            "fill": fill, "stamp": self._stamp}
         self._slot_sid[slot] = r.session
         while len(self._sessions) > self.max_sessions:
             self._evict_lru_session()
@@ -713,6 +793,7 @@ class ChatService:
         slot = free[0]
         L, dev = self.max_prompt, self.device
         ids, img, mask, _ = self._pack([r])     # max_batch is 1 here
+        regs = self._regions_arg([r])
         sample_kw = {}
         if self.sampling:
             self._seed_counter += 1
@@ -724,7 +805,7 @@ class ChatService:
             # chunked admission: the live slots decode between windows,
             # so a long prompt stalls them one window, not the prefill
             C = self.prefill_chunk
-            emb = self._chunk_embed(ids, img)
+            emb = self._chunk_embed(ids, img, regions=regs)
             cache_row = self._chunk_row()
             valid = torch.ones(self.slot_max_len, dtype=torch.bool,
                                device=dev)
@@ -740,7 +821,8 @@ class ChatService:
             pre = {"first": first[0], "embed": embed, "logprob": first_lp,
                    "cache": cache_row, "valid": valid}
         else:
-            pre = self._slot_prefill(ids, img, mask, **sample_kw)
+            pre = self._slot_prefill(ids, img, mask, regions=regs,
+                                     **sample_kw)
         ins_kw = {}
         if self.sampling:
             ins_kw = dict(temperature=float(r.temperature),
@@ -862,6 +944,15 @@ class ChatService:
         return (torch.from_numpy(ids).to(dev), torch.from_numpy(imgs).to(dev),
                 torch.from_numpy(mask).to(dev), torch.from_numpy(live).to(dev))
 
+    def _regions_arg(self, batch: List[_Request]
+                     ) -> Optional[torch.Tensor]:
+        """The [1, max_regions, S, S] region masks of a call whose request
+        carries regions (such a call holds one request), else None."""
+        for r in batch:
+            if r.regions is not None:
+                return torch.from_numpy(r.regions[None]).to(self.device)
+        return None
+
     def _sample_kw(self, batch: List[_Request]) -> dict:
         """A sampling server's generate arguments for one call: one
         generator per call (per-request seeds hold at batch size 1),
@@ -884,16 +975,17 @@ class ChatService:
         """One [max_batch] generate call; returns per request (tokens up
         to and including EOS, their logprobs)."""
         ids, imgs, mask, live = self._pack(batch)
+        regs = self._regions_arg(batch)
         if self.spec_k > 0:
             # latency mode: B = 1, speculative windows; a text-only
             # request skips the vision encoder
             out = self.generate_fn(
                 ids, None if batch[0].image is None else imgs,
-                attn_mask=mask)
+                attn_mask=mask, regions=regs)
         else:
             kw = self._sample_kw(batch) if self.sampling else {}
             out = self.generate_fn(ids, imgs, attn_mask=mask, live=live,
-                                   **kw)
+                                   regions=regs, **kw)
         n_gen = int(out["num_generated"])
         if self.spec_k > 0:
             self._track_spec_acceptance(n_gen, int(out["num_windows"]))

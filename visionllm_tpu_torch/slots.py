@@ -109,13 +109,16 @@ def build_slot_fns(core: VisionLLM, tid: SpecialTokenIds, *, n_slots: int,
                 first_token: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
                 temperature: Optional[float] = None,
-                top_p: Optional[float] = None) -> Dict[str, Any]:
-        """[1, Lp] prompt -> first token (0-d int32), its embedding
-        [1, 1, C], its logprob, the one-row cache (index Lp), the
-        buffer-valid mask [max_len] (prompt pads invisible forever) and,
-        sampling, the generator it drew from (seed 0 when None)."""
+                top_p: Optional[float] = None,
+                regions: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """[1, Lp] prompt (and its `regions` [1, R, H, W] prompt masks)
+        -> first token (0-d int32), its embedding [1, 1, C], its logprob,
+        the one-row cache (index Lp), the buffer-valid mask [max_len]
+        (prompt pads invisible forever) and, sampling, the generator it
+        drew from (seed 0 when None)."""
         cache = core.new_cache(1, max_len)
-        out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache)
+        out = core(input_ids, images, tid, attn_mask=attn_mask, cache=cache,
+                   regions=regions)
         last = out["logits"][:, -1, :]
         if sampling:
             if generator is None:
@@ -304,8 +307,9 @@ def build_chunked_prefill_fns(core: VisionLLM, tid: SpecialTokenIds, *,
 
     Returns (new_row_cache, embed_prompt, prefill_chunk, finish):
       * new_row_cache() -> an empty one-row cache (index 0);
-      * embed_prompt(ids [1, Lp], images) -> the multimodal embedding
-        assembly (vision encode and scatters), Lp a multiple of `chunk`;
+      * embed_prompt(ids [1, Lp], images, regions=None) -> the multimodal
+        embedding assembly (vision encode, region encode and scatters),
+        Lp a multiple of `chunk`;
       * prefill_chunk(emb_chunk [1, chunk, C], cache_row, valid_row) ->
         (cache_row, last_logits [1, V]): one window, in place;
       * finish(last_logits) -> (first [1], embed [1, 1, C], logprob)."""
@@ -314,9 +318,10 @@ def build_chunked_prefill_fns(core: VisionLLM, tid: SpecialTokenIds, *,
         return core.new_cache(1, max_len)
 
     @torch.no_grad()
-    def embed_prompt(input_ids: torch.Tensor,
-                     images: Optional[torch.Tensor]) -> torch.Tensor:
-        return core.build_prompt_embeds(input_ids, images, tid)[0]
+    def embed_prompt(input_ids: torch.Tensor, images: Optional[torch.Tensor],
+                     regions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return core.build_prompt_embeds(input_ids, images, tid,
+                                        regions=regions)[0]
 
     @torch.no_grad()
     def prefill_chunk(emb_chunk: torch.Tensor, cache_row: KVCache,
