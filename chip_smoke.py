@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels flash_bwd,msda_bwd   # checks alone
     python3 chip_smoke.py --phase flagship               # one model phase
+    python3 chip_smoke.py --phase eval                   # the eval path
 
 Phases, each printing one JSON line:
 
@@ -41,8 +42,11 @@ Phases, each printing one JSON line:
              grid_sample composition (`composite_*`) where no single
              library call computes MSDA. The flash forward also runs the
              26B det path's InternViT (B7 L1025, 25 heads, bidirectional)
-             and InternLM2 prefill (L1868, 48 heads over 8), and the gen
-             phase's [EDIT] prefill (L614).
+             and InternLM2 prefill (L1868, 48 heads over 8), the gen
+             phase's [EDIT] prefill (L614), and the eval phase's B8 batch:
+             the 80-class det prompt's prefill (`eval_prefill_b8`) and
+             CLIP at B8; the MSDA forward adds that batch's encoder at the
+             800x1088 bucket (`eval_b8_encoder`, B8, S = Q = 18071).
              The lane gather adds seeded random indices (out-of-range
              ones too) at [8, 57344], [8, 57343] and a two-CTA extent,
              each case with the cluster size it launched;
@@ -267,7 +271,38 @@ Phases, each printing one JSON line:
              run's by the near-tie token rule. Then request, vision,
              prefill and Grounding-DINO ms, the decode ms a step, the
              weights' and the peak memory (which must stay under 80 GB);
-22. det26b_profile - each request once under torch.profiler.
+22. det26b_profile - each request once under torch.profiler;
+23. eval    - the det and grounding evaluation path, with nothing else
+             resident: `build_model(vllm_7b_det_config())` in bf16 and a
+             synthetic COCO set written to a temporary directory without
+             Pillow (`write_eval_set`: 12 PNGs at COCO sizes, 8 in the
+             800x1088 bucket, 3 in 1088x800, 1 in 800x1344, read back
+             through the port's PNG reader; 3-6 objects each as polygons,
+             uncompressed and compressed RLE, a crowd object, a box under
+             1 px; the 80 COCO categories; a RefCOCO-style file, a POPE
+             jsonl and an MMBench tsv with base64 PNGs). Checks, each
+             failing the run: (1) the gt fed back as detections scores
+             bbox and segm mAP 1.0; (2) `evaluate_det(with_mask=True,
+             topk=100, batch_size=8)` and `evaluate_det(batch_size=1)`
+             finish with finite metrics; (3) each image's top-100 of the
+             two runs agree within EVAL_REL_TOL, matched by (query,
+             label), an entry in one run only lying within EVAL_REL_TOL of
+             the other's 100th score (orders part at ties); (4) the first
+             B8 batch's text queries, logits and boxes with the kernels
+             within EVAL_REL_TOL of the plain versions (on the kernel
+             run's proposals); (5) flash 56 and MSDA 12 launches a forward
+             (B8 or B1); (6) `evaluate_grd(with_mask=True)` gives finite
+             Prec@0.5 and cIoU; (7) `run_benchmark("pope")` and
+             ("mmbench") through `build_generate_fn` at `batch_size` 1 and
+             4: each question's first-step logits within EVAL_REL_TOL, and
+             its tokens equal up to the first step whose top-2 logit gap
+             (B1, teacher-forced) is under EVAL_MARGIN; (8)
+             `measure_latency` gives TTFT and decode tok/s. Prints
+             images/s at B8 (with masks) and B1, each run's wall split
+             into data, device, gt, masks and evaluator seconds, the
+             phase's seconds and peak memory;
+24. eval_profile - the first B8 batch's forward and top-k under
+             torch.profiler.
 
 Then it prints the `{"kernels": [...]}` line, the card's name and power
 limit, and as its last line `{"ok": true, "device": {...}}`. Any failed
@@ -285,12 +320,16 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import zlib
 import urllib.request
 from contextlib import ExitStack
 from unittest import mock
@@ -308,16 +347,31 @@ from visionllm_tpu_torch.config import (LLMConfig, OptimizerConfig,
                                         vllm_7b_gen_config,
                                         vllm_7b_perception_config,
                                         vllm_26b_det_config)
+from visionllm_tpu_torch.data.coco import (decode_segmentation,
+                                           rasterize_polygons)
 from visionllm_tpu_torch.data.conversation import get_conv_template
+from visionllm_tpu_torch.data.det_dataset import CocoDetDataset
+from visionllm_tpu_torch.data.grd_dataset import RefCocoGrdDataset
+from visionllm_tpu_torch.data.image_io import PNG_MAGIC, load_image
 from visionllm_tpu_torch.data.mm_utils import (clip_preprocess,
                                                dynamic_preprocess,
                                                expand_image_tokens,
                                                tokenizer_image_token)
 from visionllm_tpu_torch.data.preprocess import (preprocess,
                                                  preprocess_multimodal)
+from visionllm_tpu_torch.data.templates import (DET_QUESTIONS, DET_YES,
+                                                det_answer_tokens)
 from visionllm_tpu_torch.data.transforms import (DEFAULT_BUCKETS,
                                                  TEST_SCALE,
                                                  det_test_transform)
+from visionllm_tpu_torch.eval import eval_det as E
+from visionllm_tpu_torch.eval.coco_eval import CocoMAPEvaluator
+from visionllm_tpu_torch.eval.eval_det import evaluate_det, model_inputs
+from visionllm_tpu_torch.eval.eval_grd import evaluate_grd
+from visionllm_tpu_torch.eval.latency import measure_latency
+from visionllm_tpu_torch.eval.postprocess import post_process_det, to_host
+from visionllm_tpu_torch.eval.runners import (load_mmbench, load_pope,
+                                              run_benchmark)
 from visionllm_tpu_torch.generation import (
     _tool_kind, advance_tool_state, build_generate_fn,
     build_speculative_generate_fn, extract_tool_queries_from_generation,
@@ -616,6 +670,11 @@ def attention_cases(g, more=False):
         # the [EDIT] request's LLaMA prefill (its CLIP is clip_l)
         specs += [("gen_edit_prefill", 1, gen_prompt_lengths()["edit"], 32,
                    32, 128, True, None)]
+        # the eval phase's B8 prefill of the 80-class det prompt (its CLIP
+        # runs clip_l's shape at B8)
+        specs += [("eval_prefill_b8", EVAL_BATCH, eval_prompt_length(), 32,
+                   32, 128, True, None),
+                  ("eval_clip_b8", EVAL_BATCH, 577, 16, 16, 64, False, None)]
     for name, B, L, H, Hkv, D, causal, sg in specs:
         yield name, rnd(B, L, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D), \
             causal, sg
@@ -898,7 +957,8 @@ def check_msda(g):
     yardstick (`composite_*`)."""
     cases, timed = [], {}
     inputs = (list(msda_uniform_cases(g, bwd=False)) + list(dcnv3_cases(g))
-              + captured_msda_fwd())
+              + captured_msda_fwd()
+              + [("eval_b8_encoder", *eval_msda_inputs(g))])
     for name, value, shapes, loc, attw in inputs:
         got = M.ms_deform_attn(value, shapes, loc, attw)
         again = M.ms_deform_attn(value, shapes, loc, attw)
@@ -4738,6 +4798,649 @@ def check_int8_products(g, device):
     return cases + [kv_case]
 
 
+# ---------------------------------------------------------------------------
+# phases 23-24: the det and grounding evaluation path at full width
+# ---------------------------------------------------------------------------
+
+# COCO 2017's 80 categories (id, name)
+COCO_CATEGORIES = tuple(enumerate((
+    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
+    "truck", "boat", "traffic light", "fire hydrant", None, "stop sign",
+    "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
+    "elephant", "bear", "zebra", "giraffe", None, "backpack", "umbrella",
+    None, None, "handbag", "tie", "suitcase", "frisbee", "skis",
+    "snowboard", "sports ball", "kite", "baseball bat", "baseball glove",
+    "skateboard", "surfboard", "tennis racket", "bottle", None,
+    "wine glass", "cup", "fork", "knife", "spoon", "bowl", "banana",
+    "apple", "sandwich", "orange", "broccoli", "carrot", "hot dog", "pizza",
+    "donut", "cake", "chair", "couch", "potted plant", "bed", None,
+    "dining table", None, None, "toilet", None, "tv", "laptop", "mouse",
+    "remote", "keyboard", "cell phone", "microwave", "oven", "toaster",
+    "sink", "refrigerator", None, "book", "clock", "vase", "scissors",
+    "teddy bear", "hair drier", "toothbrush"), start=1))
+COCO_CATEGORIES = tuple((i, n) for i, n in COCO_CATEGORIES if n)
+# (h, w): 8 in the 800x1088 bucket (one full B8 batch), 3 in 1088x800 (a
+# padded tail), 1 in 800x1344 (a tail of one)
+EVAL_SIZES = ((480, 640),) * 8 + ((640, 480),) * 3 + ((427, 640),)
+EVAL_BATCH, EVAL_TOPK, EVAL_REL_TOL = 8, 100, 5e-2
+EVAL_REFS = 8                   # RefCOCO expressions
+EVAL_POPE, EVAL_MMBENCH = 8, 4  # benchmark rows
+EVAL_VQA_BATCH, EVAL_VQA_NEW, EVAL_VQA_MAX_LEN = 4, 8, 768
+EVAL_MARGIN = 5e-2              # the B1/B4 token rule's top-2 logit gap
+
+
+def png_bytes(img):
+    """uint8 [H, W, 3] as an 8-bit RGB PNG, row r filtered with PNG filter
+    r % 5 (None, Sub, Up, Average, Paeth), so the port's reader undoes each
+    on the card's machine, which has no Pillow."""
+    h, w, _ = img.shape
+    x = img.astype(np.int16)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kinds = np.arange(h) % 5
+    pred = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])[
+        kinds, np.arange(h)]
+    rows = np.concatenate([kinds[:, None].astype(np.uint8),
+                           ((x - pred) & 0xFF).astype(np.uint8)
+                           .reshape(h, -1)], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (PNG_MAGIC
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def eval_image(rng, h, w):
+    """A smooth seeded picture: gradients and blobs under mild noise."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 255 // w, yy * 255 // h,
+                    (xx + yy) * 255 // (h + w)], -1).astype(np.int32)
+    img += rng.integers(-12, 13, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def eval_blob(rng, h, w, r_min=12.0):
+    """A smooth closed contour sampled every 2-8 px (fractional vertices),
+    as an annotator's polygon."""
+    side = min(h, w)
+    R = rng.uniform(min(r_min, side / 8), side / 4)
+    cx, cy = rng.uniform(R, w - R), rng.uniform(R, h - R)
+    n = max(3, int(2 * np.pi * R / rng.uniform(2, 8)))
+    ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    rad = R * (1 + 0.2 * np.sin(3 * ang + rng.uniform(0, 6.3)))
+    return np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)],
+                    1).ravel().tolist()
+
+
+def uncompressed_rle(mask):
+    col = mask.T.reshape(-1)
+    change = np.nonzero(np.diff(col))[0] + 1
+    runs = np.diff(np.concatenate([[0], change, [col.size]])).tolist()
+    return {"size": list(mask.shape),
+            "counts": [0] + runs if col[0] == 1 else runs}
+
+
+def write_eval_set(root):
+    """The synthetic COCO set under `root` (numpy seed 17, written without
+    Pillow): `EVAL_SIZES` PNG images with 3-6 objects each (polygon lists,
+    uncompressed and compressed RLE masks; one crowd object and one box
+    under 1 px), over the 80 COCO categories; a RefCOCO-style file of
+    `EVAL_REFS` expressions, a POPE jsonl and an MMBench tsv with base64
+    PNGs. Returns the files' paths and the images."""
+    rng = np.random.default_rng(17)
+    images, anns, pictures = [], [], []
+    for i, (h, w) in enumerate(EVAL_SIZES):
+        img = eval_image(rng, h, w)
+        pictures.append(img)
+        name = f"{i:012d}.png"
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(png_bytes(img))
+        images.append({"id": 100 + i, "file_name": name, "height": h,
+                       "width": w})
+        for j in range(int(rng.integers(3, 7))):
+            polys = [eval_blob(rng, h, w)
+                     for _ in range(1 + (j % 4 == 3))]
+            mask = rasterize_polygons(polys, h, w)
+            seg = (polys, uncompressed_rle(mask), rle_encode(mask))[j % 3]
+            ys, xs = np.nonzero(mask)
+            x0, y0 = float(xs.min()), float(ys.min())
+            anns.append({
+                "id": len(anns) + 1, "image_id": 100 + i,
+                "category_id": COCO_CATEGORIES[int(rng.integers(0, 80))][0],
+                "bbox": [x0, y0, float(xs.max()) + 1 - x0,
+                         float(ys.max()) + 1 - y0],
+                "area": float(mask.sum()), "iscrowd": 0,
+                "segmentation": seg})
+    anns[0].update(iscrowd=1, segmentation=rle_encode(decode_segmentation(
+        anns[0]["segmentation"], *EVAL_SIZES[0])))
+    # a one-pixel column whose box is 0.6 px wide
+    h, w = EVAL_SIZES[1]
+    column = np.zeros((h, w), np.uint8)
+    column[h // 4:h // 2, w // 2] = 1
+    anns.append({"id": len(anns) + 1, "image_id": 101, "category_id": 1,
+                 "bbox": [float(w // 2), float(h // 4), 0.6,
+                          float(h // 2 - h // 4)],
+                 "area": float(column.sum()), "iscrowd": 0,
+                 "segmentation": rle_encode(column)})
+    files = {"instances": os.path.join(root, "instances.json"),
+             "refcoco": os.path.join(root, "refcoco.json"),
+             "pope": os.path.join(root, "pope.jsonl"),
+             "mmbench": os.path.join(root, "mmbench.tsv")}
+    with open(files["instances"], "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": i, "name": n}
+                                  for i, n in COCO_CATEGORIES]}, f)
+    words = ["left", "right", "big", "small", "striped", "front", "the"]
+    refs = [dict(a, expressions=[" ".join(rng.choice(words, 4).tolist())])
+            for a in anns if not a["iscrowd"] and min(a["bbox"][2:]) > 1]
+    with open(files["refcoco"], "w") as f:
+        json.dump({"images": images, "annotations": refs[:EVAL_REFS]}, f)
+    names = [n for _, n in COCO_CATEGORIES]
+    with open(files["pope"], "w") as f:
+        for k in range(EVAL_POPE):
+            f.write(json.dumps({
+                "image": images[k]["file_name"],
+                "text": f"Is there a {names[7 * k % 80]} in the image?",
+                "label": ("yes", "no")[k % 2]}) + "\n")
+    lines = ["index\tquestion\thint\tA\tB\tC\tD\tanswer\timage"]
+    for k in range(EVAL_MMBENCH):
+        # past csv's default field limit of 131072 characters, which the
+        # JAX loader keeps and the port's lifts
+        b64 = base64.b64encode(png_bytes(eval_image(rng, 240, 320))).decode()
+        lines.append(f"{k}\tWhat is in the picture?\t\t{names[k]}\t"
+                     f"{names[k + 10]}\t{names[k + 20]}\t{names[k + 30]}\t"
+                     f"{'ABCD'[k]}\t{b64}")
+    with open(files["mmbench"], "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return files, pictures
+
+
+def eval_prompt_ids(tok, cfg):
+    """The test-mode det prompt `CocoDetDataset` builds for the 80 COCO
+    classes (question and answer templates at index 0, one
+    "[DET][EMB]..[EMB4]" block a class, `cfg.image_token_len` <im_patch>
+    ids), unpadded."""
+    names = [n for _, n in COCO_CATEGORIES]
+    blk = det_answer_tokens(cfg.num_embs)
+    conv = [{"from": "human", "value": "<image>\n" + DET_QUESTIONS[0]
+             .replace("<class>", ", ".join(names))},
+            {"from": "gpt", "value": DET_YES[0].replace(
+                "<class>", (blk + ", ").join(names) + blk)}]
+    return preprocess(preprocess_multimodal([conv]), tok,
+                      version="vicuna_v1", has_image=True,
+                      image_token_len=cfg.image_token_len)["input_ids"][0]
+
+
+def eval_prompt_length():
+    return len(eval_prompt_ids(SimpleTokenizer(), vllm_7b_det_config()))
+
+
+def eval_msda_inputs(g):
+    """MSDA inputs of a B8 batch in the 800x1088 bucket (S = Q = 18071),
+    locations spread uniformly over (and past) every map."""
+    shapes = ((100, 136), (50, 68), (25, 34), (13, 17))
+    S = sum(h * w for h, w in shapes)
+    value = torch.randn(EVAL_BATCH, S, 8, 32, generator=g,
+                        device="cuda").to(torch.bfloat16)
+    loc = torch.rand(EVAL_BATCH, S, 8, 4, 4, 2, generator=g,
+                     device="cuda") * 1.4 - 0.2
+    attw = torch.softmax(torch.randn(EVAL_BATCH, S, 8, 16, generator=g,
+                                     device="cuda"), -1).reshape(
+        EVAL_BATCH, S, 8, 4, 4)
+    return value, shapes, loc, attw
+
+
+class TimedDataset:
+    """A dataset whose items count as "data" and whose `coco.load_anns`
+    as "gt" in an `EvalRecorder`'s split."""
+
+    def __init__(self, ds, rec):
+        self.ds, self.rec = ds, rec
+        self.coco = copy.copy(ds.coco)
+        self.coco.load_anns = rec.timed("gt", ds.coco.load_anns)
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        return self.rec.timed("data", self.ds.__getitem__)(i)
+
+    def __getattr__(self, name):
+        return getattr(self.ds, name)
+
+
+class EvalRecorder:
+    """Patches the pieces `evaluate_det` calls (names in `eval_det`) to
+    record what each device call returned and to split the wall: "data"
+    (the dataset's items: PNG decode, transforms, prompt, CLIP image),
+    "device" (each batch's forward, top-k and copy to the host, synced),
+    "gt" (`load_anns`, the gt masks decoded), "masks" (mask finishing and
+    RLE encoding), "evaluator" (`update`, `summarize`). Also the launches
+    of each forward and each batch's arrays."""
+
+    PATCHED = ("batched_samples", "make_det_infer_fn", "CocoMAPEvaluator",
+               "post_process_masks_np", "rle_encode")
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+        self.seconds = dict.fromkeys(("data", "device", "gt", "masks",
+                                      "evaluator"), 0.0)
+        self.calls, self.batches, self.outputs, self.arrays = [], [], [], []
+        self.real = {name: getattr(E, name) for name in self.PATCHED}
+
+    def timed(self, stage, fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds[stage] += time.perf_counter() - t
+        return call
+
+    def batched_samples(self, *a, **k):
+        for idxs, samples, arrays, n_valid in self.real["batched_samples"](
+                *a, **k):
+            self.batches.append((idxs, n_valid))
+            self.arrays.append(arrays)
+            yield idxs, samples, arrays, n_valid
+
+    def make_infer(self, *a, **k):
+        fn = self.real["make_det_infer_fn"](*a, **k)
+
+        def call(*inputs):
+            f0, m0 = A.flash_attention.launches, M.ms_deform_attn.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*inputs)
+            host = to_host(out)
+            self.seconds["device"] += time.perf_counter() - t
+            self.calls.append({
+                "B": int(inputs[0].shape[0]), "L": int(inputs[0].shape[1]),
+                "bucket": list(inputs[2].shape[1:3]),
+                "flash_attn_fwd": A.flash_attention.launches - f0,
+                "ms_deform_attn_fwd": M.ms_deform_attn.launches - m0})
+            self.outputs.append({k: host[k] for k in
+                                 ("scores", "labels", "boxes", "query_idx")})
+            return out
+        return call
+
+    def evaluator(self, *a, **k):
+        ev = self.real["CocoMAPEvaluator"](*a, **k)
+        ev.update = self.timed("evaluator", ev.update)
+        ev.summarize = self.timed("evaluator", ev.summarize)
+        return ev
+
+    def run(self, model, tid, **kw):
+        """`evaluate_det(model, <timed dataset>, tid, **kw)` with the
+        pieces patched; returns (metrics, wall s)."""
+        ds = TimedDataset(self.dataset, self)
+        with ExitStack() as stack:
+            for name, new in zip(self.PATCHED, (
+                    self.batched_samples, self.make_infer, self.evaluator,
+                    self.timed("masks", self.real["post_process_masks_np"]),
+                    self.timed("masks", self.real["rle_encode"]))):
+                stack.enter_context(mock.patch.object(E, name, new))
+            t = time.perf_counter()
+            res = evaluate_det(model, ds, tid, progress=False, **kw)
+            wall = time.perf_counter() - t
+        return res, wall
+
+    def per_image(self):
+        """Each image's top-k (scores, labels, boxes, query_idx) by dataset
+        index."""
+        out = {}
+        for (idxs, n_valid), rec in zip(self.batches, self.outputs):
+            for bi in range(n_valid):
+                out[idxs[bi]] = {key: v[bi] for key, v in rec.items()}
+        return out
+
+
+def compare_topk(a, b, tol=EVAL_REL_TOL):
+    """One image's top-k of two runs (B8 against B1): entries matched by
+    (query, label); each entry in both must agree in score and box within
+    `tol`, and one in only one run must lie within `tol` of the other
+    run's k-th score (the orders part at a tie at the cut)."""
+    key_a = {(int(q), int(l)): i for i, (q, l) in
+             enumerate(zip(a["query_idx"], a["labels"]))}
+    key_b = {(int(q), int(l)): i for i, (q, l) in
+             enumerate(zip(b["query_idx"], b["labels"]))}
+    both = sorted(set(key_a) & set(key_b))
+    score_err = max((abs(float(a["scores"][key_a[k]])
+                         - float(b["scores"][key_b[k]])) for k in both),
+                    default=0.0)
+    box_err = max((float(np.abs(a["boxes"][key_a[k]]
+                                - b["boxes"][key_b[k]]).max())
+                   for k in both), default=0.0)
+    only = [(k, a, b["scores"][-1]) for k in set(key_a) - set(key_b)] + \
+        [(k, b, a["scores"][-1]) for k in set(key_b) - set(key_a)]
+    tie_gap = max((float(run["scores"][(key_a if run is a else key_b)[k]])
+                   - float(cut) for k, run, cut in only), default=0.0)
+    same_order = bool((a["query_idx"] == b["query_idx"]).all()
+                      and (a["labels"] == b["labels"]).all())
+    res = {"same_order": same_order, "matched": len(both),
+           "only_one_run": len(only), "score_err": score_err,
+           "box_err": box_err, "tie_gap": tie_gap}
+    if not (score_err <= tol and box_err <= tol and tie_gap <= tol):
+        raise AssertionError(f"B8 and B1 top-k differ: {res}")
+    return res
+
+
+def same_proposals_b1(model, tid, rec8, device, num_classes):
+    """Check 3's second half: each B8 batch of `rec8` again, and each of
+    its images alone (B1) on the B8 forward's proposal choice; the two
+    top-`EVAL_TOPK` compared by `compare_topk`."""
+    out = {}
+    with torch.no_grad():
+        for (idxs, n_valid), arrays in zip(rec8.batches, rec8.arrays):
+            ids, images, aug, pm = model_inputs(arrays, device)
+            o8 = model.infer_det(ids, images, aug, tid, pixel_mask=pm)
+            p8 = to_host(post_process_det(o8["logits"], o8["pred_boxes"],
+                                          num_classes, EVAL_TOPK))
+            for bi in range(n_valid):
+                tq, mask = text_queries(model, ids[bi:bi + 1],
+                                        images[bi:bi + 1], tid)
+                o1 = model.gdino(aug[bi:bi + 1], tq, mask,
+                                 pixel_mask=pm[bi:bi + 1],
+                                 topk_idx=o8["topk_idx"][bi:bi + 1])
+                p1 = to_host(post_process_det(o1["logits"], o1["pred_boxes"],
+                                              num_classes, EVAL_TOPK))
+                out[idxs[bi]] = compare_topk(
+                    {k: v[bi] for k, v in p8.items()},
+                    {k: v[0] for k, v in p1.items()})
+    return out
+
+
+def gt_as_detections(dataset):
+    """Check 1: every image's gt (crowd objects marked, boxes under 1 px
+    kept) fed back as detections of score 1; bbox and segm mAP."""
+    coco = dataset.coco
+    evs = {t: CocoMAPEvaluator(len(dataset.class_names), t)
+           for t in ("bbox", "segm")}
+    for idx in range(len(coco)):
+        info = coco.image_info(idx)
+        h, w = info["height"], info["width"]
+        anns = coco.anns_by_image[coco.img_ids[idx]]
+        gt = {"labels": np.asarray([coco.cat2label[a["category_id"]]
+                                    for a in anns]),
+              "boxes": np.asarray([[a["bbox"][0], a["bbox"][1],
+                                    a["bbox"][0] + a["bbox"][2],
+                                    a["bbox"][1] + a["bbox"][3]]
+                                   for a in anns], np.float32),
+              "iscrowd": np.asarray([a["iscrowd"] for a in anns]),
+              "masks": [rle_encode(decode_segmentation(a["segmentation"],
+                                                       h, w)) for a in anns]}
+        keep = gt["iscrowd"] == 0
+        det = {"scores": np.ones(int(keep.sum()), np.float32),
+               "labels": gt["labels"][keep], "boxes": gt["boxes"][keep],
+               "masks": [m for m, k in zip(gt["masks"], keep) if k]}
+        for ev in evs.values():
+            ev.update(det, gt)
+    res = {t: ev.summarize() for t, ev in evs.items()}
+    if not all(r["mAP"] == 1.0 for r in res.values()):
+        raise AssertionError(f"gt as detections: mAP {res} != 1.0")
+    return res
+
+
+class VQARecorder:
+    """Wraps a generate closure: each call's inputs and its tokens."""
+
+    def __init__(self, gen):
+        self.gen, self.calls = gen, []
+
+    def __call__(self, ids, images, attn_mask=None, live=None):
+        out = self.gen(ids, images, attn_mask=attn_mask, live=live)
+        self.calls.append({"ids": ids, "images": images, "mask": attn_mask,
+                           "live": live, "tokens": out["out_tokens"][
+                               :, :out["num_generated"]].cpu()})
+        return out
+
+
+def vqa_rows(core, tid, calls):
+    """Per question, in order: (its prompt ids, image, the first-step
+    logits of a fresh prefill, the generated tokens up to the first eos)
+    from the recorded calls (B1 calls, or batched calls' live rows, prompt
+    pads stripped)."""
+    rows = []
+    with torch.no_grad():
+        for c in calls:
+            logits = core(c["ids"], c["images"], tid,
+                          attn_mask=c["mask"])["logits"][:, -1].float()
+            for j in range(c["ids"].shape[0]):
+                if c["live"] is not None and not bool(c["live"][j]):
+                    continue
+                keep = c["mask"][j] if c["mask"] is not None else \
+                    torch.ones_like(c["ids"][j], dtype=torch.bool)
+                toks = c["tokens"][j].tolist()
+                if 2 in toks:
+                    toks = toks[:toks.index(2) + 1]
+                img = c["images"][j] if c["images"].ndim == 5 else \
+                    c["images"][j:j + 1]
+                rows.append((c["ids"][j][keep], img.reshape(
+                    1, *img.shape[-3:]), logits[j], toks))
+    return rows
+
+
+def vqa_token_rule(core, tid, b1, b4):
+    """The B1 and B4 runs of one benchmark, question by question: the
+    first-step logits within EVAL_REL_TOL (relative Frobenius), and the
+    tokens equal up to the first step whose top-2 logit gap (B1's prompt
+    and tokens, teacher-forced) is under EVAL_MARGIN."""
+    out = []
+    for (ids, img, lg1, t1), (ids4, _, lg4, t4) in zip(b1, b4):
+        if not torch.equal(ids, ids4):
+            raise AssertionError("B1 and B4 prompts differ")
+        err = ((lg4 - lg1).norm() / lg1.norm()).item()
+        with torch.no_grad():
+            full = torch.cat([ids, torch.tensor(t1[:-1], dtype=ids.dtype,
+                                                device=ids.device)])[None]
+            lg = core(full, img, tid)["logits"][0, len(ids) - 1:].float()
+        top2 = lg.topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        tie = next((s for s, gp in enumerate(gaps) if gp < EVAL_MARGIN),
+                   len(gaps))
+        diff = next((s for s, (x, y) in enumerate(zip(t1, t4)) if x != y),
+                    None)
+        res = {"first_step_rel_err": err, "tokens": len(t1),
+               "first_difference": diff, "first_near_tie": tie,
+               "min_gap": min(gaps)}
+        if not err <= EVAL_REL_TOL or (diff is not None and diff < tie):
+            raise AssertionError(f"B1 and B4 answers part: {res}")
+        out.append(res)
+    return out
+
+
+def run_eval():
+    """The eval phase: see the module docstring."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = vllm_7b_det_config()
+    tok = SimpleTokenizer()
+    tid = SpecialTokenIds.from_tokenizer(tok)
+    t = time.perf_counter()
+    model = build_model(cfg, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    device = next(model.parameters()).device
+    per_fwd = {"flash_attn_fwd": cfg.vis_encoder.num_layers
+               + cfg.llm.num_layers,
+               "ms_deform_attn_fwd": cfg.gdino.encoder_layers
+               + cfg.gdino.decoder_layers}
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        files, pictures = write_eval_set(root)
+        for i, img in enumerate(pictures):
+            if not np.array_equal(load_image(os.path.join(
+                    root, f"{i:012d}.png")), img):
+                raise AssertionError(f"PNG {i} does not read back")
+        write_s = time.perf_counter() - t
+        ds = CocoDetDataset(files["instances"], root, tok, test_mode=True,
+                            with_mask=True,
+                            image_token_len=cfg.image_token_len,
+                            image_size=cfg.vis_encoder.image_size)
+        L = len(ds[0]["input_ids"])
+        if L != len(eval_prompt_ids(SimpleTokenizer(), cfg)):
+            raise AssertionError(f"prompt of {L} tokens, not the kernel "
+                                 "phase's eval prefill")
+
+        # 1. the gt as detections
+        gt_map = gt_as_detections(ds)
+
+        # 2, 5. the main path: B8 with masks, then B1, launches counted
+        A.flash_attention.launches = 0
+        M.ms_deform_attn.launches = 0
+        rec8, rec1 = EvalRecorder(ds), EvalRecorder(ds)
+        res8, wall8 = rec8.run(model, tid, with_mask=True, topk=EVAL_TOPK,
+                               batch_size=EVAL_BATCH)
+        res1, wall1 = rec1.run(model, tid, topk=EVAL_TOPK, batch_size=1)
+        torch.cuda.synchronize()
+        launches = {"flash_attn_fwd": A.flash_attention.launches,
+                    "ms_deform_attn_fwd": M.ms_deform_attn.launches}
+        for res in (res8, res1):
+            if not all(np.isfinite(v) for k, v in res.items()
+                       if k.endswith(("mAP", "mAP_50", "mAP_75"))):
+                raise AssertionError(f"evaluate_det: {res}")
+        for c in rec8.calls + rec1.calls:
+            if any(c[k] != v for k, v in per_fwd.items()):
+                raise AssertionError(f"launches of a forward {c} != "
+                                     f"{per_fwd}")
+        if [c["B"] for c in rec8.calls] != [EVAL_BATCH] * 3 or \
+                len(rec1.calls) != len(EVAL_SIZES):
+            raise AssertionError(f"batches {rec8.batches}, {rec1.batches}")
+
+        # 3. per image, B8 against B1: the sorted top-100 scores of the two
+        # runs, then the top-100 of each image alone on the B8 run's
+        # proposals (random weights saturate the class logits: the
+        # proposals and the top-100 tie at 1.0, and each run breaks the
+        # ties its own way)
+        top8, top1 = rec8.per_image(), rec1.per_image()
+        ranked = {i: float(np.abs(np.sort(top8[i]["scores"])
+                                  - np.sort(top1[i]["scores"])).max())
+                  for i in top1}
+        if not max(ranked.values()) <= EVAL_REL_TOL:
+            raise AssertionError(f"B8 and B1 ranked scores {ranked}")
+        overlap = {i: len({(int(q), int(lb)) for q, lb in zip(
+            top8[i]["query_idx"], top8[i]["labels"])} & {
+            (int(q), int(lb)) for q, lb in zip(top1[i]["query_idx"],
+                                               top1[i]["labels"])})
+            for i in top1}
+        topk_cmp = same_proposals_b1(model, tid, rec8, device,
+                                     len(ds.class_names))
+
+        # 4. the first B8 batch with the kernels against the plain versions
+        with torch.no_grad():
+            ids, images, aug, pm = model_inputs(rec8.arrays[0], device)
+            tq_k, mask_k = text_queries(model, ids, images, tid)
+            out_k = model.gdino(aug, tq_k, mask_k, pixel_mask=pm)
+            with plain_versions():
+                tq_p, mask_p = text_queries(model, ids, images, tid)
+                out_p = model.gdino(aug, tq_p, mask_p, pixel_mask=pm,
+                                    topk_idx=out_k["topk_idx"])
+        if not torch.equal(mask_k, mask_p):
+            raise AssertionError("text-query masks differ")
+        n = mask_k.shape[1]
+        plain_err = {
+            "text_queries": rel_err(tq_k, tq_p),
+            "logits": rel_err(out_k["logits"][..., :n][..., mask_k[0]],
+                              out_p["logits"][..., :n][..., mask_k[0]]),
+            "pred_boxes": rel_err(out_k["pred_boxes"], out_p["pred_boxes"])}
+        if not max(plain_err.values()) <= EVAL_REL_TOL:
+            raise AssertionError(f"B8 kernel vs plain {plain_err}")
+        del out_p, tq_p
+
+        # 6. grounding, with masks
+        grd = RefCocoGrdDataset(files["refcoco"], root, tok, test_mode=True,
+                                with_mask=True,
+                                image_token_len=cfg.image_token_len,
+                                image_size=cfg.vis_encoder.image_size)
+        t = time.perf_counter()
+        res_grd = evaluate_grd(model, grd, tid, with_mask=True)
+        grd_s = time.perf_counter() - t
+        if len(grd) != EVAL_REFS or not all(
+                np.isfinite(v) for v in res_grd.values()):
+            raise AssertionError(f"evaluate_grd: {len(grd)} {res_grd}")
+
+        # 7. POPE and MMBench at B1 and B4 through build_generate_fn
+        gen = build_generate_fn(model.core, tid, max_new_tokens=EVAL_VQA_NEW,
+                                max_len=EVAL_VQA_MAX_LEN)
+        bench, vqa_cmp = {}, {}
+        for name, rows in (("pope", load_pope(files["pope"], root)),
+                           ("mmbench", load_mmbench(files["mmbench"]))):
+            recs = {}
+            for bs in (1, EVAL_VQA_BATCH):
+                recs[bs] = VQARecorder(gen)
+                t = time.perf_counter()
+                bench[f"{name}_b{bs}"] = run_benchmark(
+                    name, recs[bs], tok, rows,
+                    image_token_len=cfg.image_token_len,
+                    image_size=cfg.vis_encoder.image_size, batch_size=bs,
+                    device=device)
+                bench[f"{name}_b{bs}_s"] = time.perf_counter() - t
+            vqa_cmp[name] = vqa_token_rule(
+                model.core, tid, vqa_rows(model.core, tid, recs[1].calls),
+                vqa_rows(model.core, tid, recs[EVAL_VQA_BATCH].calls))
+
+    # 8. latency
+    latency = measure_latency(model.core, tid)
+    if not all(np.isfinite(v) and v > 0 for v in latency.values()):
+        raise AssertionError(f"measure_latency: {latency}")
+
+    def split(rec, wall):
+        s = dict(rec.seconds)
+        s["other"] = wall - sum(s.values())
+        return s
+
+    emit({"phase": "eval", "config": "vllm_7b_det_config()",
+          "images": [list(s) for s in EVAL_SIZES], "classes": 80,
+          "prompt_tokens": L, "build_model_s": build_s,
+          "write_set_s": write_s, "gt_as_detections": gt_map,
+          "b8": {"metrics": res8, "wall_s": wall8,
+                 "images_per_s": len(EVAL_SIZES) / wall8,
+                 "split_s": split(rec8, wall8), "forwards": rec8.calls,
+                 "with_mask": True},
+          "b1": {"metrics": res1, "wall_s": wall1,
+                 "images_per_s": len(EVAL_SIZES) / wall1,
+                 "split_s": split(rec1, wall1), "forwards": len(rec1.calls),
+                 "with_mask": False},
+          "launches": launches, "launches_per_forward": per_fwd,
+          "b8_vs_b1_ranked_score_err": ranked,
+          "b8_vs_b1_evaluate_det_shared_entries": overlap,
+          "b8_vs_b1_same_proposals": topk_cmp, "b8_plain_rel_err": plain_err,
+          "rel_tol": EVAL_REL_TOL, "grd": res_grd, "grd_s": grd_s,
+          "benchmarks": bench, "vqa_b1_vs_b4": vqa_cmp,
+          "latency": latency,
+          "phase_s": time.perf_counter() - t_phase,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    profile_eval_batch(model, tid, model_inputs(rec8.arrays[0], device))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_eval_batch(model, tid, inputs):
+    """The first B8 batch's forward and top-k under torch.profiler."""
+    infer = E.make_det_infer_fn(model, tid, len(COCO_CATEGORIES),
+                                EVAL_TOPK)
+    infer(*inputs)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        to_host(infer(*inputs))
+        wall_ms = (time.perf_counter() - t) * 1e3
+    emit({"phase": "eval_profile", "batch": EVAL_BATCH,
+          **device_summary(prof, wall_ms)})
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_case):
     main = next(c for c in cases if c["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -4768,7 +5471,7 @@ def main(argv=None) -> int:
         f"{', '.join(KERNEL_CHECKS)}: the device and build phases, those "
         "checks, the nvidia-smi line, and no model phase and no ok line")
     parser.add_argument(
-        "--phase", choices=["gen", "flagship", "det26b"],
+        "--phase", choices=["gen", "flagship", "det26b", "eval"],
         help="run this model phase "
         "alone with its profile "
         "(with the device and build phases and the nvidia-smi line; no "
@@ -4805,6 +5508,8 @@ def main(argv=None) -> int:
             run_flagship()
         if args.phase == "det26b":
             run_det26b()
+        if args.phase == "eval":
+            run_eval()
         print(smi, flush=True)
         return 0
     attn_cases = check_attention(g)
@@ -4835,11 +5540,12 @@ def main(argv=None) -> int:
     gen = run_gen()
     flagship = run_flagship()
     det26b = run_det26b()
+    evaluation = run_eval()
     # each path's counts were read around that path's run alone
     by_path = {"det": det, "perception": perception, "train": train,
                "probes": probe, "chat": chat, "slots": slots, "spec": spec,
                "quant": quant, "gen": gen, "flagship": flagship,
-               "det26b": det26b}
+               "det26b": det26b, "eval": evaluation}
 
     def launches(name):
         per = {p: c[name] for p, c in by_path.items() if name in c}

@@ -33,6 +33,14 @@ def post_process_det(logits: torch.Tensor, pred_boxes: torch.Tensor,
             "query_idx": q_idx}
 
 
+def to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Every tensor of `out` to numpy, with one wait for the device."""
+    host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+    if any(v.is_cuda for v in out.values()):
+        torch.cuda.synchronize()
+    return {k: v.numpy() for k, v in host.items()}
+
+
 def scale_boxes_np(boxes_norm: np.ndarray,
                    ori_size: Tuple[int, int]) -> np.ndarray:
     h, w = ori_size

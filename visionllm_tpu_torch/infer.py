@@ -39,7 +39,7 @@ from visionllm_tpu_torch.eval.eval_det import make_det_infer_fn
 from visionllm_tpu_torch.eval.eval_grd import make_grd_infer_fn
 from visionllm_tpu_torch.eval.eval_pose import post_process_pose
 from visionllm_tpu_torch.eval.postprocess import (post_process_masks_np,
-                                                  scale_boxes_np)
+                                                  scale_boxes_np, to_host)
 from visionllm_tpu_torch.models.composite import (VisionLLMWithTools,
                                                   build_model)
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
@@ -104,14 +104,6 @@ def prompt_ids(tokenizer, question: str, answer: str, *,
         pad_id = getattr(tokenizer, "pad_token_id", 0) or 0
         ids = np.concatenate([ids, np.full(pad, pad_id, np.int64)])
     return ids
-
-
-def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Every tensor of `out` to numpy, with one wait for the device."""
-    host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
-    if any(v.is_cuda for v in out.values()):
-        torch.cuda.synchronize()
-    return {k: v.numpy() for k, v in host.items()}
 
 
 class Predictor:
@@ -205,7 +197,7 @@ class Predictor:
                                 topk)(*self._model_args(arr))
         if not with_mask:
             del out["mask_logits"]
-        out = _to_host(out)
+        out = to_host(out)
         scores = out["scores"][0]
         keep = scores >= threshold
         labels = out["labels"][0][keep]
@@ -231,7 +223,7 @@ class Predictor:
         out = make_grd_infer_fn(self.model, self.tid)(*self._model_args(arr))
         if not with_mask:
             del out["mask_logits"]
-        out = _to_host(out)
+        out = to_host(out)
         res = {
             "box": scale_boxes_np(out["box"], arr["ori_shape"])[0],
             "score": float(out["score"][0]),
@@ -259,7 +251,7 @@ class Predictor:
         ids, images, aug, pm = self._model_args(arr)
         out = self.model.infer_pose(ids, images, aug, self.tid, 1,
                                     pixel_mask=pm)
-        out = _to_host({k: out[k] for k in ("pred_logits", "pred_boxes",
+        out = to_host({k: out[k] for k in ("pred_logits", "pred_boxes",
                                             "pred_keypoints")})
         det = post_process_pose(out["pred_logits"][0], out["pred_boxes"][0],
                                 out["pred_keypoints"][0], arr["ori_shape"],

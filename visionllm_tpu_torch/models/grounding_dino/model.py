@@ -83,6 +83,17 @@ def build_backbone(cfg: GDinoConfig):
     return InternImage(bb_cfg), bb_cfg
 
 
+class GroupNorm(nn.GroupNorm):
+    """`nn.GroupNorm` that, like flax's, normalizes a group of one value
+    (zero variance: the output is the bias), which `F.group_norm`
+    refuses; a 1 x 1 level of a B1 batch has such groups when a group is
+    one channel, as at the tiny test config's width."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.group_norm(x, self.num_groups, self.weight, self.bias,
+                                self.eps, torch.backends.cudnn.enabled)
+
+
 def _nchw(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply a conv or group norm to an NHWC tensor."""
     return module(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -217,10 +228,10 @@ class GroundingDino(nn.Module):
             self.add_module(f"input_proj_{i}",
                             nn.Conv2d(bb_cfg.stage_dim(i + 1), d, 1))
             self.add_module(f"input_proj_norm_{i}",
-                            nn.GroupNorm(32, d, eps=FLAX_LN_EPS))
+                            GroupNorm(32, d, eps=FLAX_LN_EPS))
         self.input_proj_3 = nn.Conv2d(bb_cfg.stage_dim(3), d, 3, stride=2,
                                       padding=1)
-        self.input_proj_norm_3 = nn.GroupNorm(32, d, eps=FLAX_LN_EPS)
+        self.input_proj_norm_3 = GroupNorm(32, d, eps=FLAX_LN_EPS)
         self.level_embed = nn.Parameter(torch.zeros(cfg.num_feature_levels, d))
         for i in range(cfg.encoder_layers):
             self.add_module(f"encoder_layer_{i}", GDinoEncoderLayer(cfg))
@@ -235,9 +246,9 @@ class GroundingDino(nn.Module):
             torch.zeros(cfg.num_queries, d))
         # mask FPN (stride-4 path)
         self.lateral_conv = nn.Conv2d(bb_cfg.stage_dim(0), d, 1, bias=False)
-        self.lateral_norm = nn.GroupNorm(32, d, eps=FLAX_LN_EPS)
+        self.lateral_norm = GroupNorm(32, d, eps=FLAX_LN_EPS)
         self.output_conv = nn.Conv2d(d, d, 3, padding=1, bias=False)
-        self.output_norm = nn.GroupNorm(32, d, eps=FLAX_LN_EPS)
+        self.output_norm = GroupNorm(32, d, eps=FLAX_LN_EPS)
         self.mask_features = nn.Conv2d(d, cfg.mask_dim, 1)
         self.model_mask_embed = MLP(d, d, cfg.mask_dim, 3)
         self.bbox_embed = MLP(d, d, 4, 3)

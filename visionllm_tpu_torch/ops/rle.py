@@ -2,11 +2,11 @@
 of `visionllm_tpu/ops/rle.py`): column-major runs, each count stored as
 its delta to the count two back in 5-bit groups offset by 48 - the wire
 format of COCO tooling, so masks the perception endpoints return decode
-with it."""
+with it; and `rle_iou`, the pairwise mask IoU of the COCO evaluator."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -76,3 +76,28 @@ def rle_area(rle: Dict) -> int:
     if isinstance(counts, str):
         counts = counts.encode()
     return int(sum(_counts_from_string(counts)[1::2]))
+
+
+def rle_iou(dt: List[Dict], gt: List[Dict],
+            iscrowd: Optional[List[int]] = None) -> np.ndarray:
+    """Pairwise mask IoU [len(dt), len(gt)] of RLE dicts (decoded; the
+    COCO evaluator's segm IoU). A crowd gt divides by the detection's
+    area alone."""
+    if not dt or not gt:
+        return np.zeros((len(dt), len(gt)), np.float64)
+    h, w = dt[0]["size"]
+    d = np.stack([rle_decode(x["counts"], h, w) for x in dt]).reshape(
+        len(dt), -1).astype(bool)
+    g = np.stack([rle_decode(x["counts"], h, w) for x in gt]).reshape(
+        len(gt), -1).astype(bool)
+    inter = (d[:, None] & g[None]).sum(-1).astype(np.float64)
+    if iscrowd is None:
+        iscrowd = [0] * len(gt)
+    out = np.zeros((len(dt), len(gt)), np.float64)
+    for j in range(len(gt)):
+        if iscrowd[j]:
+            denom = d.sum(-1).astype(np.float64)
+        else:
+            denom = d.sum(-1) + g[j].sum() - inter[:, j]
+        out[:, j] = inter[:, j] / np.maximum(denom, 1)
+    return out
