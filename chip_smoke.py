@@ -22,7 +22,8 @@ Phases, each printing one JSON line:
              also runs the chat prefill (B4 L640), a causal L2048 and a
              slot service's B1 L640 prefill with left-pad segments; the
              int4 GEMM adds the slots phase's M 8 (a tick) and M 256 (a
-             chunk window).
+             chunk window), and InternLM2-20B's five widths at M 4 (K up
+             to 16384, N up to 92576) and gate/up at M 2560.
              Every case prints `device_ms` (and `library_device_ms` where
              a library call computes the same function): device time per
              call from torch.profiler's kernel events, one profiler
@@ -42,7 +43,9 @@ Phases, each printing one JSON line:
              grid_sample composition (`composite_*`) where no single
              library call computes MSDA. The flash forward also runs the
              26B det path's InternViT (B7 L1025, 25 heads, bidirectional)
-             and InternLM2 prefill (L1868, 48 heads over 8), the gen
+             and InternLM2 prefill (L1868, 48 heads over 8), the whole
+             26B model's InternViT on one tile (B1 L1025) and its chat
+             prefill (B4 L640, 48 heads over 8), the gen
              phase's [EDIT] prefill (L614), and the eval phase's B8 batch:
              the 80-class det prompt's prefill (`eval_prefill_b8`) and
              CLIP at B8; the MSDA forward adds that batch's encoder at the
@@ -72,10 +75,11 @@ Phases, each printing one JSON line:
              answer detect, ground and pose (`PERCEPTION_REQUESTS`)
              directly and over HTTP on 127.0.0.1: the replies must be
              identical, finite and of the expected shapes, and every
-             request must launch flash 56 and MSDA 12 times. Each
-             request's raw tool outputs (before the post-processing's
-             top-k) are held against the plain versions on the kernel
-             run's proposal and group choices; then the warm request
+             request must launch flash 56 and MSDA 12 times. Each direct
+             call's raw tool outputs (before the post-processing's
+             top-k, recorded by `predictor_call`) are held against the
+             plain versions on the kernel run's proposal and group
+             choices; then the warm request
              times and the phase's peak memory;
 7. perception_profile - one detect and one pose request under
              torch.profiler;
@@ -249,29 +253,85 @@ Phases, each printing one JSON line:
 20. flagship_profile - the three-region request's generate call under
              torch.profiler, its region encoder in a synced range: the
              encoder's device ms and kernels beside its bound;
-21. det26b - the 26B flagship's det path, with nothing else resident:
-             `build_model(vllm_26b_det_config())` at full width and depth
-             (InternViT-6B/448 48 layers, pixel shuffle and `internvl_mlp`,
-             InternLM2-20B 48 layers at 48 heads over 8 KV heads,
-             Grounding-DINO on InternImage-H) in bf16 on the card. An
-             800x1088 uint8 image answers a det request as a 7-tile stack
-             (`dynamic_preprocess`: 7 x 256 image tokens, L 1868) and as
-             one tile (L 332), each once and 3 warm repeats more through
-             `infer_det`: shapes, finite values, flash 96 (48 InternViT +
-             48 InternLM2) and MSDA 62 (50 DCNv3 + 12 Grounding-DINO)
-             launches a request. Each request's text queries and raw tool
-             outputs are held against the plain versions on the same
+21. det26b - the whole 26B flagship, with nothing else resident:
+             `build_model(vllm_26b_config())` once, at full width and
+             depth (InternViT-6B/448 48 layers, pixel shuffle and
+             `internvl_mlp`, InternLM2-20B 48 layers at 48 heads over 8 KV
+             heads, Grounding-DINO and UniPose each on its own
+             InternImage-H, the SD-1.5 and InstructPix2Pix heads with their
+             6144 -> 768 mappers, the region encoder 3200 -> 6144) in bf16
+             on the card, the fp32 parts as at 7B; its parameters and GB
+             beside the host-only count `model_size` (they must agree).
+             Then, on that one model, in sections, each with its launch
+             counts set to 0 before its main path and read after it, and
+             each failing at a peak of DET26B_PEAK_LIMIT bytes or more:
+             det - an 800x1088 uint8 image answers a det request as a
+             7-tile stack (`dynamic_preprocess`: 7 x 256 image tokens, L
+             1868) and as one tile (L 332), each once and 3 warm repeats
+             more through `infer_det`: shapes, finite values, flash 96 (48
+             InternViT + 48 InternLM2) and MSDA 62 (50 DCNv3 + 12
+             Grounding-DINO) launches a request. Each request's text
+             queries and the raw tool outputs of its last `infer_det`
+             call are held against the plain versions on the same
              weights (the kernel run's proposal choice) within
-             DET26B_REL_TOL, and Grounding-DINO in fp32 (plain versions,
-             the kernel run's text queries) witnesses the gate: the kernel
-             run may sit at most DET26B_WITNESS_RATIO times as far from it
-             as the bf16 plain run, per tool output and per InternImage
-             stage map; 16 greedy tokens at B1 from the 7-tile prompt
+             DET26B_REL_TOL, and an fp32 run witnesses the gate
+             (`fp32_witness`: the core widened to fp32 a layer at a time,
+             Grounding-DINO widened to fp32, plain versions): the kernel
+             run may sit at most DET26B_WITNESS_RATIO times as far from
+             it as the bf16 plain run, for the text queries, the tool
+             alone, the whole path and each InternImage stage map; 16
+             greedy tokens at B1 from the 7-tile prompt
              (`build_generate_fn` on the same core) against the plain
-             run's by the near-tie token rule. Then request, vision,
-             prefill and Grounding-DINO ms, the decode ms a step, the
-             weights' and the peak memory (which must stay under 80 GB);
-22. det26b_profile - each request once under torch.profiler;
+             run's by the near-tie token rule; request,
+             vision, prefill and Grounding-DINO ms, the decode ms a step
+             (the `det26b` line; then `det26b_profile`);
+             predictor - `Predictor` on the same image (the 800x1088
+             bucket of the 800 px test scale) answers detect (3 classes,
+             top 20, masks), ground and pose, and pose again over HTTP
+             (`make_server(None, predictor=...)`: the reply identical):
+             flash 96 and MSDA 62 (50 DCNv3 + 12 UniPose for pose) a
+             request, the replies' shapes; each request against the plain
+             versions on the kernel run's choices, stage by stage: the
+             text queries (flash through InternViT and InternLM2) and the
+             raw tool outputs on the kernel run's text queries (MSDA
+             through the backbone and the tool) within
+             PERCEPTION_REL_TOL each; end to end (both stages plain)
+             reported and held only by `fp32_witness` (the tool's fp32
+             copy, Grounding-DINO then UniPose, freed after) at
+             DET26B_WITNESS_RATIO; warm request ms;
+             gen - a [GEN] and an [EDIT] image at 512 px, 50 DDIM steps,
+             each made DET26B_GEN_RUNS times from one seed (bit-identical),
+             flash 0 and 96 a generate call; the forced rows, the logits
+             after the last forced row and each mapper's output on the
+             rows against the plain run within GEN_REL_TOL, and the rows
+             `VisionLLM.extract_gen_embs` takes from one prefill of the
+             prompt and the emitted tokens against the decode's;
+             regions - on a uint8 480x640 image under `internlm2_chat`, a
+             box request and a mask request (the same region) through B1
+             dispatch (`ChatService(max_batch=1)`, flash 96) and through
+             `ChatService(slots=2, prefill_chunk=256)` (flash 48, the
+             vision encoder: the chunk windows take the einsum branch),
+             and another box through B1 dispatch; what the region path
+             gave each call (`RegionTrace`) held as in the flagship
+             phase: the box and the mask the same masks and bit-identical
+             rows, the slot service the B1 box request's masks and its
+             rows and first-step logits within LOGIT_REL_TOL, the B1 box
+             request's rows, first-step and teacher-forced logits and a
+             chunked admission's first step within LOGIT_REL_TOL of the
+             plain versions, another box's rows REGION_SEPARATION times
+             farther off, the slot tokens by the near-tie rule;
+             chat_bf16, chat_int4 - `ChatService(max_batch=4,
+             max_prompt=640, max_new_tokens=32,
+             conv_version="internlm2_chat")` answers the serve phase's 4
+             image requests from threads in one generate call, in bf16,
+             then again after the core's LLM is quantized to int4 in
+             place (`quantize_serving_params`; 337 `Int4Linear`s): flash
+             96 a generate call, int4 337 a forward, the kernel run
+             against the plain run teacher-forced on its tokens within
+             LOGIT_REL_TOL, TTFT, ms a decode step and tok/s. The
+             `det26b_whole` line gives the build, every section's peak
+             and seconds and the launch totals;
+22. det26b_profile - each det request once under torch.profiler;
 23. eval    - the det and grounding evaluation path, with nothing else
              resident: `build_model(vllm_7b_det_config())` in bf16 and a
              synthetic COCO set written to a temporary directory without
@@ -331,7 +391,7 @@ import threading
 import time
 import zlib
 import urllib.request
-from contextlib import ExitStack
+from contextlib import ExitStack, contextmanager
 from unittest import mock
 
 import numpy as np
@@ -346,7 +406,7 @@ from visionllm_tpu_torch.config import (LLMConfig, OptimizerConfig,
                                         vllm_7b_det_config,
                                         vllm_7b_gen_config,
                                         vllm_7b_perception_config,
-                                        vllm_26b_det_config)
+                                        vllm_26b_config)
 from visionllm_tpu_torch.data.coco import (decode_segmentation,
                                            rasterize_polygons)
 from visionllm_tpu_torch.data.conversation import get_conv_template
@@ -380,7 +440,8 @@ from visionllm_tpu_torch.infer import (COCO_KEYPOINT_NAMES, Predictor,
                                        det_prompt, grd_prompt, pose_prompt,
                                        prompt_ids)
 from visionllm_tpu_torch.kernels import build
-from visionllm_tpu_torch.models.composite import build_core, build_model
+from visionllm_tpu_torch.models.composite import (build_core, build_model,
+                                                  model_size)
 from visionllm_tpu_torch.models.llama import KVCache
 from visionllm_tpu_torch.models.stable_diffusion import unet as SDU
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
@@ -467,6 +528,12 @@ DET26B_REL_TOL = 5e-2
 # from the fp32 run as the bf16 plain run does (or as bf16's unit
 # roundoff, 2^-8, where that is larger)
 DET26B_WITNESS_RATIO = 2.0
+# the whole 26B model on one card: the peak of each section must stay
+# under this many bytes; the Predictor section's request that also goes
+# over HTTP; the gen section's images from one seed
+DET26B_PEAK_LIMIT = 80e9
+DET26B_HTTP_TASK = "pose"
+DET26B_GEN_RUNS = 2
 # the gen phase: the first question templates of the JAX gen datasets
 # (`visionllm_tpu/data/gen_dataset.py:23-40`) with a caption and an
 # instruction, vicuna_v1; DDIM steps and guidance at the JAX `generate`
@@ -667,6 +734,12 @@ def attention_cases(g, more=False):
                   ("internlm2_gqa_6to1_prefill", 1,
                    det26b_prompt_lengths()["tiles7"], 48, 8, 128, True,
                    None)]
+        # the whole 26B model: InternViT on one 448 px tile (a Predictor,
+        # gen or chat request) and InternLM2-20B's chat prefill inside
+        # `ChatService(max_batch=4, max_prompt=640)`
+        specs += [("internvit_b1_l1025", 1, 1025, 25, 25, 128, False, None),
+                  ("internlm2_chat_b4_l640_gqa", SERVE_BATCH, SERVE_PROMPT,
+                   48, 8, 128, True, None)]
         # the [EDIT] request's LLaMA prefill (its CLIP is clip_l)
         specs += [("gen_edit_prefill", 1, gen_prompt_lengths()["edit"], 32,
                    32, 128, True, None)]
@@ -1258,6 +1331,13 @@ def check_int4(g):
                                               (11008, 4096), (4096, 32096))]
     specs.append(("chunk_m256_4096x11008", 256, 4096, 11008))
     specs.append(("prefill_m2560_4096x11008", 2560, 4096, 11008))
+    # InternLM2-20B's widths (the 26B int4 chat): q and o, k and v, gate
+    # and up, down, lm_head at a B4 decode step; gate and up at the B4
+    # L640 prefill
+    specs += [(f"internlm2_m4_{k}x{n}", 4, k, n)
+              for k, n in ((6144, 6144), (6144, 1024), (6144, 16384),
+                           (16384, 6144), (6144, 92576))]
+    specs.append(("internlm2_prefill_m2560_6144x16384", 2560, 6144, 16384))
     for name, M_, K, N in specs:
         wbytes = K * N // 2 + 2 * (K // 128) * N
         copies = max(1, math.ceil(2 * L2_BYTES / wbytes)) \
@@ -1569,39 +1649,94 @@ def rel_err(got, want):
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
-def compare_perception_plain(pred, task, img):
-    """The raw tool outputs of one request (before any top-k of the
-    post-processing) with the kernels, against the same request with the
-    plain versions on the kernel run's proposal (and, for pose, group)
-    choices: relative Frobenius error of the text queries and of each
-    output over its valid text columns."""
-    model, tid = pred.model, pred.tid
-    arr = pred._prepare(img, *perception_prompt(task))
-    ids, images, aug, pm = pred._model_args(arr)
+TOOL_OUTPUTS = {"gdino": ("logits", "pred_boxes", "pred_masks"),
+                "unipose": ("pred_logits", "pred_boxes", "pred_keypoints")}
 
-    def run(choices=None):
-        tq, mask = text_queries(model, ids, images, tid)
-        if task == "pose":
-            out = model.unipose(aug, tq[:, :1], mask[:, :1], tq[:, 1:],
-                                mask[:, 1:], pixel_mask=pm,
-                                **(choices or {}))
-            return tq, mask[:, :1], out, ("pred_logits", "pred_boxes",
-                                          "pred_keypoints")
-        out = model.gdino(aug, tq, mask, pixel_mask=pm, **(choices or {}))
-        return tq, mask, out, ("logits", "pred_boxes", "pred_masks")
 
-    tq_k, cols, out_k, keys = run()
+def run_tool(tool, name, aug, pm, tq, mask, choices):
+    """Tool `name` ("gdino" or "unipose"; the module `tool`) on the text
+    queries `tq` [B, P, C]: UniPose takes the first as its object query
+    and the rest as its keypoint queries, as `Predictor.pose` does."""
+    if name == "unipose":
+        return tool(aug, tq[:, :1], mask[:, :1], tq[:, 1:], mask[:, 1:],
+                    pixel_mask=pm, **choices)
+    return tool(aug, tq, mask, pixel_mask=pm, **choices)
+
+
+def predictor_call(pred, task, img):
+    """`perception_call` with what its tool returned: (reply, (ids,
+    images, aug, pixel_mask) as the model got them, the raw outputs),
+    recorded around the model's `infer_det` and `infer_pose`."""
+    model, seen = pred.model, []
+
+    def recording(fn):
+        def call(ids, images, aug, *args, pixel_mask=None, **kwargs):
+            out = fn(ids, images, aug, *args, pixel_mask=pixel_mask,
+                     **kwargs)
+            seen.append(((ids, images, aug, pixel_mask), out))
+            return out
+        return call
+
+    for name in ("infer_det", "infer_pose"):
+        setattr(model, name, recording(getattr(model, name)))
+    try:
+        reply = perception_call(pred, task, img)
+    finally:
+        for name in ("infer_det", "infer_pose"):
+            delattr(model, name)
+    (req, out), = seen
+    return reply, req, out
+
+
+def perception_tool(task):
+    return "unipose" if task == "pose" else "gdino"
+
+
+def tool_vs_plain(model, tid, name, req, out_k):
+    """One request's raw outputs of tool `name` from its main-path call
+    (`out_k`, before any top-k of the post-processing) against the plain
+    versions on the kernel run's proposal (and, for pose, group) choices.
+    `req` is (ids, images, aug, pixel_mask) as that call got them.
+    Returns (errs, runs): errs = {"text_queries": the LLM's
+    kernel-vs-plain error (flash), "tool": the plain tool on the kernel
+    run's text queries against `out_k` (MSDA), "end_to_end": both stages
+    plain against `out_k`}, relative Frobenius errors with logits over
+    their valid text columns; runs = what `fp32_witness` reuses."""
+    ids, images, aug, pm = req
+    tool = getattr(model, name)
+    tq_k, mask = text_queries(model, ids, images, tid)
     choices = {k: out_k[k] for k in ("topk_idx", "group_idx") if k in out_k}
     with plain_versions():
-        tq_p, _, out_p, _ = run(choices)
-    errs = {"text_queries": rel_err(tq_k, tq_p)}
-    for k in keys:
-        a, b = out_k[k], out_p[k]
-        if k in ("logits", "pred_logits"):     # the valid text columns
-            n = cols.shape[1]
-            a, b = a[..., :n][..., cols[0]], b[..., :n][..., cols[0]]
-        errs[k] = rel_err(a, b)
-    return errs
+        tq_p, _ = text_queries(model, ids, images, tid)
+        out_p = run_tool(tool, name, aug, pm, tq_p, mask, choices)
+        out_g = run_tool(tool, name, aug, pm, tq_k, mask, choices)
+    runs = {"req": req, "mask": mask, "choices": choices, "tq_k": tq_k,
+            "tq_p": tq_p, "out_k": out_k, "out_p": out_p, "out_g": out_g,
+            "cols": mask[0, :1] if name == "unipose" else mask[0]}
+    errs = {"text_queries": rel_err(tq_k, tq_p), "tool": {},
+            "end_to_end": {}}
+    for key in TOOL_OUTPUTS[name]:
+        k, p, g = (valid_columns(runs, key, o[key])
+                   for o in (out_k, out_p, out_g))
+        errs["tool"][key], errs["end_to_end"][key] = rel_err(k, g), \
+            rel_err(k, p)
+    return errs, runs
+
+
+def valid_columns(runs, key, x):
+    """Logits `x` over the request's valid text columns; other outputs
+    whole."""
+    if key in ("logits", "pred_logits"):
+        cols = runs["cols"]
+        return x[..., :cols.shape[0]][..., cols]
+    return x
+
+
+def perception_errs(model, tid, task, req, out_k):
+    """The perception gate's errors of one request: its text queries and
+    its tool's outputs end to end, kernels against plain versions."""
+    e, _ = tool_vs_plain(model, tid, perception_tool(task), req, out_k)
+    return {"text_queries": e["text_queries"], **e["end_to_end"]}
 
 
 def run_perception():
@@ -1631,7 +1766,7 @@ def run_perception():
     # the main path, with the launch counts taken around it alone
     A.flash_attention.launches = 0
     M.ms_deform_attn.launches = 0
-    calls, replies = [], {}
+    calls, replies, raw = [], {}, {}
     with torch.no_grad():
         for i, img in enumerate(images):
             for task, (path, body) in PERCEPTION_REQUESTS.items():
@@ -1640,8 +1775,10 @@ def run_perception():
                         M.ms_deform_attn.launches
                     t0 = time.perf_counter()
                     if via == "direct":
+                        reply, *raw[i, task] = predictor_call(pred, task,
+                                                              img)
                         reply = json.loads(json.dumps(perception_json(
-                            perception_call(pred, task, img))))
+                            reply)))
                     else:
                         reply = post_json(url + path, {
                             "image_b64": base64.b64encode(
@@ -1666,16 +1803,15 @@ def run_perception():
                                  "from the direct call's")
         check_perception_reply(task, reply, images[i].shape[:2])
 
-    # raw tool outputs against the plain versions, every request
+    # the main path's raw tool outputs against the plain versions
     errs = {}
     with torch.no_grad():
-        for i, img in enumerate(images):
-            for task in PERCEPTION_REQUESTS:
-                errs[f"{i}:{task}"] = e = compare_perception_plain(pred, task,
-                                                                   img)
-                if not max(e.values()) <= PERCEPTION_REL_TOL:
-                    raise AssertionError(f"image {i} {task} kernel vs plain "
-                                         f"{e} > {PERCEPTION_REL_TOL}")
+        for (i, task), (req, out_k) in raw.items():
+            errs[f"{i}:{task}"] = e = perception_errs(model, pred.tid, task,
+                                                      req, out_k)
+            if not max(e.values()) <= PERCEPTION_REL_TOL:
+                raise AssertionError(f"image {i} {task} kernel vs plain "
+                                     f"{e} > {PERCEPTION_REL_TOL}")
 
     # warm request times (direct calls, host clock, synced)
     with torch.no_grad():
@@ -1999,14 +2135,16 @@ def gen_prompt_lengths():
     cfg, tok = vllm_7b_gen_config(), SimpleTokenizer()
     return {"gen": len(gen_prompt_ids(tok, GEN_QUESTION, 0)),
             "edit": len(gen_prompt_ids(tok, EDIT_QUESTION,
-                                       cfg.vis_encoder.num_patches))}
+                                       cfg.image_token_len))}
 
 
 def gen_requests(cfg, tok):
     """The phase's two requests on the card, as {tool: (ids [1, L], CLIP
     pixels or None, the image to edit or None)}: [GEN] text only; [EDIT]
-    with a uint8 512x512 image (numpy seed 5) given to CLIP at 336 px
-    (`clip_preprocess`) and to the VAE at 512 px in [-1, 1]."""
+    with a uint8 512x512 image (numpy seed 5) given to the vision encoder
+    at its size (`clip_preprocess`: 336 px for CLIP, one 448 px tile for
+    InternViT; `cfg.image_token_len` <im_patch> ids) and to the VAE at
+    512 px in [-1, 1]."""
     img = np.random.RandomState(5).randint(0, 256, GEN_IMAGE, np.uint8)
     size = cfg.vis_encoder.image_size
     clip = torch.from_numpy(clip_preprocess(img, size)[None]).to(
@@ -2016,7 +2154,7 @@ def gen_requests(cfg, tok):
     ids = {tool: torch.from_numpy(gen_prompt_ids(tok, q, n))[None].to("cuda")
            for tool, q, n in (("gen", GEN_QUESTION, 0),
                               ("edit", EDIT_QUESTION,
-                               cfg.vis_encoder.num_patches))}
+                               cfg.image_token_len))}
     return {"gen": (ids["gen"], None, None), "edit": (ids["edit"], clip, src)}
 
 
@@ -2707,12 +2845,7 @@ def run_flagship():
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
-    fp32 = {id(p) for m in model.fp32_modules() for p in m.parameters()}
-    for name, p in model.named_parameters():
-        dt = torch.float32 if id(p) in fp32 else torch.bfloat16
-        if p.dtype != dt or p.device.type != "cuda":
-            raise AssertionError(f"flagship: {name} is {p.dtype} on "
-                                 f"{p.device}, want {dt} on the card")
+    fp32 = check_param_dtypes(model, "flagship")
     if not any(n.startswith("core.region_encoder.stem_norm") for n, p in
                model.named_parameters() if id(p) in fp32):
         raise AssertionError("flagship: the region encoder's norms are "
@@ -2782,10 +2915,12 @@ def run_flagship():
                               lambda: model.infer_det(
                                   det_reg_ids, det_img, det_aug, tid,
                                   regions=det_region))
-        perc = {task: counted(f"predictor:{task}", task,
-                              lambda task=task: perception_json(
-                                  perception_call(pred, task, perc_img)))
-                for task in ("detect", "pose")}
+        perc, perc_raw = {}, {}
+        for task in ("detect", "pose"):
+            reply, *perc_raw[task] = counted(
+                f"predictor:{task}", task,
+                lambda task=task: predictor_call(pred, task, perc_img))
+            perc[task] = perception_json(reply)
         images, rows, outs = {}, {}, {}
         for tool, req in gen_reqs.items():
             images[tool], rows[tool], outs[tool] = counted(
@@ -2901,7 +3036,7 @@ def run_flagship():
         errs["infer_det:region"] = det_plain_errs(
             model, tid, det_reg_ids, det_img, det_aug, det_region)
         for task in ("detect", "pose"):
-            errs[task] = compare_perception_plain(pred, task, perc_img)
+            errs[task] = perception_errs(model, tid, task, *perc_raw[task])
         for tool, req in gen_reqs.items():
             with plain_versions():
                 rows_p, out_p = gen_rows(model, gen, tid, tool, req)
@@ -3016,8 +3151,8 @@ def det26b_prompt_ids(tok, image_tokens, cfg):
 
 def det26b_prompt_lengths():
     """Prompt lengths of the two det26b requests (host only)."""
-    cfg, tok = vllm_26b_det_config(), SimpleTokenizer()
-    per = cfg.vis_encoder.num_patches // 4      # after pixel shuffle
+    cfg, tok = vllm_26b_config(), SimpleTokenizer()
+    per = cfg.image_token_len                   # after pixel shuffle
     return {name: len(det26b_prompt_ids(tok, n * per, cfg))
             for name, n in DET26B_TILES.items()}
 
@@ -3041,7 +3176,7 @@ def det26b_requests(cfg, tok):
          "labels": np.zeros((0,), np.int32)}, TEST_SCALE, DEFAULT_BUCKETS)
     aug = torch.from_numpy(sample["image"][None]).to("cuda", torch.bfloat16)
     pm = torch.from_numpy(sample["pixel_mask"][None]).to("cuda")
-    per = cfg.vis_encoder.num_patches // 4      # after pixel shuffle
+    per = cfg.image_token_len                   # after pixel shuffle
     reqs = {}
     for name, n in DET26B_TILES.items():
         if n != (pix[name].shape[1] if pix[name].ndim == 5 else 1):
@@ -3051,65 +3186,6 @@ def det26b_requests(cfg, tok):
         reqs[name] = (ids.to("cuda"), torch.from_numpy(pix[name]).to(
             "cuda", torch.bfloat16), aug, pm)
     return reqs
-
-
-def det26b_plain(model, g32, tid, req, out_k):
-    """The request's text queries and raw tool outputs with the plain
-    versions on the kernel run's proposal choice, against the kernel
-    run's: relative Frobenius error of each (logits on the valid text
-    columns); then the fp32 witness (`det26b_witness`, with `g32` the
-    fp32 copy of `model.gdino`)."""
-    ids, images, aug, pm = req
-    tq_k, mask_k = text_queries(model, ids, images, tid)
-    with plain_versions():
-        tq_p, mask_p = text_queries(model, ids, images, tid)
-        out_p = model.gdino(aug, tq_p, mask_p, pixel_mask=pm,
-                            topk_idx=out_k["topk_idx"])
-        # Grounding-DINO alone: the plain MSDA on the kernel run's queries
-        out_g = model.gdino(aug, tq_k, mask_k, pixel_mask=pm,
-                            topk_idx=out_k["topk_idx"])
-    if not torch.equal(mask_k, mask_p):
-        raise AssertionError("det26b: text-query masks differ")
-    n = int(mask_k.sum())
-    errs, alone = {"text_queries": rel_err(tq_k, tq_p)}, {}
-    for key in ("logits", "pred_boxes", "pred_masks"):
-        a, b, c = (o[key][..., :n] if key == "logits" else o[key]
-                   for o in (out_k, out_p, out_g))
-        errs[key], alone[key] = rel_err(a, b), rel_err(a, c)
-    return errs, alone, det26b_witness(model, g32, aug, pm, tq_k, mask_k,
-                                       out_k, out_g)
-
-
-def det26b_witness(model, g32, aug, pm, tq, mask, out_k, out_g):
-    """Grounding-DINO (InternImage-H included) with its weights widened
-    to fp32 and the plain versions, on the kernel run's text queries and
-    proposal choice, as the witness of the kernel-vs-plain gate: the
-    relative error from it of the kernel run (`kernel`) and of the bf16
-    plain run (`plain`), per tool output and per InternImage stage map,
-    and the stage maps' kernel-vs-plain error. Raises where the kernel
-    run sits more than DET26B_WITNESS_RATIO times as far from fp32 as the
-    plain run does (or as 2^-8, where that is larger)."""
-    with plain_versions():
-        out_32 = g32(aug.float(), tq.float(), mask, pixel_mask=pm,
-                     topk_idx=out_k["topk_idx"])
-        maps_32 = g32.backbone(aug.float())
-        maps_p = model.gdino.backbone(aug)
-    maps_k = model.gdino.backbone(aug)
-    n = int(mask.sum())
-    res = {"kernel": {}, "plain": {}, "kernel_vs_plain": {}}
-    for key in ("logits", "pred_boxes", "pred_masks"):
-        w, k, p = (o[key][..., :n] if key == "logits" else o[key]
-                   for o in (out_32, out_k, out_g))
-        res["kernel"][key], res["plain"][key] = rel_err(k, w), rel_err(p, w)
-    for s, (k, p, w) in enumerate(zip(maps_k, maps_p, maps_32)):
-        res["kernel"][f"stage{s}"] = rel_err(k, w)
-        res["plain"][f"stage{s}"] = rel_err(p, w)
-        res["kernel_vs_plain"][f"stage{s}"] = rel_err(k, p)
-    for key, e in res["kernel"].items():
-        if not e <= DET26B_WITNESS_RATIO * max(res["plain"][key], 2.0 ** -8):
-            raise AssertionError(f"det26b {key}: the kernel run is {e} from "
-                                 f"fp32, the plain run {res['plain'][key]}")
-    return res
 
 
 def near_tie_rule(what, ids, plain_ids, plain_logits):
@@ -3163,27 +3239,87 @@ def decode_step_ms(core, ids, images, max_len, n=DET26B_DECODE):
     return statistics.median(ts)
 
 
+def check_param_dtypes(model, what):
+    """Every parameter on the card, bf16 but for `fp32_modules`; returns
+    the fp32 parameters' ids."""
+    fp32 = {id(p) for m in model.fp32_modules() for p in m.parameters()}
+    for name, p in model.named_parameters():
+        dt = torch.float32 if id(p) in fp32 else torch.bfloat16
+        if p.dtype != dt or p.device.type != "cuda":
+            raise AssertionError(f"{what}: {name} is {p.dtype} on "
+                                 f"{p.device}, want {dt} on the card")
+    return fp32
+
+
 def run_det26b():
-    """The det26b phase: see the module docstring. Nothing else is
-    resident: the earlier phases' models are freed before it."""
+    """The det26b phase and its sections: see the module docstring.
+    Nothing else is resident: the earlier phases' models are freed
+    before it. Returns the launches of every section's main path."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     resident_gb = torch.cuda.memory_allocated() / 1e9
-    cfg = vllm_26b_det_config()
+    cfg = vllm_26b_config()
+    predicted = model_size(cfg)
     tid = SpecialTokenIds.synthetic()
-    tok = SimpleTokenizer()
     t = time.perf_counter()
     model = build_model(cfg, dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t
-    dtypes = sorted({str(p.dtype) for p in model.parameters()})
-    if dtypes != ["torch.bfloat16"] or any(
-            not p.is_cuda for p in model.parameters()):
-        raise AssertionError(f"det26b: parameters in {dtypes}, not all bf16 "
-                             "on the card")
-    weights_gb = torch.cuda.memory_allocated() / 1e9
+    check_param_dtypes(model, "det26b")
+    build = {"config": "vllm_26b_config()",
+             "params": sum(p.numel() for p in model.parameters()),
+             "predicted_params": predicted["params"],
+             "weights_gb": torch.cuda.memory_allocated() / 1e9,
+             "predicted_weights_gb": predicted["bytes"] / 1e9,
+             "param_dtypes": sorted({str(p.dtype) for p in
+                                     model.parameters()}),
+             "build_model_s": time.perf_counter() - t,
+             "resident_before_gb": resident_gb}
+    if build["params"] != predicted["params"]:
+        raise AssertionError(f"det26b: {build['params']} parameters, the "
+                             f"host count says {predicted['params']}")
+    peaks = {"build": torch.cuda.max_memory_allocated() / 1e9}
+    seconds, totals = {}, {}
+
+    def section(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for k, v in fn().items():
+            totals[k] = totals.get(k, 0) + v
+        seconds[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+        if peaks[name] * 1e9 >= DET26B_PEAK_LIMIT:
+            raise AssertionError(f"det26b {name}: peak {peaks[name]} GB, "
+                                 f"at or past {DET26B_PEAK_LIMIT / 1e9} GB")
+
+    if peaks["build"] * 1e9 >= DET26B_PEAK_LIMIT:
+        raise AssertionError(f"det26b: the build peaked at {peaks['build']} "
+                             "GB")
+    section("det", lambda: det26b_det(model, cfg, tid, build))
+    section("predictor", lambda: det26b_predictor(model, cfg))
+    section("gen", lambda: det26b_gen(model, cfg, tid))
+    section("regions", lambda: det26b_regions(model, cfg, tid))
+    section("chat_bf16", lambda: det26b_chat(model, cfg, "bf16"))
+    section("chat_int4", lambda: det26b_chat(model, cfg, "int4"))
+    emit({"phase": "det26b_whole", "nvidia_smi": nvidia_smi(), **build,
+          "launches": totals, "peak_mem_gb": peaks,
+          "peak_limit_gb": DET26B_PEAK_LIMIT / 1e9,
+          "section_seconds": seconds,
+          "seconds": time.perf_counter() - t_phase})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def det26b_det(model, cfg, tid, build):
+    """The det section: the det requests through `infer_det`, the plain
+    run and the fp32 witness, the decode, the timings (the `det26b` line)
+    and the profiles. Returns its main path's launches."""
+    tok = SimpleTokenizer()
     reqs = det26b_requests(cfg, tok)
     backbone = model.gdino.backbone.cfg
     per_req = {"flash_attn_fwd": cfg.vis_encoder.num_layers
@@ -3234,18 +3370,24 @@ def run_det26b():
         if not ((out["pred_boxes"] >= 0) & (out["pred_boxes"] <= 1)).all():
             raise AssertionError(f"det26b {name}: boxes outside [0, 1]")
 
-    # the plain versions on the same weights: text queries, tool outputs;
-    # Grounding-DINO in fp32 as their witness
-    errs, gdino_alone, witness = {}, {}, {}
-    g32 = copy.deepcopy(model.gdino).float()
+    # the main path's outputs against the plain versions on the same
+    # weights: text queries, tool outputs; the core and Grounding-DINO in
+    # fp32 as their witness
+    errs, gdino_alone, runs = {}, {}, {}
     with torch.no_grad():
         for name, req in reqs.items():
-            e, gdino_alone[name], witness[name] = det26b_plain(
-                model, g32, tid, req, outs[name])
-            errs[name] = e
+            r, runs[name] = tool_vs_plain(model, tid, "gdino", req,
+                                          outs[name])
+            fp32_text_queries(model, tid, runs[name])
+            errs[name] = e = {"text_queries": r["text_queries"],
+                              **r["end_to_end"]}
+            gdino_alone[name] = r["tool"]
             if not max(e.values()) <= DET26B_REL_TOL:
                 raise AssertionError(f"det26b {name} kernel vs plain {e} > "
                                      f"{DET26B_REL_TOL}")
+        g32 = copy.deepcopy(model.gdino).float()
+        witness = {name: fp32_witness(model, "gdino", runs.pop(name), g32)
+                   for name in reqs}
         kernel_ids = gen_k["out_tokens"][0].tolist()
         with plain_versions():
             plain_ids = gen(chat_ids, images7)["out_tokens"][0].tolist()
@@ -3254,6 +3396,8 @@ def run_det26b():
                 torch.ones_like(chat_ids, dtype=torch.bool), plain_ids, 1,
                 DET26B_MAX_LEN)
     del g32
+    gc.collect()
+    torch.cuda.empty_cache()
     decode_rule = near_tie_rule("det26b decode", kernel_ids, plain_ids,
                                 plain_logits)
 
@@ -3277,11 +3421,12 @@ def run_det26b():
                 "prompt_tokens": int(ids.shape[1])}
         step_ms = decode_step_ms(model.core, chat_ids, images7,
                                  DET26B_MAX_LEN)
-    emit({"phase": "det26b", "config": "vllm_26b_det_config()",
+    emit({"phase": "det26b", "config": build["config"],
           "image": list(DET26B_IMAGE), "tiles": DET26B_TILES,
-          "params": sum(p.numel() for p in model.parameters()),
-          "param_dtypes": dtypes, "weights_gb": weights_gb,
-          "resident_before_gb": resident_gb, "build_model_s": build_s,
+          "params": build["params"], "param_dtypes": build["param_dtypes"],
+          "weights_gb": build["weights_gb"],
+          "resident_before_gb": build["resident_before_gb"],
+          "build_model_s": build["build_model_s"],
           "calls": calls, "launches": launches,
           "launches_per_request": per_req, "timings": timings,
           "plain_rel_err": errs, "plain_rel_tol": DET26B_REL_TOL,
@@ -3293,10 +3438,7 @@ def run_det26b():
                      "plain_ids": plain_ids, **decode_rule,
                      "flash_per_generate": gen_flash,
                      "step_ms_median": step_ms},
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "seconds": time.perf_counter() - t_phase})
-    if torch.cuda.max_memory_allocated() >= 80e9:
-        raise AssertionError("det26b: peak memory at or past 80 GB")
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     for name in DET26B_TILES:
         with torch.no_grad(), profile(
                 activities=[ProfilerActivity.CPU,
@@ -3309,9 +3451,509 @@ def run_det26b():
             wall_ms = (time.perf_counter() - t) * 1e3
         emit({"phase": "det26b_profile", "request": name,
               **device_summary(prof, wall_ms)})
-    del model, reqs, outs, gen, gen_k
-    gc.collect()
-    torch.cuda.empty_cache()
+    return launches
+
+
+@contextmanager
+def fp32_core(core):
+    """`core` in fp32 while the context is open: each block of its
+    ModuleLists (the ViT's and the LLM's layers) widened only while it
+    runs, the rest at once, so that the weights never stand in fp32 all
+    together; each tensor gets its dtype back after (bf16 -> fp32 -> bf16
+    is exact)."""
+    def widen(mod):
+        saved = [(t, t.dtype) for t in (*mod.parameters(), *mod.buffers())
+                 if t.is_floating_point() and t.dtype != torch.float32]
+        for t, _ in saved:
+            t.data = t.data.float()
+        return saved
+
+    def narrow(saved):
+        for t, dt in saved:
+            t.data = t.data.to(dt)
+
+    blocks = [b for m in core.modules() if isinstance(m, torch.nn.ModuleList)
+              for b in m]
+    in_blocks = {id(t) for b in blocks for t in (*b.parameters(),
+                                                 *b.buffers())}
+    widened = {}
+    hooks = [h for b in blocks for h in (
+        b.register_forward_pre_hook(
+            lambda m, args: widened.__setitem__(m, widen(m))),
+        b.register_forward_hook(lambda m, args, out: narrow(widened.pop(m))))]
+    saved = [(t, t.dtype) for t in (*core.parameters(), *core.buffers())
+             if id(t) not in in_blocks and t.is_floating_point()
+             and t.dtype != torch.float32]
+    try:
+        for t, _ in saved:
+            t.data = t.data.float()
+        yield core
+    finally:
+        for h in hooks:
+            h.remove()
+        for m in list(widened):
+            narrow(widened.pop(m))
+        narrow(saved)
+
+
+def fp32_text_queries(model, tid, runs):
+    """Adds to `runs` (of `tool_vs_plain`) the request's text queries
+    from the core in fp32 a layer at a time (`fp32_core`), plain
+    versions: the first half of `fp32_witness`, run before the tool's
+    fp32 copy is made so that the two never stand together."""
+    ids, images = runs["req"][:2]
+    with plain_versions(), fp32_core(model.core):
+        runs["tq_32"], _ = text_queries(model, ids, images, tid)
+    return runs
+
+
+def fp32_witness(model, name, runs, t32):
+    """The fp32 witness of `tool_vs_plain`'s gate: `t32` (tool `name`
+    widened to fp32) on the fp32 text queries (`fp32_text_queries`) for
+    the whole path and on the kernel run's text queries for the tool
+    alone, all with the plain versions on the kernel run's choices.
+    Returns each bf16 run's relative error from
+    its fp32 counterpart ("kernel", "plain"): "text_queries", the tool's
+    outputs alone (by name), the whole path ("end_to_end:" + name) and
+    each backbone stage map ("stage<i>"), with the maps' kernel-vs-plain
+    error. Raises where the kernel run sits more than
+    DET26B_WITNESS_RATIO times as far from fp32 as the plain run does (or
+    as 2^-8, where that is larger)."""
+    aug, pm = runs["req"][2:]
+    tool = getattr(model, name)
+    mask, choices, tq_32 = runs["mask"], runs["choices"], runs["tq_32"]
+    with plain_versions():
+        whole_32 = run_tool(t32, name, aug.float(), pm, tq_32, mask, choices)
+        alone_32 = run_tool(t32, name, aug.float(), pm, runs["tq_k"].float(),
+                            mask, choices)
+        maps_p = tool.backbone(aug)
+        maps_32 = t32.backbone(aug.float())
+    maps_k = tool.backbone(aug)
+    res = {"kernel": {"text_queries": rel_err(runs["tq_k"], tq_32)},
+           "plain": {"text_queries": rel_err(runs["tq_p"], tq_32)},
+           "kernel_vs_plain": {}}
+    for key in TOOL_OUTPUTS[name]:
+        k, p, g, w, a = (valid_columns(runs, key, o[key]) for o in (
+            runs["out_k"], runs["out_p"], runs["out_g"], whole_32, alone_32))
+        res["kernel"][key], res["plain"][key] = rel_err(k, a), rel_err(g, a)
+        res["kernel"]["end_to_end:" + key] = rel_err(k, w)
+        res["plain"]["end_to_end:" + key] = rel_err(p, w)
+    first = 1 if name == "unipose" else 0
+    for s, (k, p, w) in enumerate(zip(maps_k, maps_p, maps_32), first):
+        res["kernel"][f"stage{s}"] = rel_err(k, w)
+        res["plain"][f"stage{s}"] = rel_err(p, w)
+        res["kernel_vs_plain"][f"stage{s}"] = rel_err(k, p)
+    for key, e in res["kernel"].items():
+        if not e <= DET26B_WITNESS_RATIO * max(res["plain"][key], 2.0 ** -8):
+            raise AssertionError(f"det26b {name} {key}: the kernel run is "
+                                 f"{e} from fp32, the plain run "
+                                 f"{res['plain'][key]}")
+    return res
+
+
+def det26b_predictor(model, cfg):
+    """The Predictor section: one uint8 image (the det section's, numpy
+    seed 4) answers detect, ground and pose (`PERCEPTION_REQUESTS`) and
+    the pose request again over HTTP; each request's launches, its
+    reply's shapes, the raw tool outputs behind each direct call against
+    the plain versions (`tool_vs_plain`: the text queries and the tool
+    alone within PERCEPTION_REL_TOL each) and against fp32 stage by stage
+    and end to end (`fp32_witness`), the warm request times (the
+    `det26b_predictor` line). Returns its main path's launches."""
+    tok = SimpleTokenizer()
+    pred = Predictor(cfg, model, tok, device="cuda")
+    img = np.random.RandomState(4).randint(0, 256, DET26B_IMAGE, np.uint8)
+    srv = make_server(None, host="127.0.0.1", port=0, predictor=pred)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    flash = cfg.vis_encoder.num_layers + cfg.llm.num_layers
+    per_req = {
+        "detect": (flash, sum(model.gdino.backbone.cfg.depths)
+                   + cfg.gdino.encoder_layers + cfg.gdino.decoder_layers),
+        "pose": (flash, sum(model.unipose.backbone.cfg.depths)
+                 + cfg.unipose.encoder_layers + cfg.unipose.decoder_layers)}
+    per_req["ground"] = per_req["detect"]
+    path, body = PERCEPTION_REQUESTS[DET26B_HTTP_TASK]
+    http_body = {"image_b64": base64.b64encode(img.tobytes()).decode(),
+                 "image_shape": list(img.shape), **body}
+
+    # the main path, with the launch counts taken around it alone
+    A.flash_attention.launches = 0
+    M.ms_deform_attn.launches = 0
+    calls, replies, raw = [], {}, {}
+    with torch.no_grad():
+        for task, via in [(t, "direct") for t in PERCEPTION_REQUESTS] + [
+                (DET26B_HTTP_TASK, "http")]:
+            f0, m0 = A.flash_attention.launches, M.ms_deform_attn.launches
+            t0 = time.perf_counter()
+            if via == "direct":
+                reply, *raw[task] = predictor_call(pred, task, img)
+                replies[task, via] = json.loads(json.dumps(
+                    perception_json(reply)))
+            else:
+                replies[task, via] = post_json(url + path, http_body)
+            calls.append({"task": task, "via": via,
+                          "wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "flash_attn_fwd": A.flash_attention.launches - f0,
+                          "ms_deform_attn_fwd": M.ms_deform_attn.launches
+                          - m0})
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches,
+                "ms_deform_attn_fwd": M.ms_deform_attn.launches}
+    srv.shutdown()
+    srv.server_close()
+    for c in calls:
+        if (c["flash_attn_fwd"], c["ms_deform_attn_fwd"]) != per_req[
+                c["task"]]:
+            raise AssertionError(f"det26b predictor launches {c} != "
+                                 f"{per_req[c['task']]}")
+    for (task, via), reply in replies.items():
+        check_perception_reply(task, reply, img.shape[:2])
+    if replies[DET26B_HTTP_TASK, "http"] != replies[DET26B_HTTP_TASK,
+                                                    "direct"]:
+        raise AssertionError(f"det26b {DET26B_HTTP_TASK}: the HTTP reply "
+                             "differs from the direct call's")
+
+    # the main path's raw tool outputs against the plain versions, stage
+    # by stage; the core and each tool in fp32 as the witness of each
+    # stage and of the whole path (each tool's copy freed after)
+    errs = {}
+    with torch.no_grad():
+        for task, (req, out_k) in raw.items():
+            errs[task], raw[task] = tool_vs_plain(
+                model, pred.tid, perception_tool(task), req, out_k)
+            fp32_text_queries(model, pred.tid, raw[task])
+            staged = [errs[task]["text_queries"],
+                      *errs[task]["tool"].values()]
+            if not max(staged) <= PERCEPTION_REL_TOL:
+                raise AssertionError(f"det26b {task} kernel vs plain "
+                                     f"{errs[task]} > {PERCEPTION_REL_TOL}")
+        for name, tasks in (("gdino", ("detect", "ground")),
+                            ("unipose", ("pose",))):
+            t32 = copy.deepcopy(getattr(model, name)).float()
+            for task in tasks:
+                errs[task]["fp32_witness"] = fp32_witness(
+                    model, name, raw.pop(task), t32)
+            del t32
+            gc.collect()
+            torch.cuda.empty_cache()
+        req_ms = {task: host_ms(lambda: perception_call(pred, task, img),
+                                n=DET26B_REPEATS)
+                  for task in PERCEPTION_REQUESTS}
+    emit({"phase": "det26b_predictor", "image": list(DET26B_IMAGE),
+          "bucket": list(pred._prepare(img, "<image>\nq", "a")[
+              "image_aug"].shape[1:3]),
+          "requests": PERCEPTION_REQUESTS, "http_task": DET26B_HTTP_TASK,
+          "calls": calls, "launches": launches,
+          "launches_per_request": {k: list(v) for k, v in per_req.items()},
+          "http_equals_direct": True, "plain_rel_err": errs,
+          "plain_rel_tol": PERCEPTION_REL_TOL,
+          "fp32_witness_ratio": DET26B_WITNESS_RATIO,
+          "request_ms_median": req_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
+def det26b_gen(model, cfg, tid):
+    """The [GEN] and [EDIT] section: each image made DET26B_GEN_RUNS times
+    from generator seed GEN_SEED (bit-identical), the forced tokens and
+    launches, the rows, the logits after the last forced row and each
+    head's mapper output on the rows against the plain run; the rows
+    `VisionLLM.extract_gen_embs` takes from one prefill of the prompt
+    and the generated tokens against the decode's (the `det26b_gen`
+    line). Returns its main path's launches."""
+    tok = SimpleTokenizer()
+    reqs = gen_requests(cfg, tok)
+    core = model.core
+    gen = build_generate_fn(core, tid, max_new_tokens=cfg.num_embs_gen + 3,
+                            max_len=GEN_MAX_LEN)
+    want = {tool: (0 if req[1] is None and req[0].shape[1]
+                   < A.FLASH_MIN_LEN else cfg.llm.num_layers)
+            + (cfg.vis_encoder.num_layers if req[1] is not None else 0)
+            for tool, req in reqs.items()}
+
+    # the main path, with the launch count taken around it alone
+    A.flash_attention.launches = 0
+    images, rows, outs, walls, calls = {}, {}, {}, {}, []
+    with torch.no_grad():
+        for tool, req in reqs.items():
+            runs = [gen_whole_image(model, gen, tid, tool, req)
+                    for _ in range(DET26B_GEN_RUNS)]
+            images[tool], rows[tool], outs[tool] = runs[0][:3]
+            walls[tool] = [r[4] for r in runs]
+            calls += [{"tool": tool, "flash_attn_fwd": r[3]} for r in runs]
+            if not all(torch.equal(r[0], runs[0][0]) for r in runs[1:]):
+                raise AssertionError(f"det26b {tool}: the images of one "
+                                     "seed differ")
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches}
+    for c in calls:
+        if c["flash_attn_fwd"] != want[c["tool"]]:
+            raise AssertionError(f"det26b gen launches {c}, want "
+                                 f"{want[c['tool']]}")
+    n_gen = cfg.num_embs_gen
+    for tool in reqs:
+        toks = outs[tool]["out_tokens"][0].tolist()
+        if toks[0] != getattr(tid, tool) or toks[1:1 + n_gen] != \
+                [tid.emb] * n_gen:
+            raise AssertionError(f"det26b {tool}: tokens {toks[:4]}")
+        if tuple(images[tool].shape) != (1,) + GEN_IMAGE or \
+                not torch.isfinite(images[tool]).all():
+            raise AssertionError(f"det26b {tool}: image "
+                                 f"{tuple(images[tool].shape)}")
+
+    errs = {}
+    with torch.no_grad():
+        for tool, req in reqs.items():
+            head = getattr(model, "sd" if tool == "gen" else "ip2p")
+            with plain_versions():
+                rows_p, out_p = gen_rows(model, gen, tid, tool, req)
+            mapped = head.map_embeddings(rows[tool])
+            if tuple(mapped.shape) != (1, head.cfg.num_queries,
+                                       head.cfg.sd_hidden_size):
+                raise AssertionError(f"det26b {tool}: mapper output "
+                                     f"{tuple(mapped.shape)}")
+            errs[tool] = {
+                "rows": rel_err(rows[tool], rows_p),
+                "last_forced_logits": rel_err(
+                    last_forced_logits(core, outs[tool]),
+                    last_forced_logits(core, out_p)),
+                "mapper": rel_err(mapped, head.map_embeddings(rows_p)),
+                "extract_gen_embs_vs_decode": rel_err(
+                    prefill_gen_embs(core, tid, tool, req, outs[tool]),
+                    rows[tool])}
+            if not max(errs[tool].values()) <= GEN_REL_TOL:
+                raise AssertionError(f"det26b {tool} kernel vs plain "
+                                     f"{errs[tool]} > {GEN_REL_TOL}")
+    emit({"phase": "det26b_gen", "image": list(GEN_IMAGE),
+          "steps": GEN_STEPS, "guidance": GEN_GUIDANCE,
+          "image_guidance": GEN_IMAGE_GUIDANCE, "seed": GEN_SEED,
+          "runs": DET26B_GEN_RUNS, "bit_identical": True,
+          "prompt_tokens": {t: int(r[0].shape[1]) for t, r in reqs.items()},
+          "calls": calls, "launches": launches,
+          "flash_per_generate": want, "plain_rel_err": errs,
+          "plain_rel_tol": GEN_REL_TOL, "walls_ms": walls,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
+def prefill_gen_embs(core, tid, tool, req, out):
+    """The [GEN] / [EDIT] rows `VisionLLM.extract_gen_embs` takes from one
+    prefill of the prompt and the tokens the generate call emitted (the
+    training forward's reading) [1, num_embs_gen, C]."""
+    ids, clip, _ = req
+    n = 1 + core.cfg.num_embs_gen
+    full = torch.cat([ids, out["out_tokens"][:, :n].to(ids.dtype)], 1)
+    hid = core(full, clip, tid, compute_logits=False)["hidden"]
+    code = C.TOOL_GEN if tool == "gen" else C.TOOL_EDIT
+    return core.extract_gen_embs(hid, full, tid, code)
+
+
+def det26b_regions(model, cfg, tid):
+    """The regions section: a box request and a mask request (the same
+    region) through `ChatService(max_batch=1)` (B1 dispatch) and through
+    `ChatService(slots=2, prefill_chunk=FLAGSHIP_CHUNK)`, and another box
+    through B1 dispatch, all under `internlm2_chat`. What the region path
+    gave each call (`RegionTrace`) is held as the flagship phase holds
+    it: the box and its mask give the same masks and bit-identical rows;
+    the slot service the B1 box request's masks, and rows and first-step
+    logits within LOGIT_REL_TOL; the B1 box request's rows, first-step
+    and teacher-forced logits and a chunked admission's first step
+    against the plain versions; another box's rows REGION_SEPARATION
+    times farther off (the `det26b_regions` line). Returns its main
+    path's launches."""
+    core = model.core
+    tok = RoundTripTokenizer()
+    img, regions = flagship_regions()
+    common = dict(max_new_tokens=FLAGSHIP_NEW, max_prompt=FLAGSHIP_PROMPT,
+                  max_regions=FLAGSHIP_MAX_REGIONS,
+                  conv_version="internlm2_chat",
+                  device="cuda")
+    svcs = {"b1": ChatService(cfg, core, tok, **common),
+            "slots": ChatService(cfg, core, tok, slots=2,
+                                 prefill_chunk=FLAGSHIP_CHUNK, **common)}
+    want = {"b1": cfg.vis_encoder.num_layers + cfg.llm.num_layers,
+            "slots": cfg.vis_encoder.num_layers}
+    order = [("b1", n) for n in ("box", "mask", "other_box")] + [
+        ("slots", n) for n in ("box", "mask")]
+    trace = RegionTrace(core, tid, svcs.values())
+
+    # the main path, with the launch count taken around it alone
+    A.flash_attention.launches = 0
+    answers, seen, calls = {}, {}, []
+    with torch.no_grad():
+        for mode, name in order:
+            prompt, regs = regions[name]
+            f0 = A.flash_attention.launches
+            answers[mode, name], seen[mode, name] = trace.call(
+                lambda: svcs[mode].generate(prompt, image=img, regions=regs))
+            calls.append({"call": f"{mode}:{name}",
+                          "flash_attn_fwd": A.flash_attention.launches - f0})
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches}
+    trace.close()
+    for c in calls:
+        if c["flash_attn_fwd"] != want[c["call"].split(":")[0]]:
+            raise AssertionError(f"det26b regions launches {c}, want {want}")
+    for (mode, name), a in answers.items():
+        if a["num_tokens"] < 1 or not all(0 <= t < cfg.llm.vocab_size
+                                          for t in a["ids"]):
+            raise AssertionError(f"det26b {mode}:{name}: answer {a}")
+    for key in ("masks", "rows"):
+        if not torch.equal(seen["b1", "mask"][key], seen["b1", "box"][key]):
+            raise AssertionError(f"det26b: the mask region's {key} differ "
+                                 "from its box's")
+
+    with torch.no_grad():
+        b1 = svcs["b1"]
+        packed = region_packed(b1, img, *regions["box"])
+        toks = torch.tensor([answers["b1", "box"]["ids"]], dtype=torch.int32,
+                            device="cuda")
+        n_tok = toks.shape[1]
+        rows_k = region_rows(core, tid, packed)
+        lk = teacher_forced(b1, *packed[:3], toks, n_tok,
+                            regions=packed[3])[:, 0]
+        with plain_versions():
+            rows_p = region_rows(core, tid, packed)
+            lp = teacher_forced(b1, *packed[:3], toks, n_tok,
+                                regions=packed[3])[:, 0]
+        chunked = chunked_first_logits(svcs["slots"], img, *regions["box"])
+    for s in svcs.values():
+        s.close()
+    if tuple(rows_k.shape) != (1, cfg.llm.hidden_size):
+        raise AssertionError(f"det26b region rows {tuple(rows_k.shape)}")
+    errs = {"rows": rel_err(rows_k, rows_p),
+            "first_step_logits": rel_err(lk[0], lp[0]),
+            "teacher_forced_logits_max": max(rel_errs(lk, lp)),
+            "chunked_first_step_vs_b1": rel_err(chunked, lk[0])}
+    modes = {}
+    for name in ("box", "mask"):
+        got, ref = seen["slots", name], seen["b1", "box"]
+        if not torch.equal(got["masks"], ref["masks"]):
+            raise AssertionError(f"det26b slots:{name}: region masks differ "
+                                 "from the B1 request's")
+        modes[f"slots:{name}"] = {"rows": rel_err(got["rows"], ref["rows"]),
+                                  "first_step": rel_err(got["first"], lk[0])}
+    modes["b1:box"] = {"first_step": rel_err(seen["b1", "box"]["first"],
+                                             lk[0])}
+    for k, e in [*errs.items()] + [(f"{m}:{n}", v) for m, d in modes.items()
+                                   for n, v in d.items()]:
+        if not e <= LOGIT_REL_TOL:
+            raise AssertionError(f"det26b regions {k}: {e} > "
+                                 f"{LOGIT_REL_TOL} ({errs}, {modes})")
+    other = rel_err(seen["b1", "other_box"]["rows"], seen["b1", "box"]["rows"])
+    noise = max(errs["rows"], *(d["rows"] for m, d in modes.items()
+                                if "rows" in d))
+    if not other >= REGION_SEPARATION * noise:
+        raise AssertionError(f"det26b: another box's rows differ by {other}, "
+                             f"under {REGION_SEPARATION} x {noise}")
+    rules = {f"slots:{n}": near_tie_rule(f"det26b slots:{n}",
+                                         answers["slots", n]["ids"],
+                                         answers["b1", "box"]["ids"], lk)
+             for n in ("box", "mask")}
+    emit({"phase": "det26b_regions", "image": list(FLAGSHIP_IMAGE),
+          "max_regions": FLAGSHIP_MAX_REGIONS,
+          "conv_version": "internlm2_chat",
+          "region_prompt_tokens": int(packed[0].shape[1]),
+          "calls": calls, "launches": launches, "launches_per_call": want,
+          "answers": {f"{m}:{n}": a["ids"] for (m, n), a in answers.items()},
+          "plain_rel_err": errs, "mode_vs_b1_rel_err": modes,
+          "other_box_rows_rel_diff": other,
+          "separation": REGION_SEPARATION, "token_rules": rules,
+          "plain_rel_tol": LOGIT_REL_TOL,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
+def det26b_chat(model, cfg, mode):
+    """The chat section in `mode` "bf16", or "int4" after the core's LLM
+    is quantized in place (`quantize_serving_params`, as `build_core`
+    quantizes): `ChatService(max_batch=4, max_prompt=640,
+    max_new_tokens=32, conv_version="internlm2_chat")` answers the serve
+    phase's 4 image requests from threads in one generate call; the
+    launches, the kernel run against the plain run teacher-forced on its
+    tokens (`compare_plain`), TTFT, ms a decode step and tok/s (the
+    `det26b_chat` line). Returns its main path's launches."""
+    core = model.core
+    quant = {}
+    if mode == "int4":
+        t = time.perf_counter()
+        Q8.quantize_serving_params(core, bits=4)
+        torch.cuda.synchronize()
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, quant="int4"))
+        core.cfg, core.llm.cfg = cfg, cfg.llm
+        gc.collect()
+        torch.cuda.empty_cache()
+        quant = {"quantize_s": time.perf_counter() - t,
+                 "int4_linear_modules": sum(isinstance(m, Q.Int4Linear)
+                                            for m in core.modules()),
+                 "weights_gb": torch.cuda.memory_allocated() / 1e9}
+    per_fwd_int4 = 7 * cfg.llm.num_layers + 1 if mode == "int4" else 0
+    if quant and quant["int4_linear_modules"] != per_fwd_int4:
+        raise AssertionError(f"det26b: {quant['int4_linear_modules']} "
+                             f"Int4Linear modules, want {per_fwd_int4}")
+    per_call_flash = cfg.vis_encoder.num_layers + cfg.llm.num_layers
+    svc = ChatService(cfg, core, SimpleTokenizer(),
+                      conv_version="internlm2_chat", max_batch=SERVE_BATCH,
+                      max_prompt=SERVE_PROMPT, max_new_tokens=SERVE_NEW,
+                      batch_window_ms=BATCH_WINDOW_MS,
+                      device="cuda")
+    image_reqs, _ = serve_requests()
+    enc = [_Request(*svc._encode(r["prompt"], r.get("image"))[:2])
+           for r in image_reqs]
+    if max(len(r.ids) for r in enc) >= SERVE_PROMPT:
+        raise AssertionError("det26b chat: a prompt would be cut")
+    res = [None] * len(image_reqs)
+
+    def fire(i):
+        res[i] = svc.generate(**image_reqs[i])
+
+    # the main path, with the launch counts taken around it alone
+    A.flash_attention.launches = 0
+    Q.int4_matmul.launches = 0
+    b0, s0 = svc.stats["batches_total"], svc.stats["steps_total"]
+    with torch.no_grad():
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(len(image_reqs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches}
+    if mode == "int4":
+        launches["int4_matmul"] = Q.int4_matmul.launches
+    calls = svc.stats["batches_total"] - b0
+    steps = svc.stats["steps_total"] - s0
+    for a in res:
+        if a is None or a["num_tokens"] < 1 or \
+                not all(0 <= t < cfg.llm.vocab_size for t in a["ids"]):
+            raise AssertionError(f"det26b chat {mode}: bad answer {a}")
+    if calls != 1:
+        raise AssertionError(f"det26b chat {mode}: 4 threaded requests took "
+                             f"{calls} generate calls")
+    got = (A.flash_attention.launches, Q.int4_matmul.launches)
+    if got != (per_call_flash * calls, per_fwd_int4 * steps):
+        raise AssertionError(f"det26b chat {mode}: launches (flash, int4) "
+                             f"{got}, want {per_call_flash} a call and "
+                             f"{per_fwd_int4} a forward over {steps}")
+    with torch.no_grad():
+        cmp, packed = compare_plain(svc, enc)
+        timings = serve_timings(svc, packed)
+    svc.close()
+    emit({"phase": "det26b_chat", "mode": mode,
+          "conv_version": "internlm2_chat", **quant,
+          "max_batch": SERVE_BATCH, "max_prompt": SERVE_PROMPT,
+          "max_new_tokens": SERVE_NEW,
+          "prompt_tokens": [len(r.ids) for r in enc],
+          "generate_calls": calls, "forwards": steps, "launches": launches,
+          "launches_per_call": {"flash_attn_fwd": per_call_flash,
+                                "int4_matmul_per_forward": per_fwd_int4},
+          "answers": [a["num_tokens"] for a in res],
+          "plain": {k: v for k, v in cmp.items() if k != "tokens"},
+          "logit_rel_tol": LOGIT_REL_TOL, **timings,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return launches
 
 

@@ -14,8 +14,10 @@ Grounding-DINO on it; then the whole tiny 26B `infer_det` on a
 [1, 7, H, W, 3] tile stack (7 x 4 image tokens, as `dynamic_preprocess`
 and pixel shuffle give them) and on one tile, and greedy `generate`.
 `dynamic_preprocess` must give JAX's tiles byte for byte, and the JAX
-26B det model's full-width param tree must map leaf for leaf onto the
-port's model (shapes only, on the meta device). The flax param
+26B det model's, the whole `vllm_26b_config()` model's and UniPose on
+Swin-L's full-width param trees must map leaf for leaf onto the port's
+models (shapes only, on the meta device), the whole model's leaf count
+equal to the host-only `model_size`. The flax param
 trees take their shapes from `jax.eval_shape` of the JAX init and their
 values from numpy (`random_flax_params`); they reach the port through
 `load_jax_params`. The JAX side compiles at XLA optimization level 0
@@ -478,6 +480,101 @@ def test_full_width_26b_tree_maps_onto_the_port():
     assert not bad
     assert tuple(own["gdino.backbone.stage2_block31.dcn.dw_conv.weight"]
                  .shape) == (1280, 1, 3, 3)
+
+
+def _flax_shapes(module, *args, method=None):
+    """A flax param tree at full width as zero-stride numpy arrays (its
+    shapes from `jax.eval_shape`: nothing is allocated)."""
+    shapes = jax.eval_shape(lambda: module.init(
+        jax.random.PRNGKey(0), *args, method=method))["params"]
+    return jax.tree.map(
+        lambda x: np.broadcast_to(np.zeros((), np.float32), x.shape), shapes)
+
+
+def _maps_onto(tmodel, tree):
+    """`load_jax_params`' name and layout map from `tree` onto `tmodel`
+    (on meta): the same names, each leaf at its parameter's shape."""
+    from visionllm_tpu_torch.utils import convert
+    arrays = {}
+    convert._emit(tmodel, "", tree, arrays)
+    own = dict(tmodel.named_parameters())
+    assert set(arrays) == set(own)
+    bad = {k: (arrays[k].shape, tuple(own[k].shape)) for k in own
+           if tuple(arrays[k].shape) != tuple(own[k].shape)}
+    assert not bad
+    return own
+
+
+def test_full_width_whole_26b_tree_maps_onto_the_port():
+    """The JAX `vllm_26b_config()` model's whole param tree at full width
+    (every tool: Grounding-DINO and UniPose on InternImage-H, the SD-1.5
+    and InstructPix2Pix heads with their 6144 -> 768 mappers, the region
+    encoder 3200 -> 6144) maps leaf for leaf onto the port's
+    `vllm_26b_config()` model on the meta device; and the host-only
+    count `model_size` (what `build_model` will hold in bf16, the fp32
+    parts at 4 bytes) counts the tree's values."""
+    from visionllm_tpu_torch.models.composite import (VisionLLMWithTools,
+                                                      model_size)
+    jcfg = jconfig.vllm_26b_config()
+    jtid = JaxTid.synthetic()
+    jmodel = JaxModel(jcfg)
+    rng = jax.random.PRNGKey(0)
+    ids = [1] + [jtid.imp] * 256 + [jtid.reg, 5, jtid.det] + [
+        jtid.emb + i for i in range(4)] + [6]
+    for k in range(2):
+        ids += [jtid.pose] + [jtid.emb + i for i in range(4)] + [7 + k]
+
+    def init_method(m, input_ids, images, images_aug, regions, embs, src):
+        m.core(input_ids, images, jtid, compute_logits=True,
+               regions=regions)
+        m.infer_det(input_ids, images, images_aug, jtid)
+        m.infer_pose(input_ids, images, images_aug, jtid, 1)
+        m.sd(embs, src, rng)
+        return m.ip2p(embs, src, src, rng)
+
+    tree = _flax_shapes(
+        jmodel, jnp.zeros((1, len(ids)), jnp.int32),
+        jnp.zeros((1, 448, 448, 3)), jnp.zeros((1, 256, 256, 3)),
+        jnp.ones((1, 1, 448, 448)), jnp.zeros((1, 64, 6144)),
+        jnp.zeros((1, 512, 512, 3)), method=init_method)
+    with torch.device("meta"):
+        tmodel = VisionLLMWithTools(pconfig.vllm_26b_config())
+    own = _maps_onto(tmodel, tree)
+    assert tuple(own["unipose.input_proj_0.weight"].shape) == (256, 640, 1, 1)
+    assert tuple(own["unipose.backbone.stage2_block31.dcn.dw_conv.weight"]
+                 .shape) == (1280, 1, 3, 3)
+    assert tuple(own["sd.mapper.emb_proj_0.weight"].shape) == (768, 6144)
+    assert tuple(own["core.region_encoder.up_dim.weight"].shape)[0] == 6144
+    n = sum(x.size for x in jax.tree.leaves(tree))
+    size = model_size(pconfig.vllm_26b_config())
+    assert size["params"] == n
+    assert 30.0e9 < n < 30.1e9
+    assert 60.1e9 < size["bytes"] < 60.3e9
+
+
+def test_full_width_unipose_on_swin_large_tree_maps_onto_the_port():
+    """UniPose on full-depth Swin-L (embed 192, depths (2, 2, 18, 2),
+    window 12): its JAX param tree at full width maps onto the port's
+    UniPose on the meta device. Only the tree is checked here: JAX's
+    `UniPoseConfig` has no backbone override, so no tiny Swin-L UniPose
+    can be run against it on the CPU (Grounding-DINO's Swin-L runs in
+    `tests/test_torch_flagship26b.py`)."""
+    from visionllm_tpu.models.unipose.model import UniPose as JaxUniPose
+    from visionllm_tpu_torch.models.unipose.model import UniPose
+    jcfg = dataclasses.replace(jconfig.UniPoseConfig(), backbone="swin_large")
+    B, D = 1, 256               # 1360 encoder tokens for 900 queries
+    tree = _flax_shapes(
+        JaxUniPose(jcfg), jnp.zeros((B, D, D, 3)),
+        jnp.zeros((B, 1, 4, 4096)), jnp.ones((B, 1), bool),
+        jnp.zeros((B, 17, 4, 4096)), jnp.ones((B, 17), bool))
+    with torch.device("meta"):
+        tmodel = UniPose(dataclasses.replace(pconfig.UniPoseConfig(),
+                                             backbone="swin_large"))
+    own = _maps_onto(tmodel, tree)
+    assert tmodel.backbone.cfg.window_size == 12
+    assert tuple(own["backbone.stage2_block17.relative_position_bias_table"]
+                 .shape) == (23 * 23, 24)
+    assert tuple(own["input_proj_0.weight"].shape) == (256, 384, 1, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -285,3 +285,51 @@ def test_whole_7b_model_is_laid_out_on_meta():
     assert enc.stem_conv0.weight.dtype == torch.bfloat16
     n = sum(p.numel() for p in model.parameters())
     assert 9.1e9 < n < 9.15e9, n
+
+
+def test_whole_26b_modules_are_among_the_guarded_sources():
+    """The import guard above walks the whole package: the backbone
+    choice shared by Grounding-DINO and UniPose is in it."""
+    paths = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("visionllm_tpu_torch/models/backbone.py",
+                "visionllm_tpu_torch/models/swin.py",
+                "visionllm_tpu_torch/models/unipose/model.py",
+                "visionllm_tpu_torch/models/grounding_dino/model.py",
+                "visionllm_tpu_torch/models/composite.py",
+                "visionllm_tpu_torch/config.py"):
+        assert rel in paths
+
+
+def test_whole_26b_entry_point_without_device_raises_on_cpu_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from visionllm_tpu_torch.config import vllm_26b_config
+    from visionllm_tpu_torch.models.composite import build_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(vllm_26b_config())
+
+
+def test_whole_26b_model_is_laid_out_on_meta():
+    """`vllm_26b_config()` as `build_model` lays it out before it moves to
+    the card: the det path's 27.0 B parameters, UniPose on InternImage-H
+    (about 1.11 B, its backbone about 1.07 B), the two heads at about
+    0.97 B each and 20.6 M of region encoder (3200 -> 6144); bf16 but for
+    the fp32 parts, about 60.2 GB in all. (`model_size`, the host-only
+    count, is held to JAX's tree in `test_torch_internvl.py`.)"""
+    from visionllm_tpu_torch.config import vllm_26b_config
+    from visionllm_tpu_torch.models.composite import _meta_model
+    model = _meta_model(vllm_26b_config(), torch.bfloat16)
+
+    def count(mod):
+        return sum(p.numel() for p in mod.parameters())
+
+    assert 1.10e9 < count(model.unipose) < 1.12e9
+    assert 1.06e9 < count(model.unipose.backbone) < 1.08e9
+    assert 0.96e9 < count(model.sd) < 0.97e9
+    assert 0.96e9 < count(model.ip2p) < 0.97e9
+    assert 20e6 < count(model.core.region_encoder) < 21e6
+    assert tuple(model.sd.mapper.emb_proj_0.weight.shape) == (768, 6144)
+    assert model.sd.mapper.emb_proj_0.weight.dtype == torch.float32
+    assert model.unipose.input_proj_2.weight.dtype == torch.bfloat16
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    assert 60.1e9 < nbytes < 60.3e9

@@ -98,8 +98,9 @@ class LLMConfig:
 class GDinoConfig:
     """Open-vocabulary Grounding-DINO decoder and its training losses."""
 
-    # "swin_tiny" | "intern_image_h" | "intern_image_tiny" (the JAX
-    # package's test backbone: InternImage with depths (1, 1, 1, 1))
+    # "swin_tiny" | "swin_large" | "intern_image_h" | "intern_image_tiny"
+    # (the JAX package's test backbone: InternImage with depths
+    # (1, 1, 1, 1)); `models/backbone.py`
     backbone: str = "swin_tiny"
     # optional kwargs overriding the swin preset's dims; None -> preset
     backbone_overrides: Optional[Mapping[str, Any]] = None
@@ -144,6 +145,7 @@ class GDinoConfig:
 class UniPoseConfig:
     """UniPose keypoint decoder."""
 
+    # the backbones of `GDinoConfig.backbone`, at their presets
     backbone: str = "swin_tiny"
     d_model: int = 256
     num_queries: int = 900
@@ -358,14 +360,15 @@ def vllm_7b_gen_config(**overrides: Any) -> VisionLLMConfig:
     return VisionLLMConfig(**base)
 
 
-def vllm_26b_det_config(**overrides: Any) -> VisionLLMConfig:
-    """The 26B flagship's det path: the JAX `vllm_26b_config(
-    use_unipose=False, use_sd=False, use_ip2p=False,
-    use_region_encoder=False)`, field for field: InternViT-6B/448 (48
-    layers, 25 heads, QK-norm, layer scale, no qkv bias, the last layer),
-    pixel shuffle and the `internvl_mlp` bridge, InternLM2-20B (vocab
-    92576, 48 layers, 48 heads over 8 KV heads, rope theta 1e6), and
-    Grounding-DINO on InternImage-H with text_dim 6144."""
+def vllm_26b_config(**overrides: Any) -> VisionLLMConfig:
+    """The whole 26B flagship, the JAX `vllm_26b_config()` field for
+    field: InternViT-6B/448 (48 layers, 25 heads, QK-norm, layer scale,
+    no qkv bias, the last layer), pixel shuffle and the `internvl_mlp`
+    bridge, InternLM2-20B (vocab 92576, 48 layers, 48 heads over 8 KV
+    heads, rope theta 1e6), Grounding-DINO and UniPose on InternImage-H
+    with text_dim 6144, the [GEN] and [EDIT] heads at `llm_hidden_size`
+    6144, and the region encoder from InternViT's 3200 features to the
+    LLM's 6144."""
     base = dict(
         vis_encoder=VisionEncoderConfig(
             arch="intern_vit", image_size=448, patch_size=14,
@@ -382,9 +385,28 @@ def vllm_26b_det_config(**overrides: Any) -> VisionLLMConfig:
         use_pixelshuffle=True,
         use_gdino=True,
         gdino=GDinoConfig(backbone="intern_image_h", text_dim=6144),
+        use_unipose=True,
+        unipose=UniPoseConfig(backbone="intern_image_h", text_dim=6144),
+        use_sd=True,
+        sd=SDConfig(llm_hidden_size=6144),
+        use_ip2p=True,
+        ip2p=IP2PConfig(llm_hidden_size=6144),
+        use_region_encoder=True,
+        region_encoder=RegionEncoderConfig(embed_dim=3200, out_dim=6144),
     )
     base.update(overrides)
     return VisionLLMConfig(**base)
+
+
+def vllm_26b_det_config(**overrides: Any) -> VisionLLMConfig:
+    """The 26B flagship's det path: `vllm_26b_config(use_unipose=False,
+    use_sd=False, use_ip2p=False, use_region_encoder=False)` (InternViT-6B,
+    InternLM2-20B and Grounding-DINO on InternImage-H; the other tools'
+    configs carried, as JAX carries them, and off)."""
+    base = dict(use_unipose=False, use_sd=False, use_ip2p=False,
+                use_region_encoder=False)
+    base.update(overrides)
+    return vllm_26b_config(**base)
 
 
 def tiny_test_config(**overrides: Any) -> VisionLLMConfig:

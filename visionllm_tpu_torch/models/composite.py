@@ -158,13 +158,30 @@ def build_model(cfg: VisionLLMConfig, *,
     raises when there is none) in `dtype` (`fp32_modules` in fp32), with
     seeded random weights."""
     dev = resolve_device(device)
+    model = _meta_model(cfg, dtype).to_empty(device=dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    return model.eval()
+
+
+def _meta_model(cfg: VisionLLMConfig, dtype: torch.dtype
+                ) -> VisionLLMWithTools:
+    """The model laid out on the meta device in `dtype`, `fp32_modules`
+    in fp32: shapes and dtypes, no storage."""
     with torch.device("meta"):
         model = VisionLLMWithTools(cfg).to(dtype=dtype)
         for mod in model.fp32_modules():
             mod.float()
-    model = model.to_empty(device=dev)
-    init_weights(model, torch.Generator(device=dev).manual_seed(seed))
-    return model.eval()
+    return model
+
+
+def model_size(cfg: VisionLLMConfig,
+               dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+    """What `build_model(cfg, dtype=dtype)` will hold, counted on the host
+    without allocating: {"params", "bytes"} of the parameters (the
+    `fp32_modules` at 4 bytes)."""
+    params = list(_meta_model(cfg, dtype).parameters())
+    return {"params": sum(p.numel() for p in params),
+            "bytes": sum(p.numel() * p.element_size() for p in params)}
 
 
 def build_core(cfg: VisionLLMConfig, *,

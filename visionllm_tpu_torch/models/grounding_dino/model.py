@@ -29,9 +29,7 @@ from visionllm_tpu_torch.models.grounding_dino.layers import (
     NEG_INF, DeformableAttention, DeformableEncoderLayer,
     FusionLayer, TextEnhancerLayer, TorchMHA, encoder_reference_points,
     get_sine_pos_embed, sine_position_embedding)
-from visionllm_tpu_torch.models.intern_image import (
-    InternImage, intern_image_h_config, intern_image_tiny_config)
-from visionllm_tpu_torch.models.swin import SwinBackbone, swin_tiny_config
+from visionllm_tpu_torch.models.backbone import build_backbone
 from visionllm_tpu_torch.ops.box_ops import inverse_sigmoid
 from visionllm_tpu_torch.train.cdn import build_cdn_queries
 
@@ -61,26 +59,6 @@ def contrastive_logits(vision_hidden, text_hidden, text_token_mask,
     if pad > 0:
         logits = F.pad(logits, (0, pad), value=NEG_INF)
     return logits[..., :max_text_len]
-
-
-def build_backbone(cfg: GDinoConfig):
-    """(backbone module, its config) for `cfg.backbone`: Swin-T (with
-    `backbone_overrides` on its preset dims), InternImage-H, or the JAX
-    package's test InternImage (depths (1, 1, 1, 1), groups (2, 2, 4, 4);
-    JAX `grounding_dino/model.py:166-175`). Each returns four NHWC maps at
-    strides 4-32, whose widths `stage_dim(0..3)` the projections take."""
-    if cfg.backbone == "swin_tiny":
-        bb_cfg = swin_tiny_config(out_stages=(0, 1, 2, 3),
-                                  **dict(cfg.backbone_overrides or {}))
-        return SwinBackbone(bb_cfg), bb_cfg
-    if cfg.backbone == "intern_image_h":
-        bb_cfg = intern_image_h_config()
-    elif cfg.backbone == "intern_image_tiny":
-        bb_cfg = intern_image_tiny_config(depths=(1, 1, 1, 1),
-                                          groups=(2, 2, 4, 4))
-    else:
-        raise NotImplementedError(f"backbone {cfg.backbone!r} not ported")
-    return InternImage(bb_cfg), bb_cfg
 
 
 class GroupNorm(nn.GroupNorm):
@@ -221,7 +199,8 @@ class GroundingDino(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
-        self.backbone, bb_cfg = build_backbone(cfg)
+        self.backbone, bb_cfg = build_backbone(
+            cfg.backbone, (0, 1, 2, 3), cfg.backbone_overrides)
         # input projections: 1x1 conv + GN for backbone strides 8/16/32,
         # an extra 3x3 stride-2 conv from the stride-32 feature
         for i in range(3):

@@ -1,4 +1,5 @@
-"""Swin Transformer backbone (Swin-T default) for the det decoder.
+"""Swin Transformer backbone (Swin-T default, Swin-L preset) for the det
+and pose decoders.
 
 Counterpart of `visionllm_tpu/models/swin.py`: NHWC at the public
 functions; per-stage pre-downsample features with a per-stage LayerNorm;
@@ -39,6 +40,15 @@ class SwinConfig:
 
 def swin_tiny_config(**kw) -> SwinConfig:
     return SwinConfig(**kw)
+
+
+def swin_large_config(**kw) -> SwinConfig:
+    """Swin-L (JAX `swin.py:49-53`): embed 192, depths (2, 2, 18, 2),
+    heads (6, 12, 24, 48), window 12."""
+    base = dict(embed_dim=192, depths=(2, 2, 18, 2), num_heads=(6, 12, 24, 48),
+                window_size=12)
+    base.update(kw)
+    return SwinConfig(**base)
 
 
 def _rel_pos_index(window: int) -> np.ndarray:

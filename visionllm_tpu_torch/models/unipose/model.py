@@ -1,7 +1,8 @@
 """UniPose keypoint decoder, the pose tool (counterpart of
 `visionllm_tpu/models/unipose/model.py`), inference forward.
 
-Swin-T backbone (strides 8/16/32 plus an extra stride-64 level) -> a
+A Swin-T, Swin-L or InternImage backbone (`models/backbone.py`;
+strides 8/16/32 plus an extra stride-64 level) -> a
 4-level deformable encoder with GLIP-style vision <-> text fusion, the
 text being the LLM's object queries -> two-stage top-`num_queries` box
 queries -> `num_box_decoder_layers` box-decoder layers -> the top
@@ -29,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from visionllm_tpu_torch.config import UniPoseConfig
+from visionllm_tpu_torch.models.backbone import build_backbone
 from visionllm_tpu_torch.models.common import FLAX_LN_EPS, MLP
 from visionllm_tpu_torch.models.grounding_dino.layers import (
     DeformableAttention, DeformableEncoderLayer, FusionLayer,
@@ -37,7 +39,6 @@ from visionllm_tpu_torch.models.grounding_dino.layers import (
 from visionllm_tpu_torch.models.grounding_dino.model import (
     _downsample_mask, _nchw, _valid_ratio, contrastive_logits,
     encoder_proposals, generate_masks_with_text_query_masks)
-from visionllm_tpu_torch.models.swin import SwinBackbone, swin_tiny_config
 from visionllm_tpu_torch.ops.box_ops import inverse_sigmoid
 
 
@@ -153,26 +154,23 @@ class UniPose(nn.Module):
 
     def __init__(self, cfg: UniPoseConfig):
         super().__init__()
-        if cfg.backbone != "swin_tiny":
-            raise NotImplementedError(f"backbone {cfg.backbone!r} not ported")
         if cfg.decoder_layers <= cfg.num_box_decoder_layers:
             raise NotImplementedError("the inference forward heads a pose "
                                       "decoder layer: decoder_layers must "
                                       "exceed num_box_decoder_layers")
         self.cfg = cfg
         d = cfg.d_model
-        swin_cfg = swin_tiny_config(out_stages=(1, 2, 3))
-        self.backbone = SwinBackbone(swin_cfg)
+        self.backbone, bb_cfg = build_backbone(cfg.backbone, (1, 2, 3))
         self.projection_llava = MLP(cfg.text_dim, d, d, 3)
         self.projection_kpt_llava = MLP(cfg.text_dim, d, d, 3)
         # 1x1 conv + GN for backbone strides 8/16/32, an extra 3x3
         # stride-2 conv from the stride-32 feature
         for i in range(3):
             self.add_module(f"input_proj_{i}",
-                            nn.Conv2d(swin_cfg.stage_dim(i + 1), d, 1))
+                            nn.Conv2d(bb_cfg.stage_dim(i + 1), d, 1))
             self.add_module(f"input_proj_norm_{i}",
                             nn.GroupNorm(32, d, eps=FLAX_LN_EPS))
-        self.input_proj_3 = nn.Conv2d(swin_cfg.stage_dim(3), d, 3, stride=2,
+        self.input_proj_3 = nn.Conv2d(bb_cfg.stage_dim(3), d, 3, stride=2,
                                       padding=1)
         self.input_proj_norm_3 = nn.GroupNorm(32, d, eps=FLAX_LN_EPS)
         self.level_embed = nn.Parameter(torch.zeros(cfg.num_feature_levels, d))
