@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels flash_bwd,msda_bwd   # checks alone
     python3 chip_smoke.py --phase flagship               # one model phase
     python3 chip_smoke.py --phase eval                   # the eval path
+    python3 chip_smoke.py --phase trainer                # Trainer.train
 
 Phases, each printing one JSON line:
 
@@ -12,7 +13,9 @@ Phases, each printing one JSON line:
              `nvidia-smi --query-gpu=name,power.limit` for it;
 2. build   - builds every CUDA kernel of the det and chat paths from
              `visionllm_tpu_torch/csrc/` (one nvcc per source, in
-             parallel) and reports the seconds;
+             parallel) and the host libraries of `csrc/host/` (g++: the
+             resizer, the RLE codec, the JPEG decoder), and reports the
+             seconds;
 3. kernel  - holds each kernel against its plain PyTorch version at the
              main-path shapes, on the card, with the tolerance below, and
              times the kernel, the plain version and one PyTorch library
@@ -184,6 +187,51 @@ Phases, each printing one JSON line:
              flash bwd 32, MSDA fwd 12, MSDA bwd 12 launches; step ms,
              peak memory, the loss trace;
 15. train_profile - one more step under torch.profiler;
+15b. trainer - `Trainer.train` from files, after the train model is
+             freed: the committed JPEG fixtures (`tests/data/jpeg/`, 7
+             files at COCO sizes in every layout the decoder reads), each
+             listed 3 times in a COCO-style annotation file with its drawn
+             objects as boxes and polygons (3 categories, 3-6 objects an
+             image), the stage-1 frozen `vllm_7b_det_config()` in bf16 at
+             the 640 px bucket, batch TRAINER_BATCH, TRAINER_WORKERS
+             loader threads, TRAINER_STEPS steps, a checkpoint every
+             TRAINER_SAVE_EVERY. Checks, each failing the run: (1) every
+             fixture decodes on this host to the sha256 of Pillow's
+             pixels in the manifest; (2) the native resizer (CLIP and det
+             sizes), normalize/pad (3e-7) and RLE codec equal their numpy
+             versions on a fixture and its masks; (3) the Trainer's loader
+             at TRAINER_WORKERS threads gives the synchronous loop's
+             batches byte for byte; (4) finite losses and, per step,
+             flash fwd 56, flash bwd 32, MSDA fwd 12, MSDA bwd 12
+             launches; (5) the first batch's loss and gradient norm with
+             the kernels within TRAIN_REL_TOL of the plain versions;
+             (6) fresh Trainers on fresh models resume from the step-3
+             checkpoint: one with the synchronous loop on to step
+             TRAINER_RESUME_STEPS, TRAINER_REPEATS more with the main
+             run's loader to step TRAINER_STEPS. Each one's live state
+             equals the checkpoint bit for bit (step, sampler position,
+             generator, fp32 masters, AdamW moments, the parameters their
+             masters rounded), and its step 4 repeats the straight run's
+             loss terms bit for bit (the forward reads the restored
+             weights, generator and sampler position). After that the
+             runs are not bitwise (the MSDA backward adds with fp32
+             atomics, and random weights carry that into the next steps'
+             losses and matchings), so the resumed runs' own spread sets
+             the gate: each one's distance from the straight run, in the
+             metrics of steps 4-6 and in the masters and moments after
+             steps 4 and 6, within RESUME_SPREAD_K_LOSS and
+             RESUME_SPREAD_K_STATE times the largest distance between two
+             resumed runs. A fault of the resume itself (the optimizer's
+             step or schedule) moves every resumed run alike, away from
+             the straight run. Prints decode ms and MB/s per fixture, native and
+             numpy resize ms, data ms a batch at 0 and TRAINER_WORKERS
+             workers, the step intervals and data waits of both runs
+             (the median of those without a save, snapshot or profiler),
+             checkpoint save, load and resume seconds, and peak memory;
+15c. trainer_profile - the last step of each run under torch.profiler,
+             from the end of the step before (the loop's wait for the
+             batch included): device ms and idle share with the prefetch
+             loader (step 6) and with the synchronous loop (step 8);
 16. probes - the gather probes' entry point
              (`visionllm_tpu_torch/tools/msda_kernel_attempts.py`);
 17. gen     - the [GEN] and [EDIT] tools, after the train model is
@@ -377,11 +425,13 @@ import copy
 import dataclasses
 import functools
 import gc
+import hashlib
 import itertools
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -412,10 +462,17 @@ from visionllm_tpu_torch.data.coco import (decode_segmentation,
 from visionllm_tpu_torch.data.conversation import get_conv_template
 from visionllm_tpu_torch.data.det_dataset import CocoDetDataset
 from visionllm_tpu_torch.data.grd_dataset import RefCocoGrdDataset
-from visionllm_tpu_torch.data.image_io import PNG_MAGIC, load_image
-from visionllm_tpu_torch.data.mm_utils import (clip_preprocess,
+from visionllm_tpu_torch.data import native_image
+from visionllm_tpu_torch.data.build import (TaskGroupedBatchSampler,
+                                            build_multi_datasets)
+from visionllm_tpu_torch.data.image_io import (PNG_MAGIC, decode_image_bytes,
+                                               load_image)
+from visionllm_tpu_torch.data.mm_utils import (CLIP_MEAN, IMAGENET_MEAN,
+                                               IMAGENET_STD, clip_preprocess,
                                                dynamic_preprocess,
+                                               expand2square,
                                                expand_image_tokens,
+                                               resize_image_np,
                                                tokenizer_image_token)
 from visionllm_tpu_torch.data.preprocess import (preprocess,
                                                  preprocess_multimodal)
@@ -423,7 +480,8 @@ from visionllm_tpu_torch.data.templates import (DET_QUESTIONS, DET_YES,
                                                 det_answer_tokens)
 from visionllm_tpu_torch.data.transforms import (DEFAULT_BUCKETS,
                                                  TEST_SCALE,
-                                                 det_test_transform)
+                                                 det_test_transform,
+                                                 keep_ratio_size)
 from visionllm_tpu_torch.eval import eval_det as E
 from visionllm_tpu_torch.eval.coco_eval import CocoMAPEvaluator
 from visionllm_tpu_torch.eval.eval_det import evaluate_det, model_inputs
@@ -439,7 +497,7 @@ from visionllm_tpu_torch.generation import (
 from visionllm_tpu_torch.infer import (COCO_KEYPOINT_NAMES, Predictor,
                                        det_prompt, grd_prompt, pose_prompt,
                                        prompt_ids)
-from visionllm_tpu_torch.kernels import build
+from visionllm_tpu_torch.kernels import build, host_build
 from visionllm_tpu_torch.models.composite import (build_core, build_model,
                                                   model_size)
 from visionllm_tpu_torch.models.llama import KVCache
@@ -451,16 +509,21 @@ from visionllm_tpu_torch.ops import ms_deform_attn as M
 from visionllm_tpu_torch.ops import quant as Q8
 from visionllm_tpu_torch.ops import quant4 as Q
 from visionllm_tpu_torch.ops.dcnv3 import dcnv3_msda_args
+from visionllm_tpu_torch.ops import rle as R
 from visionllm_tpu_torch.ops.rle import rle_encode
 from visionllm_tpu_torch.serve import (ChatService, _Request, make_server,
                                        perception_json)
 from visionllm_tpu_torch.slots import build_slot_fns
 from visionllm_tpu_torch.tools import msda_kernel_attempts as probes
-from visionllm_tpu_torch.train.runner import TrainConfig, frozen_predicate
+from visionllm_tpu_torch.train.runner import (TrainConfig, Trainer,
+                                              frozen_predicate, to_device)
 from visionllm_tpu_torch.train.train_step import (TrainState, build_optimizer,
                                                   det_loss, draw_step_noise,
-                                                  make_det_train_step)
-from visionllm_tpu_torch.utils.simple_tokenizer import (RoundTripTokenizer,
+                                                  make_det_train_step,
+                                                  split_frozen)
+from visionllm_tpu_torch.utils.checkpoint import restore_checkpoint
+from visionllm_tpu_torch.utils.simple_tokenizer import (HashedWordTokenizer,
+                                                        RoundTripTokenizer,
                                                         SimpleTokenizer)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -498,6 +561,25 @@ TRAIN_REL_TOL = 5e-2
 # kernels one `flash_attention_bwd` call launches: Di = rowsum(dO * O),
 # then one grid of the dQ and dK/dV blocks
 FLASH_BWD_KERNELS = 2
+# the trainer phase: Trainer.train on the committed JPEG fixtures
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "jpeg")
+TRAINER_STEPS = 6
+TRAINER_SAVE_EVERY = 3
+TRAINER_WORKERS = 4
+TRAINER_BATCH = 2
+TRAINER_COPIES = 3            # each fixture listed 3 times: 21 images, 10 batches
+TRAINER_RESUME_STEPS = 9      # the synchronous resumed run goes on to step 9
+TRAINER_REPEATS = 2           # more resumed runs, to step TRAINER_STEPS
+# the resumed runs' distances from the straight run against their own
+# spread: metrics are scalars (a heavy-tailed ratio), the state millions
+# of values (distances between runs nearly equal)
+RESUME_SPREAD_K_LOSS = 10.0
+RESUME_SPREAD_K_STATE = 3.0
+# steps after which each run's masters and moments are kept
+SNAP_STEPS = (TRAINER_SAVE_EVERY + 1, TRAINER_STEPS)
+TRAINER_BIAS = "gdino.backbone.patch_embed.bias"
+TRAINER_BIAS_SEED = 19
 # the perception phase: uint8 images that the det test transform resizes
 # to (800, 1333) keep-ratio and pads to the 800x1088, 1088x800 and 800x800
 # buckets; each answers detect (3 classes, masks), ground (one
@@ -1903,6 +1985,16 @@ def train_counts():
     return tuple(fn.launches for _, fn in TRAIN_KERNELS)
 
 
+def train_launches_per_step(cfg):
+    """TRAIN_KERNELS' launches in one det train step: flash forward in
+    every CLIP and LLaMA layer, backward in the LLaMA layers (the frozen
+    CLIP takes no backward), MSDA forward and backward in every
+    Grounding-DINO encoder and decoder layer."""
+    msda = cfg.gdino.encoder_layers + cfg.gdino.decoder_layers
+    return (cfg.vis_encoder.num_layers + cfg.llm.num_layers,
+            cfg.llm.num_layers, msda, msda)
+
+
 def loss_and_grad(model, batch, tid, noise, trainable, choices=None):
     """One det step's loss terms and fp32 trainable gradients by name (no
     optimizer step), and the discrete choices it made (or repeated)."""
@@ -1973,10 +2065,7 @@ def run_train():
     n_train = sum(w.numel() for w in state.masters.values())
     g = torch.Generator(device="cuda").manual_seed(2)
     batch = train_batch(cfg, tid, g)
-    per_step = (cfg.vis_encoder.num_layers + cfg.llm.num_layers,
-                cfg.llm.num_layers,
-                cfg.gdino.encoder_layers + cfg.gdino.decoder_layers,
-                cfg.gdino.encoder_layers + cfg.gdino.decoder_layers)
+    per_step = train_launches_per_step(cfg)
 
     # one step's losses and gradient, kernels against plain versions, from
     # the same weights, batch and draws, and on the kernel run's discrete
@@ -2089,6 +2178,520 @@ def profile_train_step(step, state, batch, g):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     emit({"phase": "train_profile", **device_summary(prof, wall_ms)})
+
+
+# ---------------------------------------------------------------------------
+# phase: the trainer - Trainer.train on COCO-style JPEGs
+# ---------------------------------------------------------------------------
+
+def fixture_manifest():
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        return json.load(f)
+
+
+def check_jpeg_fixtures(manifest):
+    """Check 1: every committed JPEG decodes on this host to the sha256
+    Pillow gave its pixels (the manifest); decode ms (median of
+    N_TIMED) and MB/s of the file and of the RGB pixels."""
+    out = {}
+    for name, entry in sorted(manifest["files"].items()):
+        path = os.path.join(JPEG_FIXTURES, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        img = load_image(path)
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        if list(img.shape) != entry["shape"] or digest != entry["sha256"]:
+            raise AssertionError(
+                f"{name}: decoded {img.shape} {digest}, the manifest says "
+                f"{entry['shape']} {entry['sha256']}")
+        ms = host_ms(lambda: decode_image_bytes(data, name))
+        out[name] = {"options": entry["options"], "bytes": len(data),
+                     "ms": ms, "file_MB_s": len(data) / 1e3 / ms,
+                     "pixels_MB_s": img.nbytes / 1e3 / ms}
+    return out
+
+
+def check_host_native(manifest):
+    """Check 2: the native resizer, normalize/pad and RLE codec equal
+    their numpy plain versions on a 480x640 fixture and its objects'
+    masks; resize ms native against numpy at the CLIP size (the padded
+    square to 336, bicubic) and the det test size (bilinear)."""
+    img = load_image(os.path.join(JPEG_FIXTURES, "coco_420_q75.jpg"))
+    h, w = img.shape[:2]
+    square = expand2square(img, (CLIP_MEAN * 255).astype(np.uint8))
+    cases = {"clip_336_bicubic": (square, (336, 336), "bicubic"),
+             "det_800_bilinear": (img, keep_ratio_size(h, w, TEST_SCALE),
+                                  "bilinear"),
+             "mask_800_nearest": (img[:, :, 0], keep_ratio_size(
+                 h, w, TEST_SCALE), "nearest")}
+    resize = {}
+    for name, (x, size, method) in cases.items():
+        got = native_image.resize_u8(x, size, method)
+        want = resize_image_np(x, size, method)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native resize {name} differs from numpy")
+        resize[name] = {
+            "src": list(x.shape), "dst": list(size),
+            "native_ms": host_ms(lambda: native_image.resize_u8(x, size,
+                                                                method)),
+            "numpy_ms": host_ms(lambda: resize_image_np(x, size, method),
+                                n=2)}
+    out_hw = (max(h, w), max(h, w))
+    got = native_image.normalize_pad(img, IMAGENET_MEAN, IMAGENET_STD,
+                                     out_hw)
+    want = native_image.normalize_pad_np(img, IMAGENET_MEAN, IMAGENET_STD,
+                                         out_hw)
+    norm_err = float(np.abs(got - want).max())
+    if norm_err > 3e-7:
+        raise AssertionError(f"normalize_pad {norm_err} from numpy")
+    objects = manifest["files"]["coco_420_q75.jpg"]["objects"]
+    for obj in objects:
+        mask = decode_segmentation([obj["polygon"]], h, w)
+        rle = rle_encode(mask)
+        if (rle != R.rle_encode_np(mask)
+                or not np.array_equal(R.rle_decode(rle["counts"], h, w),
+                                      R.rle_decode_np(rle["counts"], h, w))
+                or R.rle_area(rle) != R.rle_area_np(rle)
+                or R.rle_area(rle) != int(mask.sum())):
+            raise AssertionError(f"native RLE differs from numpy on a "
+                                 f"{obj['category']}")
+    return {"resize": resize, "normalize_pad_max_abs_err": norm_err,
+            "rle_masks": len(objects)}
+
+
+def write_trainer_annotations(manifest, root):
+    """A COCO-style annotation file over the fixtures, each listed
+    TRAINER_COPIES times, with their drawn objects (3-6 each) as boxes and
+    polygons in 3 categories."""
+    cats = {"rect": 1, "ellipse": 2, "triangle": 3}
+    images, anns = [], []
+    for copy_i in range(TRAINER_COPIES):
+        for k, (name, entry) in enumerate(sorted(manifest["files"].items())):
+            image_id = copy_i * 100 + k
+            images.append({"id": image_id, "file_name": name,
+                           "height": entry["shape"][0],
+                           "width": entry["shape"][1]})
+            for obj in entry["objects"]:
+                x, y, bw, bh = obj["bbox"]
+                anns.append({"id": len(anns) + 1, "image_id": image_id,
+                             "category_id": cats[obj["category"]],
+                             "bbox": obj["bbox"], "area": bw * bh,
+                             "iscrowd": 0, "segmentation": [obj["polygon"]]})
+    path = os.path.join(root, "trainer_ann.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": i, "name": n}
+                                  for n, i in cats.items()]}, f)
+    return path, len(images), len(anns)
+
+
+def trainer_model(cfg):
+    """The phase's model, set on each Trainer before it trains:
+    `build_model` (seed 0) with the det backbone's patch-embedding bias
+    drawn from TRAINER_BIAS_SEED (N(0, 0.02)). `build_model`'s zero
+    biases make every padded patch of a bucket the zero vector, so the
+    Swin blocks' LayerNorms see constant inputs on the padding and each
+    multiplies those tokens' gradient by 1 / sqrt(eps): the JAX package's
+    Trainer and the port's both reach a gradient norm of 7.9e10 at the
+    tiny config on the CPU (`tests/test_torch_trainer.py`), and here the
+    fp32 norm overflowed, which `Trainer.train` refuses. A trained bias
+    is not zero. The train phase's batch has no padding."""
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    bias = dict(model.named_parameters())[TRAINER_BIAS]
+    g = torch.Generator(device=bias.device).manual_seed(TRAINER_BIAS_SEED)
+    with torch.no_grad():
+        bias.copy_(0.02 * torch.randn(bias.shape, generator=g,
+                                      device=bias.device))
+    return model
+
+
+def trainer_config(out, workers, save_every=TRAINER_SAVE_EVERY):
+    """The phase's TrainConfig: stage 1 (vision encoder and LLM frozen),
+    the train phase's optimizer."""
+    return TrainConfig(output_dir=out, batch_size=TRAINER_BATCH,
+                       total_steps=TRAINER_STEPS, log_every=1,
+                       save_every=save_every, seed=0,
+                       num_workers=workers, freeze_llm=True,
+                       optimizer=OptimizerConfig(total_steps=1000))
+
+
+def check_loader_workers(trainer, concat, batches):
+    """Check 3: the Trainer's loader at TRAINER_WORKERS threads gives the
+    synchronous loop's batches byte for byte; ms a batch for each (one
+    pass each, no consumer)."""
+    runs, ms = {}, {}
+    for workers in (0, TRAINER_WORKERS):
+        trainer.tc.num_workers = workers
+        t = time.perf_counter()
+        runs[workers] = list(trainer.loader(concat, batches))
+        ms[workers] = (time.perf_counter() - t) * 1e3 / len(batches)
+    trainer.tc.num_workers = TRAINER_WORKERS
+
+    def arrays(b):
+        idx, batch = b
+        flat = [("idx", np.asarray(idx))]
+        for k, v in sorted(batch.items()):
+            flat += ([(f"{k}.{kk}", vv) for kk, vv in sorted(v.items())]
+                     if isinstance(v, dict) else [(k, v)])
+        return flat
+
+    for p, (a, b) in enumerate(zip(runs[0], runs[TRAINER_WORKERS])):
+        for (ka, va), (kb, vb) in zip(arrays(a), arrays(b)):
+            if ka != kb or va.dtype != vb.dtype or va.shape != vb.shape \
+                    or va.tobytes() != vb.tobytes():
+                raise AssertionError(f"loader batch {p} {ka}: "
+                                     f"{TRAINER_WORKERS} workers differ "
+                                     "from the synchronous loop")
+    if len(runs[0]) != len(runs[TRAINER_WORKERS]) or not runs[0]:
+        raise AssertionError("loader batch counts differ")
+    first = runs[0][0][1]
+    return ms, first, {k: list(v.shape) for k, v in first.items()
+                       if isinstance(v, np.ndarray)}
+
+
+def check_first_step(model, trainer, first, tid):
+    """Check 5: the first batch's loss and trainable gradient norm with
+    the kernels against the plain versions (same weights, batch, draws
+    and discrete choices), within TRAIN_REL_TOL."""
+    batch = to_device(first, trainer.device, trainer.dtype)
+    trainable = split_frozen(model, trainer.frozen)
+    g = torch.Generator(device=trainer.device).manual_seed(2)
+    noise = draw_step_noise(g, model.cfg.gdino, batch["targets"])
+    mk, gk, choices = loss_and_grad(model, batch, tid, noise, trainable)
+    nk = math.sqrt(sum(v.square().sum().item() for v in gk.values()))
+    del gk
+    with plain_versions():
+        mp, gp, _ = loss_and_grad(model, batch, tid, noise, trainable,
+                                  choices)
+    np_ = math.sqrt(sum(v.square().sum().item() for v in gp.values()))
+    del gp
+    errs = {"loss": abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]),
+            "grad_norm": abs(nk - np_) / np_}
+    if not (all(math.isfinite(v) for v in mk.values())
+            and max(errs.values()) <= TRAIN_REL_TOL):
+        raise AssertionError(f"trainer first step kernel vs plain: {errs} "
+                             f"(tol {TRAIN_REL_TOL}), losses {mk}")
+    return {"kernel": {"loss": mk["loss"], "grad_norm": nk},
+            "plain": {"loss": mp["loss"], "grad_norm": np_},
+            "rel_err": errs}
+
+
+def instrument_trainer(trainer, counts, prof, snap, last):
+    """Wrap the Trainer's step: launches per step (`counts`);
+    torch.profiler from the end of step `last - 1` to the end of step
+    `last` (the loop's own wait for the batch, moving it and the step;
+    its wall in `prof`, unless that is None); and the fp32 masters and
+    moments after each
+    step of SNAP_STEPS, copied to the host (`snap[step]`)."""
+    step_fn_for = trainer.step_fn_for
+
+    def wrapped_for(group):
+        fn = step_fn_for(group)
+
+        def step(state, batch, **kw):
+            k = state.step + 1
+            c0 = train_counts()
+            out = fn(state, batch, **kw)
+            counts.append(tuple(b - a for a, b in zip(c0, train_counts())))
+            if prof is not None and k == last - 1:
+                torch.cuda.synchronize()
+                prof["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA])
+                prof["prof"].start()
+                prof["t0"] = time.perf_counter()
+            if prof is not None and k == last:
+                torch.cuda.synchronize()
+                prof["wall_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
+                prof["prof"].stop()
+            if k in SNAP_STEPS:
+                snap[k] = {part: {n: t.detach().to("cpu", copy=True)
+                                  for n, t in
+                                  getattr(out[0], part).items()}
+                           for part in ("masters", "mu", "nu")}
+            return out
+        return step
+
+    trainer.step_fn_for = wrapped_for
+
+
+def timed_saves(trainer, seconds):
+    save = trainer.save
+
+    def timed(state):
+        t = time.perf_counter()
+        path = save(state)
+        seconds.append(time.perf_counter() - t)
+        return path
+    trainer.save = timed
+
+
+def check_restored(trainer, state, ck):
+    """The resumed Trainer's live state is the checkpoint's, bit for bit:
+    step, sampler position, generator, fp32 masters and both moments on
+    the card, and each trainable parameter its master rounded."""
+    params = dict(trainer.model.named_parameters())
+    bad = [f"{part}.{n}" for part in ("masters", "mu", "nu")
+           for n, t in getattr(state, part).items()
+           if not torch.equal(t.cpu(), ck[part][n])]
+    bad += [n for n, w in state.masters.items()
+            if not torch.equal(params[n].detach(), w.to(params[n].dtype))]
+    if (bad or state.step != ck["step"] or trainer.position != ck["position"]
+            or not torch.equal(trainer.generator.get_state(),
+                               ck["generator"])):
+        raise AssertionError(f"restored state differs from the checkpoint: "
+                             f"{bad[:5]}, step {state.step}, position "
+                             f"{trainer.position}")
+
+
+def state_rel_err(a, b):
+    """Relative L2 distance of two snapshots, per part (all tensors of a
+    part as one vector)."""
+    out = {}
+    for part in ("masters", "mu", "nu"):
+        d = sum((a[part][n] - b[part][n]).double().square().sum().item()
+                for n in b[part])
+        w = sum(t.double().square().sum().item() for t in b[part].values())
+        out[part] = math.sqrt(d / w) if w else math.sqrt(d)
+    return out
+
+
+def resume_from(cfg, tid, tok, ds_cfgs, ckpt, ck, out, workers, steps,
+                save_every):
+    """A fresh Trainer on a fresh model in `out`, resumed from the
+    checkpoint directory `ckpt` (its live state held to `ck` by
+    `check_restored`) and trained to `steps` with `workers` loader
+    threads. Returns its metrics rows, launches per step, snapshots
+    (SNAP_STEPS), restore seconds, step intervals and, for the
+    synchronous run, the profile of its last step."""
+    shutil.copytree(ckpt, os.path.join(out, "checkpoints",
+                                       os.path.basename(ckpt)))
+    trainer = Trainer(cfg, trainer_config(out, workers, save_every), tid)
+    trainer.model = trainer_model(cfg)
+    counts, snap, init_s = [], {}, []
+    prof = {} if workers == 0 else None
+    instrument_trainer(trainer, counts, prof, snap, steps)
+    init_state = trainer.init_state
+
+    def timed_init():
+        t0 = time.perf_counter()
+        state = init_state()
+        init_s.append(time.perf_counter() - t0)
+        check_restored(trainer, state, ck)
+        return state
+    trainer.init_state = timed_init
+    state = trainer.train(ds_cfgs, tok, max_steps=steps)
+    if state.step != steps:
+        raise AssertionError(f"resumed trainer stopped at {state.step}")
+    intervals, waits, step_ms = step_intervals(trainer,
+                                               TRAINER_SAVE_EVERY + 1)
+    run = {"rows": read_metrics(out), "counts": counts, "snap": snap,
+           "init_s": init_s[0], "prof": prof, "intervals": intervals,
+           "waits": waits, "step_ms": step_ms}
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def resume_gate(rows, snap, runs, per_step):
+    """Check 6 on the resumed `runs` against the straight run (`rows`,
+    `snap`): launches per step, finite metrics and step 4's loss terms
+    bit for bit; then each run's largest distance from the straight run
+    (`gap`) against the largest between two resumed runs (`spread`), in
+    the metrics of steps 4 to TRAINER_STEPS (relative to the straight
+    run's, step 4's gradient norm included) and in the masters and
+    moments after each of SNAP_STEPS (`state_rel_err`). Returns the
+    readings."""
+    at = TRAINER_SAVE_EVERY        # row index of step 4
+    keys = [(s, k) for s in range(at, TRAINER_STEPS) for k in rows[s]
+            if k not in ("time", "step")]
+    want = np.array([rows[s][k] for s, k in keys])
+    got = [np.array([r["rows"][s - at][k] for s, k in keys]) for r in runs]
+    for i, r in enumerate(runs):
+        terms = {k: v for k, v in r["rows"][0].items()
+                 if k not in ("time", "grad_norm")}
+        want_terms = {k: v for k, v in rows[at].items()
+                      if k not in ("time", "grad_norm")}
+        if (terms != want_terms or any(c != per_step for c in r["counts"])
+                or not all(math.isfinite(v) for row in r["rows"]
+                           for v in row.values())):
+            raise AssertionError(
+                f"resumed run {i}: step {at + 1} {terms} against "
+                f"{want_terms}, launches {r['counts']}")
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(want),
+                                                       1e-30)))
+    pairs = list(itertools.combinations(range(len(runs)), 2))
+    out = {"metric": {"gap": max(rel(g, want) for g in got),
+                      "spread": max(rel(got[i], got[j]) for i, j in pairs),
+                      "k": RESUME_SPREAD_K_LOSS},
+           "state": {}, "k_state": RESUME_SPREAD_K_STATE,
+           "losses": [[row["loss"] for row in r["rows"]] for r in runs]}
+    bad = out["metric"]["gap"] > RESUME_SPREAD_K_LOSS * out["metric"][
+        "spread"]
+    for s in SNAP_STEPS:
+        gaps = [state_rel_err(r["snap"][s], snap[s]) for r in runs]
+        spreads = [state_rel_err(runs[i]["snap"][s], runs[j]["snap"][s])
+                   for i, j in pairs]
+        out["state"][str(s)] = {
+            part: {"gap": max(g[part] for g in gaps),
+                   "spread": max(d[part] for d in spreads)}
+            for part in ("masters", "mu", "nu")}
+        bad |= any(v["gap"] > RESUME_SPREAD_K_STATE * v["spread"]
+                   for v in out["state"][str(s)].values())
+    if bad:
+        raise AssertionError(f"resumed runs drift from the straight run "
+                             f"beyond their own spread: {out}")
+    return out
+
+
+def step_intervals(trainer, first):
+    """Per step after `first` (the run's first step): ms from the end of
+    the step before to its own end (the wait for its batch, moving it,
+    the step), and the data wait of each step; and the median interval of
+    the steps whose interval holds no checkpoint save, state snapshot or
+    profiler start or stop (SNAP_STEPS and the last two; None if no step
+    is left)."""
+    h = trainer.history
+    last = first + len(h) - 1
+    steps = range(first + 1, last + 1)
+    ms = [(b["t_end"] - a["t_end"]) * 1e3 for a, b in zip(h, h[1:])]
+    clean = [t for k, t in zip(steps, ms)
+             if k not in SNAP_STEPS + (last - 1, last)]
+    return ({str(k): t for k, t in zip(steps, ms)},
+            [r["data_wait_s"] * 1e3 for r in h],
+            statistics.median(clean) if clean else None)
+
+
+def read_metrics(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_trainer():
+    """The `trainer` phase: `Trainer.train` of the stage-1 det model on
+    COCO-style JPEGs; returns the main run's launches."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    manifest = fixture_manifest()
+    decode = check_jpeg_fixtures(manifest)
+    native = check_host_native(manifest)
+    cfg = vllm_7b_det_config()
+    tid = SpecialTokenIds.synthetic()
+    tok = HashedWordTokenizer()
+    per_step = train_launches_per_step(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        ann, n_images, n_anns = write_trainer_annotations(manifest, tmp)
+        ds_cfgs = [{"type": "coco_det", "ann_file": ann,
+                    "img_prefix": JPEG_FIXTURES, "with_mask": True,
+                    "image_size": cfg.vis_encoder.image_size,
+                    "max_gt_per_img": TRAIN_TARGETS,
+                    "train_scales": [(480, TRAIN_DET)],
+                    "buckets": ((TRAIN_DET, TRAIN_DET),)}]
+        main_dir = os.path.join(tmp, "main")
+        t = time.perf_counter()
+        main = Trainer(cfg, trainer_config(main_dir, TRAINER_WORKERS), tid)
+        main.model = model = trainer_model(cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        concat = build_multi_datasets(
+            [{"image_token_len": cfg.image_token_len, **c} for c in ds_cfgs],
+            tok)
+        batches = list(TaskGroupedBatchSampler(concat, TRAINER_BATCH,
+                                               seed=0))
+        data_ms, first, shapes = check_loader_workers(main, concat, batches)
+        first_step = check_first_step(model, main, first, tid)
+        del first
+
+        # the main path: TRAINER_STEPS steps at TRAINER_WORKERS workers
+        counts, prof, saves, snap = [], {}, [], {}
+        instrument_trainer(main, counts, prof, snap, TRAINER_STEPS)
+        timed_saves(main, saves)
+        for _, fn in TRAIN_KERNELS:
+            fn.launches = 0
+        t = time.perf_counter()
+        state = main.train(ds_cfgs, tok)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in TRAIN_KERNELS}
+        rows = read_metrics(main_dir)
+        if state.step != TRAINER_STEPS or len(rows) != TRAINER_STEPS:
+            raise AssertionError(f"trainer ran {state.step} steps, logged "
+                                 f"{len(rows)}")
+        if not all(math.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"non-finite trainer metrics {rows}")
+        if any(c != per_step for c in counts):
+            raise AssertionError(f"trainer launches per step {counts} != "
+                                 f"{per_step}")
+        prefetch_summary = device_summary(prof["prof"], prof["wall_ms"])
+        intervals, waits, step_ms = step_intervals(main, 1)
+        ckpts = sorted(os.listdir(main.ckpt_dir))
+        del state, main, model, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # fresh Trainers resume from step 3: the synchronous loop to
+        # TRAINER_RESUME_STEPS, then TRAINER_REPEATS with the main loader
+        # (each saves at its end only, so no save falls between steps)
+        ckpt = os.path.join(main_dir, "checkpoints", str(TRAINER_SAVE_EVERY))
+        t = time.perf_counter()
+        ck = restore_checkpoint(os.path.dirname(ckpt), TRAINER_SAVE_EVERY)
+        load_s = time.perf_counter() - t
+        resumed = [resume_from(cfg, tid, tok, ds_cfgs, ckpt, ck,
+                               os.path.join(tmp, f"resume{i}"), *run)
+                   for i, run in enumerate(
+                       [(0, TRAINER_RESUME_STEPS, TRAINER_RESUME_STEPS)]
+                       + [(TRAINER_WORKERS, TRAINER_STEPS, TRAINER_STEPS)]
+                       * TRAINER_REPEATS)]
+        del ck
+        resume = resume_gate(rows, snap, resumed, per_step)
+        sync = resumed[0]
+        sync_summary = device_summary(sync["prof"]["prof"],
+                                      sync["prof"]["wall_ms"])
+        resume_init_s = [r["init_s"] for r in resumed]
+        del snap, resumed
+        gc.collect()
+    summary = {k: v for k, v in prefetch_summary.items()
+               if k not in ("top_kernels",)}
+    emit({"phase": "trainer_profile",
+          "steps": {"prefetch": TRAINER_STEPS, "sync": TRAINER_RESUME_STEPS},
+          "prefetch": prefetch_summary, "sync": sync_summary})
+    emit({"phase": "trainer", "config": "vllm_7b_det_config() stage 1",
+          "fixtures": len(manifest["files"]), "images": n_images,
+          "annotations": n_anns, "batch_size": TRAINER_BATCH,
+          "batches_in_pass": len(batches), "batch_shapes": shapes,
+          "num_workers": TRAINER_WORKERS, "steps": TRAINER_STEPS,
+          "jpeg_decode": decode, "host_native": native,
+          "data_ms_a_batch": {"workers_0": data_ms[0],
+                              f"workers_{TRAINER_WORKERS}":
+                              data_ms[TRAINER_WORKERS]},
+          "first_step_vs_plain": first_step, "rel_tol": TRAIN_REL_TOL,
+          "launches_per_step": dict(zip([n for n, _ in TRAIN_KERNELS],
+                                        counts[0])),
+          "launches": launches,
+          "losses": [r["loss"] for r in rows], "resume": resume,
+          "step_ms_prefetch": intervals, "data_wait_ms_prefetch": waits,
+          "step_ms_sync": sync["intervals"],
+          "data_wait_ms_sync": sync["waits"],
+          "step_ms_median_prefetch": step_ms,
+          "step_ms_median_sync": sync["step_ms"],
+          "profiled_prefetch": {k: summary[k] for k in (
+              "wall_ms", "device_busy_ms", "device_idle_share")},
+          "profiled_sync": {k: sync_summary[k] for k in (
+              "wall_ms", "device_busy_ms", "device_idle_share")},
+          # the profiled step's device time over the median unprofiled
+          # step (the profiler's own host cost differs between sessions)
+          "idle_share_of_median_step": {
+              "prefetch": 1 - summary["device_busy_ms"] / step_ms,
+              "sync": 1 - sync_summary["device_busy_ms"] / sync["step_ms"]},
+          "checkpoints_kept": ckpts, "save_s": saves, "load_s": load_s,
+          "resume_init_s": resume_init_s,
+          "model_build_s": build_s,
+          "train_s": train_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6113,7 +6716,7 @@ def main(argv=None) -> int:
         f"{', '.join(KERNEL_CHECKS)}: the device and build phases, those "
         "checks, the nvidia-smi line, and no model phase and no ok line")
     parser.add_argument(
-        "--phase", choices=["gen", "flagship", "det26b", "eval"],
+        "--phase", choices=["gen", "flagship", "det26b", "eval", "trainer"],
         help="run this model phase "
         "alone with its profile "
         "(with the device and build phases and the nvidia-smi line; no "
@@ -6133,8 +6736,11 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     t = time.perf_counter()
     build.build_all()
+    cuda_s = time.perf_counter() - t
+    host_build.build_host_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t,
-          "kernels": list(build.KERNELS),
+          "cuda_seconds": cuda_s, "kernels": list(build.KERNELS),
+          "host_libraries": list(host_build.HOST_LIBS),
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
                         if "registers" in ln or "spill" in ln
                         or "Function properties" in ln]
@@ -6152,6 +6758,8 @@ def main(argv=None) -> int:
             run_det26b()
         if args.phase == "eval":
             run_eval()
+        if args.phase == "trainer":
+            run_trainer()
         print(smi, flush=True)
         return 0
     attn_cases = check_attention(g)
@@ -6178,6 +6786,9 @@ def main(argv=None) -> int:
     train = run_train()
     gc.collect()
     torch.cuda.empty_cache()
+    trainer = run_trainer()
+    gc.collect()
+    torch.cuda.empty_cache()
     probe = run_probes()
     gen = run_gen()
     flagship = run_flagship()
@@ -6185,6 +6796,7 @@ def main(argv=None) -> int:
     evaluation = run_eval()
     # each path's counts were read around that path's run alone
     by_path = {"det": det, "perception": perception, "train": train,
+               "trainer": trainer,
                "probes": probe, "chat": chat, "slots": slots, "spec": spec,
                "quant": quant, "gen": gen, "flagship": flagship,
                "det26b": det26b, "eval": evaluation}

@@ -5,7 +5,7 @@ Byte-identical on PNGs Pillow writes from seeded noise and from smooth
 seeded images (its encoder picks a filter per row, so these carry all
 five) in every colour type the port reads, on hand-built PNGs that force
 one filter on every row and split `IDAT` across chunks, and on `.npy`
-arrays. JPEG, interlaced and 16-bit PNGs, and a broken CRC raise.
+arrays. CMYK JPEG, interlaced and 16-bit PNGs, and a broken CRC raise.
 """
 
 import base64
@@ -185,7 +185,8 @@ def test_base64_png_decodes_as_mmbench_rows_carry_it():
 
 def test_formats_not_read_raise_naming_the_file(tmp_path):
     arr = _seeded(32, (16, 16, 3), smooth=True)
-    Image.fromarray(arr).save(tmp_path / "x.jpg", format="JPEG")
+    Image.fromarray(arr).convert("CMYK").save(tmp_path / "x.jpg",
+                                              format="JPEG")
     with pytest.raises(NotImplementedError, match=r"x\.jpg.*JPEG.*PNG"):
         image_io.load_image(str(tmp_path / "x.jpg"))
     Image.fromarray(arr.astype(np.uint16)[:, :, 0] * 200).save(

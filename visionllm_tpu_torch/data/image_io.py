@@ -1,7 +1,12 @@
 """Image files to uint8 [H, W, 3] arrays without Pillow (the JAX package
 opens them with `Image.open(path).convert("RGB")`).
 
-The port reads two formats, told apart by their magic bytes:
+The port reads three formats, told apart by their magic bytes:
+
+- JPEG (`FF D8 FF`): the port's native decoder (`data/jpeg.py`,
+  `csrc/host/jpeg_decode.cc`), equal to Pillow's pixels byte for byte
+  on what it reads (baseline and progressive Huffman, 8-bit, gray or
+  YCbCr at 4:4:4, 4:2:2, 4:2:0, restart intervals);
 
 - PNG of bit depth 8, not interlaced, in colour types gray, gray+alpha,
   RGB, RGBA and palette (with `PLTE`): the `IDAT` chunks concatenated,
@@ -11,8 +16,10 @@ The port reads two formats, told apart by their magic bytes:
   composited), palette indices look up `PLTE`.
 - `.npy` holding uint8 [H, W, 3] or [H, W] (gray, repeated).
 
-Anything else (JPEG, interlaced or 16-bit PNG, other bit depths, other
-formats) raises `NotImplementedError` naming the file and what is read.
+Anything else (arithmetic-coded, 12-bit, lossless, hierarchical or CMYK
+JPEG, other JPEG subsamplings, interlaced or 16-bit PNG, other bit
+depths, other formats) raises `NotImplementedError` naming the file and
+what is read.
 """
 
 from __future__ import annotations
@@ -23,10 +30,14 @@ import zlib
 
 import numpy as np
 
+from visionllm_tpu_torch.data.jpeg import JPEG_MAGIC, decode_jpeg
+from visionllm_tpu_torch.data.jpeg import READS as JPEG_READS
+
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
-READS = ("PNG (bit depth 8, not interlaced; gray, gray+alpha, RGB, RGBA, "
-         "palette) and .npy (uint8 [H, W, 3] or [H, W])")
+READS = (f"{JPEG_READS}, PNG (bit depth 8, not interlaced; gray, "
+         "gray+alpha, RGB, RGBA, palette) and .npy (uint8 [H, W, 3] or "
+         "[H, W])")
 
 # colour type -> samples a pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -42,13 +53,14 @@ def load_image(path: str) -> np.ndarray:
 def decode_image_bytes(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """Encoded image bytes (a file's contents, or MMBench's base64 field
     decoded) as uint8 [H, W, 3]."""
+    if data.startswith(JPEG_MAGIC):
+        return decode_jpeg(data, name, READS)
     if data.startswith(PNG_MAGIC):
         return _decode_png(data, name)
     if data.startswith(NPY_MAGIC):
         return _from_npy(np.load(io.BytesIO(data), allow_pickle=False), name)
-    kind = "JPEG" if data.startswith(b"\xff\xd8\xff") else "this format"
-    raise NotImplementedError(f"{name}: {kind} is not read by the port; it "
-                              f"reads {READS}")
+    raise NotImplementedError(f"{name}: this format is not read by the "
+                              f"port; it reads {READS}")
 
 
 def _from_npy(arr: np.ndarray, name: str) -> np.ndarray:

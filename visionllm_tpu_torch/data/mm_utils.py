@@ -7,13 +7,15 @@ prompt <-> token plumbing (counterpart of `visionllm_tpu/data/mm_utils.py`:
 `boxes_to_masks` and `clip_region_masks`, which serving and the region
 eval share).
 
-The JAX package resizes with Pillow (or its native copy of Pillow's
-resampler). The port does without Pillow: `resize_image` repeats
-Pillow's 8-bit algorithm in numpy - the antialiased bicubic (a = -0.5)
-or triangle (bilinear) filter, support widened by the downscale factor,
-weights normalized per output pixel and rounded to 22-bit fixed point, a
-width pass then a height pass, each rounded and clamped to uint8 - and
-its nearest-neighbour stepping, so it gives Pillow's pixels.
+The JAX package resizes with its native copy of Pillow's resampler (or
+Pillow). The port does without Pillow: `resize_image` runs the same
+native resizer (`native_image.resize_u8`), and `resize_image_np` repeats
+Pillow's 8-bit algorithm in numpy as its plain version - the antialiased
+bicubic (a = -0.5) or triangle (bilinear) filter, support widened by the
+downscale factor, weights normalized per output pixel and rounded to
+22-bit fixed point, a width pass then a height pass, each rounded and
+clamped to uint8 - and its nearest-neighbour stepping, so both give
+Pillow's pixels.
 `resize_float` is Pillow's bilinear resize of a float32 ("F") image,
 which keeps the weights in double precision.
 """
@@ -26,6 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from visionllm_tpu_torch.constants import DEFAULT_TOKENS, IMAGE_TOKEN_INDEX
+from visionllm_tpu_torch.data.native_image import resize_u8
 
 # CLIP normalization constants (CLIPImageProcessor defaults)
 CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -152,10 +155,24 @@ def resize_image(img: np.ndarray, size: Tuple[int, int],
                  method: str = "bilinear") -> np.ndarray:
     """HW or HWC resize to `size` (h, w) with Pillow's pixels, as the JAX
     `resize_image` gives them: a uint8 image (any other dtype is first
-    cast to uint8, as the JAX package does before Pillow) through
-    Pillow's 8-bit path, a width pass then a height pass for "bilinear"
-    and "bicubic", each rounded and clamped; "nearest" picks rows and
-    columns."""
+    cast to uint8, as the JAX package does before Pillow) through the
+    native resizer (`native_image.resize_u8`, GIL-free, as the JAX
+    package's fast path); `resize_image_np` is its plain version."""
+    x = img if img.dtype == np.uint8 else img.astype(np.uint8)
+    if method not in _FILTERS and method != "nearest":
+        raise ValueError(f"unknown resize method {method!r}")
+    if x.size == 0:
+        return resize_image_np(x, size, method)
+    if x.shape[:2] == tuple(size):      # Pillow returns a copy as well
+        return x.copy()
+    return resize_u8(x, size, method)
+
+
+def resize_image_np(img: np.ndarray, size: Tuple[int, int],
+                    method: str = "bilinear") -> np.ndarray:
+    """The plain version of `resize_image`, in numpy: Pillow's 8-bit
+    path, a width pass then a height pass for "bilinear" and "bicubic",
+    each rounded and clamped; "nearest" picks rows and columns."""
     x = img if img.dtype == np.uint8 else img.astype(np.uint8)
     if method == "nearest":
         x = x[_nearest_index(x.shape[0], size[0])] \

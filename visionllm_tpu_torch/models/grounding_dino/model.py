@@ -63,13 +63,27 @@ def contrastive_logits(vision_hidden, text_hidden, text_token_mask,
 
 class GroupNorm(nn.GroupNorm):
     """`nn.GroupNorm` that, like flax's, normalizes a group of one value
-    (zero variance: the output is the bias), which `F.group_norm`
-    refuses; a 1 x 1 level of a B1 batch has such groups when a group is
-    one channel, as at the tiny test config's width."""
+    to exactly the bias. A 1 x 1 level has such groups when a group is
+    one channel, as at the tiny test config's width: `F.group_norm`
+    refuses them, and `torch.group_norm`'s fused x * scale + shift leaves
+    rounding there that the LayerNorms after it blow up to order one. So
+    such groups take flax's (x - mean) * rsqrt(var + eps) in fp32; the
+    others `torch.group_norm`."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.group_norm(x, self.num_groups, self.weight, self.bias,
-                                self.eps, torch.backends.cudnn.enabled)
+        if x[:1, :self.num_channels // self.num_groups].numel() > 1:
+            return torch.group_norm(x, self.num_groups, self.weight,
+                                    self.bias, self.eps,
+                                    torch.backends.cudnn.enabled)
+        B, C = x.shape[:2]
+        g = x.float().reshape(B, self.num_groups, -1)
+        mean = g.mean(-1, keepdim=True)
+        var = (g - mean).square().mean(-1, keepdim=True)
+        y = ((g - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = (1, C) + (1,) * (x.dim() - 2)
+        y = y * self.weight.float().view(shape) + \
+            self.bias.float().view(shape)
+        return y.to(x.dtype)
 
 
 def _nchw(module: nn.Module, x: torch.Tensor) -> torch.Tensor:

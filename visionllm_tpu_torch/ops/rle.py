@@ -1,14 +1,43 @@
-"""COCO-compressed RLE mask codec in numpy (counterpart of the numpy path
-of `visionllm_tpu/ops/rle.py`): column-major runs, each count stored as
-its delta to the count two back in 5-bit groups offset by 48 - the wire
+"""COCO-compressed RLE mask codec (counterpart of
+`visionllm_tpu/ops/rle.py`): column-major runs, each count stored as its
+delta to the count two back in 5-bit groups offset by 48 - the wire
 format of COCO tooling, so masks the perception endpoints return decode
-with it; and `rle_iou`, the pairwise mask IoU of the COCO evaluator."""
+with it; and `rle_iou`, the pairwise mask IoU of the COCO evaluator.
+
+`rle_decode`, `rle_encode` and `rle_area` run the native codec
+(`csrc/host/rle.cc`, a copy of the JAX package's, built with g++ at first
+use by `kernels/host_build.py`, called through ctypes as the JAX package
+calls it). Their `*_np` versions are the plain numpy codec; a string the
+native decoder rejects (counts that do not fill the mask) takes the numpy
+path, as in the JAX package."""
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from visionllm_tpu_torch.kernels.host_build import host_library
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = host_library("rle")
+        lib.rle_decode.restype = ctypes.c_int
+        lib.rle_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                   ctypes.c_int64, ctypes.c_void_p]
+        lib.rle_encode.restype = ctypes.c_int64
+        lib.rle_encode.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.c_int64, ctypes.c_char_p,
+                                   ctypes.c_int64]
+        lib.rle_area.restype = ctypes.c_int64
+        lib.rle_area.argtypes = [ctypes.c_char_p]
+        _LIB = lib
+    return _LIB
 
 
 def _counts_from_string(s: bytes) -> List[int]:
@@ -49,6 +78,16 @@ def rle_decode(counts, h: int, w: int) -> np.ndarray:
     """Compressed-RLE string -> row-major [h, w] uint8 mask."""
     if isinstance(counts, str):
         counts = counts.encode()
+    out = np.zeros((h, w), np.uint8)
+    if _lib().rle_decode(counts, h, w, out.ctypes.data) == 0:
+        return out
+    return rle_decode_np(counts, h, w)
+
+
+def rle_decode_np(counts, h: int, w: int) -> np.ndarray:
+    """The plain version of `rle_decode`."""
+    if isinstance(counts, str):
+        counts = counts.encode()
     flat = np.zeros(h * w, np.uint8)
     pos, val = 0, 0
     for c in _counts_from_string(counts):
@@ -62,6 +101,16 @@ def rle_encode(mask: np.ndarray) -> Dict:
     """Row-major [h, w] binary mask -> {"size": [h, w], "counts": str}."""
     mask = np.ascontiguousarray(mask.astype(np.uint8))
     h, w = mask.shape
+    cap = 2 * h * w + 16
+    buf = ctypes.create_string_buffer(cap)
+    n = _lib().rle_encode(mask.ctypes.data, h, w, buf, cap)
+    return {"size": [h, w], "counts": buf.raw[:n].decode()}
+
+
+def rle_encode_np(mask: np.ndarray) -> Dict:
+    """The plain version of `rle_encode`."""
+    mask = np.ascontiguousarray(mask.astype(np.uint8))
+    h, w = mask.shape
     col = mask.T.reshape(-1)
     change = np.nonzero(np.diff(col))[0] + 1
     bounds = np.concatenate([[0], change, [col.size]])
@@ -72,6 +121,14 @@ def rle_encode(mask: np.ndarray) -> Dict:
 
 
 def rle_area(rle: Dict) -> int:
+    counts = rle["counts"]
+    if isinstance(counts, str):
+        counts = counts.encode()
+    return int(_lib().rle_area(counts))
+
+
+def rle_area_np(rle: Dict) -> int:
+    """The plain version of `rle_area`."""
     counts = rle["counts"]
     if isinstance(counts, str):
         counts = counts.encode()

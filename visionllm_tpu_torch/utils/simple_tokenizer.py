@@ -1,6 +1,7 @@
 """Deterministic word-level tokenizer (tokenizer-free smoke runs + tests);
 own copy of the JAX package's `utils/simple_tokenizer.py`, with its
-`RoundTripTokenizer`.
+`RoundTripTokenizer`, and `HashedWordTokenizer` (the port's: a fixed
+vocabulary, so threads and runs agree on every id).
 
 Mimics the HF LlamaTokenizer interface surface the data layer touches:
 callable → .input_ids with a leading BOS, special tokens (bracketed /
@@ -8,6 +9,7 @@ angled) as single ids, pad/bos ids, `legacy` flag.
 """
 
 import re
+import zlib
 from typing import List
 
 from visionllm_tpu_torch.constants import DEFAULT_TOKENS
@@ -102,3 +104,14 @@ class RoundTripTokenizer(SimpleTokenizer):
         if len(w) > 1 and w[0] == "t" and w[1:].isdigit():
             return int(w[1:])
         return super()._word_id(w)
+
+
+class HashedWordTokenizer(SimpleTokenizer):
+    """SimpleTokenizer with a fixed vocabulary, as a real tokenizer has:
+    a word's id is a hash of the word (crc32 into [4, 31000)), not the
+    order in which words were first met, so samples tokenized on loader
+    threads in any order, or in another run, get the same ids. Its
+    `decode` names only the special tokens."""
+
+    def _word_id(self, w: str) -> int:
+        return 4 + zlib.crc32(w.encode()) % (31000 - 4)
