@@ -529,8 +529,7 @@ def test_non_finite_step_raises_before_logging_or_saving(coco_dir, tmp_path):
     assert not _loader_threads()
 
 
-@pytest.mark.parametrize("task,item", [("pose", "A.5"), ("t2i", "A.6"),
-                                       ("chat", "A.7")])
+@pytest.mark.parametrize("task,item", [("chat", "A.7")])
 def test_other_groups_raise_naming_their_roadmap_item(tmp_path, task, item):
     tc = TrainConfig(output_dir=str(tmp_path))
     trainer = Trainer(tiny_test_config(), tc, SpecialTokenIds.synthetic(),

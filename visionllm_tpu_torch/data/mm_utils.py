@@ -22,6 +22,7 @@ which keeps the weights in double precision.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -77,9 +78,11 @@ def _triangle(x: float) -> float:
 _FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_triangle, 1.0)}
 
 
+@functools.lru_cache(maxsize=256)
 def _coeffs(in_size: int, out_size: int, method: str):
     """Per output pixel: ksize source indices (clamped; their weights are
-    0) and the weights normalized to sum 1, in double precision."""
+    0) and the weights normalized to sum 1, in double precision; cached
+    by size and method, read-only (the masks of an image share them)."""
     filt, support = _FILTERS[method]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
@@ -99,6 +102,8 @@ def _coeffs(in_size: int, out_size: int, method: str):
         for x, v in enumerate(w):
             kk[xx, x] = v / ww if ww != 0.0 else v
         idx[xx] = np.minimum(xmin + np.arange(ksize), in_size - 1)
+    idx.setflags(write=False)
+    kk.setflags(write=False)
     return idx, kk
 
 

@@ -2,9 +2,10 @@
 config turns it on) + Grounding-DINO + UniPose + the [GEN] and [EDIT]
 heads in one module tree, with the det-VQA inference entry `infer_det`
 (region prompts through `regions`), the pose inference entry
-`infer_pose` and the det training forward `forward_det` (counterpart of
-`visionllm_tpu/models/composite.py:39-55`, `:73-97`, `:156-180`). The
-heads' inference entries are their own `generate` methods (`model.sd`,
+`infer_pose` and the training forwards `forward_det`, `forward_pose`,
+`forward_gen` and `forward_edit` (counterpart of
+`visionllm_tpu/models/composite.py:39-155`, `:156-180`). The heads'
+inference entries are their own `generate` methods (`model.sd`,
 `model.ip2p`).
 
 `build_model` is the entry point: it builds the model on CUDA unless the
@@ -21,12 +22,13 @@ is "int4", "int8" or "w8a8". Load real weights with
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from visionllm_tpu_torch import constants as C
 from visionllm_tpu_torch.config import VisionLLMConfig
 from visionllm_tpu_torch.device import resolve_device
 from visionllm_tpu_torch.models.common import init_weights
@@ -126,10 +128,7 @@ class VisionLLMWithTools(nn.Module):
 
         batch: input_ids / labels / attn_mask [B, L], images (CLIP pixels
         NHWC), images_aug (det pixels NHWC), pixel_mask?, targets."""
-        out = self.core(batch["input_ids"], batch.get("images"), tid,
-                        attn_mask=batch.get("attn_mask"))
-        lm_loss = (lm_cross_entropy(out["logits"], batch["labels"])
-                   * (1.0 - out["ignore_flag"]))
+        out, lm_loss = self._lm(batch, tid)
         tq, tq_mask = self.core.extract_text_query(
             out["hidden"], batch["input_ids"], tid)
         det = self._tool("gdino")(batch["images_aug"], tq, tq_mask,
@@ -141,6 +140,76 @@ class VisionLLMWithTools(nn.Module):
         det["text_mask"] = _text_mask(tq_mask, self.cfg.gdino.max_text_len)
         return {"lm_loss": lm_loss, "det": det,
                 "ignore_flag": out["ignore_flag"]}
+
+    def _lm(self, batch: Dict[str, torch.Tensor], tid: SpecialTokenIds
+            ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The core's prefill over the batch and its LM loss, zeroed by
+        the core's ignore_flag."""
+        out = self.core(batch["input_ids"], batch.get("images"), tid,
+                        attn_mask=batch.get("attn_mask"))
+        lm_loss = (lm_cross_entropy(out["logits"], batch["labels"])
+                   * (1.0 - out["ignore_flag"]))
+        return out, lm_loss
+
+    def forward_pose(self, batch: Dict[str, torch.Tensor],
+                     tid: SpecialTokenIds, num_obj_patches: int,
+                     dn_noise: Optional[Dict[str, torch.Tensor]] = None,
+                     topk_idx: Optional[torch.Tensor] = None,
+                     group_idx: Optional[torch.Tensor] = None
+                     ) -> Dict[str, object]:
+        """The pose training forward: LLM loss + [EMB] text queries, the
+        first `num_obj_patches` UniPose's object queries and the rest its
+        keypoint queries + UniPose with every decoder layer headed. With
+        `dn_noise` CDN queries are built from `batch["targets"]`;
+        `topk_idx` and `group_idx` repeat given selections.
+
+        batch: input_ids / labels / attn_mask, images, images_aug,
+        pixel_mask?, targets (labels, boxes, keypoints, area, valid)."""
+        out, lm_loss = self._lm(batch, tid)
+        tq, tq_mask = self.core.extract_text_query(
+            out["hidden"], batch["input_ids"], tid)
+        n = num_obj_patches
+        pose = self._tool("unipose")(
+            batch["images_aug"], tq[:, :n], tq_mask[:, :n], tq[:, n:],
+            tq_mask[:, n:], pixel_mask=batch.get("pixel_mask"),
+            targets=batch.get("targets") if dn_noise is not None else None,
+            dn_noise=dn_noise, all_layers=True, topk_idx=topk_idx,
+            group_idx=group_idx)
+        return {"lm_loss": lm_loss, "pose": pose,
+                "ignore_flag": out["ignore_flag"]}
+
+    def forward_gen(self, batch: Dict[str, torch.Tensor],
+                    tid: SpecialTokenIds,
+                    generator: Optional[torch.Generator] = None, *,
+                    noise: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Dict[str, object]:
+        """[GEN] batches: LM loss + the SD head's epsilon-prediction loss on
+        the [GEN] rows (`VisionLLM.extract_gen_embs`) and
+        `batch["output_images"]`; the head's draws from `generator` or
+        `noise`."""
+        out, lm_loss = self._lm(batch, tid)
+        embs = self.core.extract_gen_embs(out["hidden"], batch["input_ids"],
+                                          tid, C.TOOL_GEN)
+        sd = self._tool("sd").train_loss(
+            embs, batch["output_images"], generator, noise=noise,
+            caption_embeds=batch.get("caption_embeds"))
+        return {"lm_loss": lm_loss, "sd": sd, "loss": lm_loss + sd["loss"]}
+
+    def forward_edit(self, batch: Dict[str, torch.Tensor],
+                     tid: SpecialTokenIds,
+                     generator: Optional[torch.Generator] = None, *,
+                     noise: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict[str, object]:
+        """[EDIT] batches: LM loss + the IP2P head's epsilon-prediction loss
+        on the [EDIT] rows, `batch["input_images"]` and
+        `batch["output_images"]`."""
+        out, lm_loss = self._lm(batch, tid)
+        embs = self.core.extract_gen_embs(out["hidden"], batch["input_ids"],
+                                          tid, C.TOOL_EDIT)
+        ip = self._tool("ip2p").train_loss(
+            embs, batch["input_images"], batch["output_images"], generator,
+            noise=noise, caption_embeds=batch.get("caption_embeds"))
+        return {"lm_loss": lm_loss, "ip2p": ip, "loss": lm_loss + ip["loss"]}
 
 
 def _text_mask(tq_mask: torch.Tensor, max_text_len: int) -> torch.Tensor:

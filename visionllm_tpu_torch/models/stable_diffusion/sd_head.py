@@ -1,8 +1,9 @@
 """The [GEN] and [EDIT] atom tools: LLM embeddings -> diffusion
-conditioning -> DDIM with classifier-free guidance -> VAE decode.
+conditioning -> DDIM with classifier-free guidance -> VAE decode, and
+their epsilon-prediction training losses.
 
-Counterpart of the inference half of
-`visionllm_tpu/models/stable_diffusion/sd_head.py`: `LLM2SDMapper`
+Counterpart of `visionllm_tpu/models/stable_diffusion/sd_head.py`:
+`LLM2SDMapper`
 (emb_proj MLP 4096 -> 768, then 77 learned queries through a one-layer
 encoder / one-layer decoder torch-style Transformer, norm_first, in
 fp32), `StableDiffusionWithLLMEmb` ([GEN]: 2-way guidance) and
@@ -12,13 +13,22 @@ beside the input image's latents; 3-way guidance over text and image).
 Where the port draws differently: JAX draws the start latents inside
 `generate` with `jax.random.normal(rng, (B, S, S, 4))`; the port draws
 them from the caller's `torch.Generator`, or takes them as `latents=`
-(the same start gives the same image). Images are [B, H, W, 3] in
-[-1, 1] in and out; latents [B, S, S, 4].
+(the same start gives the same image). `train_loss` likewise takes its
+draws (`draw_noise`: the posterior sample's noise, epsilon, the timesteps
+and, for [EDIT], the classifier-free-drop uniforms) from the caller's
+generator or as tensors. Images are [B, H, W, 3] in [-1, 1] in and out;
+latents [B, S, S, 4].
+
+Training: the frozen VAE encodes under `torch.no_grad()` (JAX's
+`stop_gradient`); the loss is fp32 mean squared error of the UNet's
+epsilon, plus the caption distillation when caption embeddings are
+given. [EDIT] conditions on the input image's posterior mean without the
+scaling factor, as the JAX package does.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Union
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -28,7 +38,7 @@ from visionllm_tpu_torch.config import IP2PConfig, SDConfig
 from visionllm_tpu_torch.models.common import FLAX_LN_EPS
 from visionllm_tpu_torch.models.grounding_dino.layers import TorchMHA
 from visionllm_tpu_torch.models.stable_diffusion.scheduler import (
-    DiffusionSchedule, ddim_sample_loop)
+    DiffusionSchedule, add_noise, ddim_sample_loop)
 from visionllm_tpu_torch.models.stable_diffusion.unet import (
     GroupNorm32, LayerNorm, UNet2DCondition, UNetConfig)
 from visionllm_tpu_torch.models.stable_diffusion.vae import (AutoencoderKL,
@@ -165,10 +175,67 @@ class _DiffusionHead(nn.Module):
         return torch.randn((B, S, S, 4), generator=generator,
                            dtype=torch.float32, device=device)
 
+    def draw_noise(self, generator: torch.Generator, images: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+        """The draws of one `train_loss` on `images` [B, H, W, 3]: the
+        posterior sample's standard normal noise and epsilon at the
+        latents' shape ([B, H/8, W/8, 4] for SD-1.5's VAE) fp32 and the
+        timesteps [B] in [0, num_train_timesteps)."""
+        B, H, W, _ = images.shape
+        kw = dict(generator=generator, device=images.device)
+        f = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
+        shape = (B, H // f, W // f, self.vae.cfg.latent_channels)
+        return {"posterior": torch.randn(shape, **kw),
+                "eps": torch.randn(shape, **kw),
+                "t": torch.randint(0, self.schedule.num_train_timesteps,
+                                   (B,), **kw)}
+
+    def _eps_loss(self, unet_in: torch.Tensor, cond: torch.Tensor,
+                  noise: Dict[str, torch.Tensor],
+                  caption_embeds: Optional[torch.Tensor],
+                  caption_weight: float) -> Dict[str, torch.Tensor]:
+        """fp32 mean squared error of the UNet's epsilon at `unet_in`, plus
+        `caption_weight` times the conditioning's distance from the
+        caption embeddings when given."""
+        pred = self.unet(unet_in.to(self.dtype), noise["t"], cond)
+        image_loss = (pred.float() - noise["eps"]).square().mean()
+        out = {"image_loss": image_loss, "loss": image_loss}
+        if caption_embeds is not None:
+            out["caption_loss"] = (cond - caption_embeds.to(cond.dtype)
+                                   ).square().mean()
+            out["loss"] = image_loss + caption_weight * out["caption_loss"]
+        return out
+
+    def _noisy_latents(self, images: torch.Tensor,
+                       noise: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The frozen VAE's posterior sample of `images` (scaled), noised to
+        the drawn timesteps, fp32."""
+        with torch.no_grad():
+            latents = self.vae.encode(images.to(self.dtype),
+                                      noise=noise["posterior"])
+        return add_noise(self.schedule, latents.float(), noise["eps"],
+                         noise["t"])
+
 
 class StableDiffusionWithLLMEmb(_DiffusionHead):
-    """[GEN] head of an `SDConfig`: `map_embeddings`, `denoise`,
-    `generate`."""
+    """[GEN] head of an `SDConfig`: `map_embeddings`, `train_loss`,
+    `denoise`, `generate`."""
+
+    def train_loss(self, gen_embs: torch.Tensor, output_images: torch.Tensor,
+                   generator: Optional[torch.Generator] = None, *,
+                   noise: Optional[Dict[str, torch.Tensor]] = None,
+                   caption_embeds: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """Epsilon-prediction loss of [GEN] rows [B, num_embs_gen,
+        llm_dim] for the images [B, H, W, 3] in [-1, 1]: image_loss, loss
+        (+ caption_loss, weighted by caption_distill_weight). The draws
+        come from `generator` unless `noise` (`draw_noise`) is given."""
+        cond = self.map_embeddings(gen_embs)
+        if noise is None:
+            noise = self.draw_noise(generator, output_images)
+        noisy = self._noisy_latents(output_images, noise)
+        return self._eps_loss(noisy, cond, noise, caption_embeds,
+                              self.cfg.caption_distill_weight)
 
     def denoise(self, cond: torch.Tensor, latents: torch.Tensor,
                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
@@ -207,7 +274,51 @@ class StableDiffusionWithLLMEmb(_DiffusionHead):
 
 class InstructPix2PixWithLLMEmb(_DiffusionHead):
     """[EDIT] head of an `IP2PConfig`: `map_embeddings`, `image_latents`,
-    `denoise`, `generate`."""
+    `train_loss`, `denoise`, `generate`."""
+
+    # the [EDIT] head's caption distillation weight (the JAX head's
+    # constant; `IP2PConfig` carries none)
+    CAPTION_WEIGHT = 0.1
+
+    def draw_noise(self, generator: torch.Generator, images: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+        """The base draws, then the classifier-free-drop uniforms [B]."""
+        out = super().draw_noise(generator, images)
+        out["drop"] = torch.rand((images.shape[0],), generator=generator,
+                                 device=images.device)
+        return out
+
+    def train_loss(self, edit_embs: torch.Tensor, input_images: torch.Tensor,
+                   output_images: torch.Tensor,
+                   generator: Optional[torch.Generator] = None, *,
+                   noise: Optional[Dict[str, torch.Tensor]] = None,
+                   null_cond: Optional[torch.Tensor] = None,
+                   caption_embeds: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """Epsilon-prediction loss of [EDIT] rows for the edit
+        `input_images` -> `output_images` ([B, H, W, 3] in [-1, 1]). With
+        cfg_drop_prob p, a sample whose drop uniform u is below 2p trains
+        on `null_cond` (zeros) for its text, and one with p <= u < 3p on
+        zero image latents. The draws come from `generator` unless `noise`
+        (`draw_noise`) is given."""
+        cond = self.map_embeddings(edit_embs)
+        if noise is None:
+            noise = self.draw_noise(generator, output_images)
+        noisy = self._noisy_latents(output_images, noise)
+        with torch.no_grad():
+            img_cond = self.image_latents(input_images)
+        p = self.cfg.cfg_drop_prob
+        if p > 0:
+            u = noise["drop"]
+            if null_cond is None:
+                null_cond = torch.zeros_like(cond)
+            cond = torch.where((u < 2 * p)[:, None, None], null_cond, cond)
+            keep = 1.0 - ((u >= p) & (u < 3 * p)).to(img_cond.dtype)
+            img_cond = img_cond * keep[:, None, None, None]
+        unet_in = torch.cat([noisy.to(self.dtype), img_cond.to(self.dtype)],
+                            -1)
+        return self._eps_loss(unet_in, cond, noise, caption_embeds,
+                              self.CAPTION_WEIGHT)
 
     def image_latents(self, input_images: torch.Tensor) -> torch.Tensor:
         """The conditioning latents: the posterior mean of the input

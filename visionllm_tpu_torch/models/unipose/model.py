@@ -1,5 +1,6 @@
 """UniPose keypoint decoder, the pose tool (counterpart of
-`visionllm_tpu/models/unipose/model.py`), inference forward.
+`visionllm_tpu/models/unipose/model.py`): the inference forward and the
+training forward with contrastive denoising (CDN) queries.
 
 A Swin-T, Swin-L or InternImage backbone (`models/backbone.py`;
 strides 8/16/32 plus an extra stride-64 level) -> a
@@ -16,9 +17,12 @@ decoder's references are 4-d (boxes), one per query of every group.
 After the expansion the decoder self-attention is group-isolated: the
 queries are reshaped from [B, G * g, C] to [B * G, g, C] and attend
 within their group under a per-group validity mask (slots attend only to
-slots of the same validity), as in JAX. Images are NHWC at the public
-functions. Contrastive denoising queries and the pose training losses
-are not ported; the inference forward heads the last decoder layer.
+slots of the same validity), as in JAX. In training, the CDN queries
+(`train/cdn.py`) lead the box queries; they ride ahead of the groups
+after the expansion, refine box-style, and attend within their CDN group
+and to every pose query through a second call of the same
+self-attention, while the pose queries never see them. Images are NHWC
+at the public functions.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from visionllm_tpu_torch.models.grounding_dino.model import (
     _downsample_mask, _nchw, _valid_ratio, contrastive_logits,
     encoder_proposals, generate_masks_with_text_query_masks)
 from visionllm_tpu_torch.ops.box_ops import inverse_sigmoid
+from visionllm_tpu_torch.train.cdn import build_cdn_queries
 
 
 def contrastive_assign(x: torch.Tensor, text: torch.Tensor,
@@ -114,21 +119,30 @@ class UniPoseDecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(d, eps=FLAX_LN_EPS)
 
     def forward(self, hidden, *, query_pos, reference_points, spatial_shapes,
-                vision, vision_valid_mask, text, text_pad_mask, groups=None,
-                group_mask=None):
-        """groups: None (all queries attend to each other) or the number
-        of isolated groups G, with group_mask [B, g, g] (True = blocked)
-        shared by every group of a sample."""
+                vision, vision_valid_mask, text, text_pad_mask,
+                self_attn_mask=None, groups=None, group_mask=None, n_dn=0,
+                dn_attn_mask=None):
+        """Before the expansion all queries attend to each other under
+        `self_attn_mask` [B, N, N] (True = blocked: the CDN groups) or
+        none. After it, `groups` is the number of isolated groups G with
+        `group_mask` [B, g, g] (True = blocked) shared by every group of a
+        sample, and the `n_dn` leading dn queries attend to the whole
+        sequence under `dn_attn_mask` [B, n_dn, N]."""
         B, N, C = hidden.shape
         q = hidden + query_pos
         if groups is None:
-            attn = self.self_attn(q, q, hidden)
+            attn = self.self_attn(q, q, hidden, attn_mask=self_attn_mask)
         else:
-            g = N // groups
-            qg = q.reshape(B * groups, g, C)
+            g = (N - n_dn) // groups
+            qg = q[:, n_dn:].reshape(B * groups, g, C)
             gm = group_mask.repeat_interleave(groups, dim=0)
-            attn = self.self_attn(qg, qg, hidden.reshape(B * groups, g, C),
-                                  attn_mask=gm).reshape(B, N, C)
+            attn = self.self_attn(
+                qg, qg, hidden[:, n_dn:].reshape(B * groups, g, C),
+                attn_mask=gm).reshape(B, N - n_dn, C)
+            if n_dn:
+                dn_attn = self.self_attn(q[:, :n_dn], q, hidden,
+                                         attn_mask=dn_attn_mask)
+                attn = torch.cat([dn_attn, attn], 1)
         hidden = self.norm2(hidden + attn)
         attn = self.ca_text(hidden + query_pos, text, text,
                             key_padding_mask=text_pad_mask)
@@ -146,18 +160,16 @@ class UniPose(nn.Module):
     """forward(pixel_values NHWC, obj_querys [B, P_obj, num_embs,
     text_dim], obj_query_masks [B, P_obj], kpt_querys [B, P_kpt,
     num_embs, text_dim], kpt_query_masks [B, P_kpt], pixel_mask?) ->
-    dict(pred_logits [B, G, P_obj], pred_boxes [B, G, 4] cxcywh,
-    pred_keypoints [B, G, 3 nb] (x, y pairs then visibilities, in
-    [0, 1]), enc_logits, enc_boxes, topk_idx [B, num_queries], group_idx
-    [B, G]). `topk_idx` and `group_idx` given to forward replace the two
-    top-k selections (to repeat another run's choice)."""
+    dict(pred_logits, pred_boxes cxcywh, pred_keypoints (x, y pairs then
+    visibilities, in [0, 1]) of the last decoder layer: [B, G, .] when it
+    is a pose layer, [B, num_queries, .] with zero keypoints when the
+    expansion comes at or after it; enc_logits, enc_boxes of the
+    two-stage selection; topk_idx [B, num_queries], group_idx [B, G]).
+    `topk_idx` and `group_idx` given to forward replace the two top-k
+    selections (to repeat another run's choice)."""
 
     def __init__(self, cfg: UniPoseConfig):
         super().__init__()
-        if cfg.decoder_layers <= cfg.num_box_decoder_layers:
-            raise NotImplementedError("the inference forward heads a pose "
-                                      "decoder layer: decoder_layers must "
-                                      "exceed num_box_decoder_layers")
         self.cfg = cfg
         d = cfg.d_model
         self.backbone, bb_cfg = build_backbone(cfg.backbone, (1, 2, 3))
@@ -186,7 +198,10 @@ class UniPose(nn.Module):
         self.tgt_embed = nn.Parameter(torch.zeros(cfg.num_queries, d))
         self.bbox_embed = MLP(d, d, 4, 3)
         self.pose_embed = MLP(d, d, 2, 3)
-        self.pose_hw_embed = MLP(d, d, 2, 3)
+        # keypoint extents are refined by the pose layers only (JAX makes
+        # no parameter for an unused head)
+        self.pose_hw_embed = (MLP(d, d, 2, 3) if cfg.decoder_layers
+                              > cfg.num_box_decoder_layers else None)
         # learned keypoint wh priors: the 17 COCO ones, then one per
         # keypoint past 17 (a parameter only when there are any)
         self.hw = nn.Parameter(torch.zeros(min(17, cfg.num_body_points), 2))
@@ -194,13 +209,29 @@ class UniPose(nn.Module):
         self.hw_append = (nn.Parameter(torch.zeros(n_extra, 2)) if n_extra
                           else None)
 
-    def _heads(self, hs, ref, text, text_token_mask):
-        """The output heads of a pose-decoder layer: hs [B, G (nb+1), C]
-        and its input references ref [B, G (nb+1), 4]."""
+    def _head(self, lid, hs, ref, n_dn, text, text_token_mask):
+        """The output heads of decoder layer `lid`: its normed output hs
+        and input references ref (the first `n_dn` rows dn queries) ->
+        (logits, boxes, keypoints) of the matching queries and (logits,
+        boxes) of the dn queries. A box layer heads every query, with zero
+        keypoints; a pose layer heads each group's box query and its
+        keypoint queries."""
         B = hs.shape[0]
         G, nb = self.cfg.num_groups, self.cfg.num_body_points
-        hg = hs.reshape(B, G, nb + 1, -1)
-        rg = inverse_sigmoid(ref.reshape(B, G, nb + 1, 4))
+        if lid < self.cfg.num_box_decoder_layers:
+            coord = torch.sigmoid(self.bbox_embed(hs).float()
+                                  + inverse_sigmoid(ref))
+            cls = contrastive_assign(hs, text, text_token_mask)
+            dn = (cls[:, :n_dn], coord[:, :n_dn])
+            cls, coord = cls[:, n_dn:], coord[:, n_dn:]
+            kp = torch.zeros(B, cls.shape[1], nb * 3, device=hs.device)
+            return cls, coord, kp, dn
+        dn_h = hs[:, :n_dn]
+        dn = (contrastive_assign(dn_h, text, text_token_mask),
+              torch.sigmoid(self.bbox_embed(dn_h).float()
+                            + inverse_sigmoid(ref[:, :n_dn])))
+        hg = hs[:, n_dn:].reshape(B, G, nb + 1, -1)
+        rg = inverse_sigmoid(ref[:, n_dn:].reshape(B, G, nb + 1, 4))
         coord = torch.sigmoid(self.bbox_embed(hg[:, :, 0]).float()
                               + rg[:, :, 0])
         cls = contrastive_assign(hg[:, :, 0], text, text_token_mask)
@@ -208,15 +239,24 @@ class UniPose(nn.Module):
                            + self.pose_embed(hg[:, :, 1:]).float())
         v = torch.sigmoid(torch.ones(B, G, nb, device=hs.device))
         kp = torch.cat([xy.reshape(B, G, nb * 2), v], -1)
-        return cls, coord, kp
+        return cls, coord, kp, dn
 
     def forward(self, pixel_values: torch.Tensor, obj_querys: torch.Tensor,
                 obj_query_masks: torch.Tensor, kpt_querys: torch.Tensor,
                 kpt_query_masks: torch.Tensor,
                 pixel_mask: Optional[torch.Tensor] = None,
+                targets: Optional[Dict[str, torch.Tensor]] = None,
+                dn_noise: Optional[Dict[str, torch.Tensor]] = None,
+                all_layers: bool = False,
                 topk_idx: Optional[torch.Tensor] = None,
                 group_idx: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                ) -> Dict[str, object]:
+        """`targets` (labels [B, N], boxes [B, N, 4], valid [B, N]) with
+        `dn_noise` (`train.cdn.draw_cdn_noise`) build the CDN queries from
+        the projected object queries. With `all_layers=True` every decoder
+        layer is headed: all_logits, all_boxes, all_keypoints (lists, one
+        entry a layer), and with CDN queries dn_logits and dn_boxes (one
+        entry a layer) and dn_targets."""
         cfg = self.cfg
         d, nb, G = cfg.d_model, cfg.num_body_points, cfg.num_groups
         dt = self.level_embed.dtype
@@ -286,40 +326,65 @@ class UniPose(nn.Module):
                                   dim=1).indices
         ref_logit = torch.gather(enc_coord, 1,
                                  topk_idx[..., None].expand(-1, -1, 4))
-        reference_points = torch.sigmoid(ref_logit)
+        # the decoder starts from the proposals without their gradient
+        reference_points = torch.sigmoid(ref_logit.detach())
         hidden = self.tgt_embed[None].expand(B, -1, -1)
+        self_attn_mask = dn_attn_mask = dn_targets = None
+        n_dn = 0
+        if targets is not None and dn_noise is not None and cfg.dn_number > 0:
+            dn, dn_targets = build_cdn_queries(
+                dn_noise, targets, encoded_text, obj_query_masks,
+                dn_number=cfg.dn_number, num_queries=cfg.num_queries)
+            n_dn = dn["pad_size"]
+            hidden = torch.cat([dn["query_label"].to(hidden.dtype), hidden], 1)
+            reference_points = torch.cat(
+                [torch.sigmoid(dn["query_bbox"]), reference_points], 1)
+            self_attn_mask = dn["attn_mask"]
+            # after the expansion: the CDN groups over the dn block, every
+            # pose query visible
+            dn_attn_mask = F.pad(self_attn_mask[:, :n_dn, :n_dn],
+                                 (0, G * (nb + 1)))
         # post-expansion self-attention: slots attend only to slots of the
         # same validity within their group
         group_mask = kpt_mask[:, :, None] != kpt_mask[:, None, :]
 
         vr2 = torch.cat([valid_ratios, valid_ratios], -1)[:, None]
+        # each layer's normed output and input references: the heads keep
+        # the references' gradient, the next layer starts without it
+        hiddens, refs = [], [reference_points]
         expanded = False
         for lid in range(cfg.decoder_layers):
             ref_input = reference_points[:, :, None] * vr2
             sine = get_sine_pos_embed(ref_input[:, :, 0, :],
                                       num_pos_feats=d // 2, exchange_xy=True)
             query_pos = self.ref_point_head(sine.to(dt))
-            layer_ref = reference_points
             hidden = getattr(self, f"decoder_layer_{lid}")(
                 hidden, query_pos=query_pos, reference_points=ref_input,
                 spatial_shapes=spatial_shapes, vision=vision,
                 vision_valid_mask=mask_flat, text=text,
-                text_pad_mask=text_pad, groups=G if expanded else None,
-                group_mask=group_mask if expanded else None)
+                text_pad_mask=text_pad,
+                self_attn_mask=None if expanded else self_attn_mask,
+                groups=G if expanded else None,
+                group_mask=group_mask if expanded else None,
+                n_dn=n_dn if expanded else 0,
+                dn_attn_mask=dn_attn_mask if expanded else None)
+            if all_layers or lid == cfg.decoder_layers - 1:
+                hiddens.append((lid, self.decoder_norm(hidden)))
 
             if lid < cfg.num_box_decoder_layers:
                 new_ref = torch.sigmoid(self.bbox_embed(hidden).float()
                                         + inverse_sigmoid(reference_points))
             if lid == cfg.num_box_decoder_layers - 1:
-                # box -> keypoint expansion of the top G boxes
+                # box -> keypoint expansion of the top G boxes; the dn
+                # queries ride ahead of the groups
                 if group_idx is None:
-                    match_cls = contrastive_assign(hidden, text,
+                    match_cls = contrastive_assign(hidden[:, n_dn:], text,
                                                    text_token_mask)
                     group_idx = torch.topk(match_cls.amax(-1), G,
                                            dim=1).indices
-                box_ref = torch.gather(new_ref, 1,
+                box_ref = torch.gather(new_ref[:, n_dn:], 1,
                                        group_idx[..., None].expand(-1, -1, 4))
-                box_out = torch.gather(hidden, 1,
+                box_out = torch.gather(hidden[:, n_dn:], 1,
                                        group_idx[..., None].expand(-1, -1, d))
                 kpt_out = kpt_embed[:, None].expand(B, G, nb, d)
                 kpt_xy = torch.sigmoid(
@@ -329,16 +394,20 @@ class UniPose(nn.Module):
                     [self.hw, self.hw_append])
                 kpt_wh = torch.sigmoid(hw.float())[None, None] \
                     * box_ref[..., None, 2:]
-                new_ref = torch.cat(
+                exp_ref = torch.cat(
                     [box_ref[:, :, None], torch.cat([kpt_xy, kpt_wh], -1)],
                     2).reshape(B, G * (nb + 1), 4)
-                hidden = torch.cat([box_out[:, :, None], kpt_out],
-                                   2).reshape(B, G * (nb + 1), d)
+                new_ref = torch.cat([new_ref[:, :n_dn], exp_ref], 1)
+                hidden = torch.cat(
+                    [hidden[:, :n_dn],
+                     torch.cat([box_out[:, :, None], kpt_out],
+                               2).reshape(B, G * (nb + 1), d)], 1)
                 expanded = True
             elif lid >= cfg.num_box_decoder_layers:
-                # separate box / keypoint refinement
-                hg = hidden.reshape(B, G, nb + 1, d)
-                rg = inverse_sigmoid(reference_points.reshape(B, G, nb + 1, 4))
+                # separate box / keypoint refinement; dn queries box-style
+                hg = hidden[:, n_dn:].reshape(B, G, nb + 1, d)
+                rg = inverse_sigmoid(
+                    reference_points[:, n_dn:].reshape(B, G, nb + 1, 4))
                 box_new = torch.sigmoid(self.bbox_embed(hg[:, :, 0]).float()
                                         + rg[:, :, 0])
                 kpt_new = torch.sigmoid(torch.cat(
@@ -347,14 +416,23 @@ class UniPose(nn.Module):
                      + self.pose_hw_embed(hg[:, :, 1:]).float()], -1))
                 new_ref = torch.cat([box_new[:, :, None], kpt_new],
                                     2).reshape(B, G * (nb + 1), 4)
-            reference_points = new_ref
+                if n_dn:
+                    dn_new = torch.sigmoid(
+                        self.bbox_embed(hidden[:, :n_dn]).float()
+                        + inverse_sigmoid(reference_points[:, :n_dn]))
+                    new_ref = torch.cat([dn_new, new_ref], 1)
+            reference_points = new_ref.detach()
+            refs.append(new_ref)
 
-        cls, coord, kp = self._heads(self.decoder_norm(hidden), layer_ref,
-                                     text, text_token_mask)
-        return {
-            "pred_logits": cls,                  # [B, G, P_obj]
-            "pred_boxes": coord,                 # [B, G, 4]
-            "pred_keypoints": kp,                # [B, G, 3 nb]
+        heads = [self._head(lid, hs, refs[lid], n_dn, text, text_token_mask)
+                 for lid, hs in hiddens]
+        cls, coord, kp, _ = heads[-1]
+        out = {
+            "pred_logits": cls,
+            "pred_boxes": coord,
+            "pred_keypoints": kp,
+            # the two-stage loss supervises the selected proposals, with
+            # their gradient
             "enc_logits": torch.gather(
                 enc_class, 1,
                 topk_idx[..., None].expand(-1, -1, enc_class.shape[-1])),
@@ -362,3 +440,12 @@ class UniPose(nn.Module):
             "topk_idx": topk_idx,
             "group_idx": group_idx,
         }
+        if all_layers:
+            out["all_logits"] = [h[0] for h in heads]
+            out["all_boxes"] = [h[1] for h in heads]
+            out["all_keypoints"] = [h[2] for h in heads]
+        if dn_targets is not None:
+            out["dn_logits"] = [h[3][0] for h in heads]
+            out["dn_boxes"] = [h[3][1] for h in heads]
+            out["dn_targets"] = dn_targets
+        return out

@@ -12,9 +12,10 @@ group's train step on the card (the CPU when `device="cpu"`), logging
 the end.
 
 Ported: the `gdino` group (det, grd and seg tasks) through
-`make_det_train_step`. The other groups raise naming their `ROADMAP.md`
-item (unipose A.5, sd / ip2p A.6, the chat group A.7), as does
-`n_model > 1` (tensor parallelism, A.8).
+`make_det_train_step`, `unipose` (pose) through `make_pose_train_step`
+(with `tc.num_obj_patches`), `sd` ([GEN]) and `ip2p` ([EDIT]) through
+`make_gen_train_step`. The chat group raises naming its `ROADMAP.md`
+item (A.7), as does `n_model > 1` (tensor parallelism, A.8).
 
 Resume differs from the JAX Trainer on purpose (`ROADMAP.md` §C.2): the
 JAX `train()` restarts the sampler from its first batch and its PRNG from
@@ -50,13 +51,15 @@ from visionllm_tpu_torch.models.composite import build_model
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
 from visionllm_tpu_torch.train.train_step import (TrainState,
                                                   build_optimizer,
-                                                  make_det_train_step)
+                                                  make_det_train_step,
+                                                  make_gen_train_step,
+                                                  make_pose_train_step)
 from visionllm_tpu_torch.utils.checkpoint import (latest_step,
                                                   restore_checkpoint,
                                                   save_checkpoint)
 
 # tool group -> the ROADMAP item that ports its train step
-NOT_PORTED = {"unipose": "A.5", "sd": "A.6", "ip2p": "A.6", "vlm": "A.7"}
+NOT_PORTED = {"vlm": "A.7"}
 # batch keys of the image arrays, which go to the model's dtype
 IMAGE_KEYS = ("images", "images_aug", "input_images", "output_images")
 
@@ -177,8 +180,8 @@ class Trainer:
         self.logger = MetricLogger(tc.output_dir)
         self.ckpt_dir = os.path.join(tc.output_dir, "checkpoints")
         self.position = 0          # batches taken from the sampler
-        # per step: batch position, seconds waited for the batch, and the
-        # perf_counter time when the step returned
+        # per step: batch position, tool group, seconds waited for the
+        # batch, and the perf_counter time when the step returned
         self.history: List[Dict[str, float]] = []
         self._steps: Dict[str, Any] = {}
 
@@ -225,13 +228,23 @@ class Trainer:
         self.position = int(ck["position"])
 
     def step_fn_for(self, group: str):
+        """The train step of a tool group (`data.build.TASK_GROUPS`),
+        built at its first batch."""
+        if group in NOT_PORTED:
+            raise NotImplementedError(
+                f"the {group!r} tool group's train step is not ported "
+                f"(ROADMAP.md {NOT_PORTED[group]})")
         if group not in self._steps:
-            if group != "gdino":
-                raise NotImplementedError(
-                    f"the {group!r} tool group's train step is not ported "
-                    f"(ROADMAP.md {NOT_PORTED.get(group, 'A.7')})")
-            self._steps[group] = make_det_train_step(
-                self.model, self.tx, self.tid, self.frozen)
+            args = (self.model, self.tx, self.tid)
+            if group == "gdino":
+                fn = make_det_train_step(*args, self.frozen)
+            elif group == "unipose":
+                fn = make_pose_train_step(*args, self.tc.num_obj_patches,
+                                          self.frozen)
+            else:
+                fn = make_gen_train_step(*args, edit=group == "ip2p",
+                                         frozen=self.frozen)
+            self._steps[group] = fn
         return self._steps[group]
 
     def loader(self, concat, batches: Sequence[Sequence[int]],
@@ -260,7 +273,9 @@ class Trainer:
     def train(self, dataset_cfgs: Sequence[Dict], tokenizer,
               max_steps: Optional[int] = None) -> TrainState:
         """Train until `max_steps` (or `tc.total_steps`) or the end of one
-        pass over the sampler; returns the state. A step whose metrics
+        pass over the sampler, and checkpoint the last step unless its
+        `save_every` checkpoint is already written; returns the state.
+        Each batch takes its tool group's step. A step whose metrics
         (loss terms, gradient norm) are not all finite raises
         `FloatingPointError` before anything is logged or saved for it;
         reading them makes each step wait for the device."""
@@ -273,6 +288,7 @@ class Trainer:
         state = self.init_state()
         limit = max_steps or tc.total_steps
         it = iter(self.loader(concat, batches, self.position))
+        saved = None
         try:
             while state.step < limit:
                 t0 = time.perf_counter()
@@ -281,7 +297,8 @@ class Trainer:
                 except StopIteration:
                     break
                 wait = time.perf_counter() - t0
-                step = self.step_fn_for(group_of_task(concat.task_of(idx[0])))
+                group = group_of_task(concat.task_of(idx[0]))
+                step = self.step_fn_for(group)
                 state, metrics = step(state, to_device(batch, self.device,
                                                        self.dtype),
                                       generator=self.generator)
@@ -298,11 +315,13 @@ class Trainer:
                 if state.step % tc.log_every == 0:
                     self.logger.log(state.step, values)
                 self.history.append({"position": self.position - 1,
-                                     "data_wait_s": wait,
+                                     "group": group, "data_wait_s": wait,
                                      "t_end": time.perf_counter()})
                 if state.step % tc.save_every == 0:
                     self.save(state)
+                    saved = state.step
         finally:
             it.close()
-        self.save(state)
+        if saved != state.step:
+            self.save(state)
         return state

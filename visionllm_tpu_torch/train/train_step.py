@@ -1,6 +1,14 @@
-"""Optimizer and the det training step (counterpart of
-`visionllm_tpu/train/train_step.py`: `build_optimizer`, `split_frozen`,
-`TrainState`, `make_det_train_step`).
+"""Optimizer and the train steps of the det, pose, [GEN] and [EDIT] tool
+groups (counterpart of `visionllm_tpu/train/train_step.py`:
+`build_optimizer`, `split_frozen`, `TrainState`, `make_det_train_step`,
+`make_pose_train_step`, `make_gen_train_step`).
+
+Each step takes its random draws from the caller's `torch.Generator`
+(`draw_step_noise`, `draw_pose_noise`, `draw_gen_noise`) or as `noise=`,
+so a test can feed the draws JAX made from its keys; each loss function
+(`det_loss`, `pose_loss`, `gen_loss`) also returns the step's discrete
+choices and takes them back, so two runs that differ by rounding compare
+on the same decisions.
 
 Numerics: the model holds its parameters in its compute dtype (bf16 on
 the card); the optimizer keeps fp32 master copies and Adam moments of the
@@ -35,6 +43,7 @@ from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
 from visionllm_tpu_torch.train.cdn import dn_loss, draw_cdn_noise
 from visionllm_tpu_torch.train.losses import (detection_loss_with_aux,
                                               draw_mask_points)
+from visionllm_tpu_torch.train.pose_losses import pose_loss_with_aux
 
 LOW_LR_PAT = re.compile(
     r"(backbone|sampling_offsets|reference_points_head|ref_point_head)")
@@ -218,23 +227,96 @@ def det_loss(model: nn.Module, batch: Dict[str, object],
     return loss, metrics, made
 
 
-def make_det_train_step(model: nn.Module, tx: AdamW, tid: SpecialTokenIds,
-                        frozen: Frozen = None):
-    """Returns step(state, batch, generator=None, noise=None) ->
-    (state, metrics) for det / grd / seg batches. The draws come from
-    `generator` unless `noise` (`draw_step_noise`'s layout) is given.
-    `frozen` must be the predicate the state was created with."""
+def draw_pose_noise(generator: torch.Generator, cfg,
+                    targets: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    """Every random draw of one pose step (`cfg` a `UniPoseConfig`): the
+    CDN noise."""
+    if cfg.dn_number <= 0:
+        return {}
+    B, N = targets["labels"].shape
+    return {"cdn": draw_cdn_noise(generator, B, N, cfg.dn_number,
+                                  targets["labels"].device)}
+
+
+def pose_loss(model: nn.Module, batch: Dict[str, object],
+              tid: SpecialTokenIds, num_obj_patches: int,
+              noise: Dict[str, object],
+              choices: Optional[Dict[str, object]] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                         Dict[str, object]]:
+    """The pose step's loss: LM cross entropy + the Hungarian-matched pose
+    losses of every UniPose decoder layer and the encoder + the dn losses
+    of every layer. Returns (loss, metrics, choices): metrics as the JAX
+    step reports them (the terms without `aux`), choices the two top-k
+    selections and the matchings."""
+    pcfg = model.cfg.unipose
+    choices = choices or {}
+    out = model.forward_pose(batch, tid, num_obj_patches,
+                             dn_noise=noise.get("cdn"),
+                             topk_idx=choices.get("topk_idx"),
+                             group_idx=choices.get("group_idx"))
+    pose = out["pose"]
+    total, detail, matches = pose_loss_with_aux(
+        pose, batch["targets"], cfg=pcfg, matches=choices.get("matches"))
+    for lvl, (dl, db) in enumerate(zip(pose.get("dn_logits", ()),
+                                       pose.get("dn_boxes", ()))):
+        for k, v in dn_loss(dl, db, pose["dn_targets"], cfg=pcfg).items():
+            detail[f"{k}_l{lvl}"] = v
+            total = total + v
+    loss = out["lm_loss"] + total
+    metrics = {"loss": loss, "lm_loss": out["lm_loss"], "pose_loss": total}
+    metrics.update({k: v for k, v in detail.items() if "aux" not in k})
+    return loss, metrics, {"topk_idx": pose["topk_idx"],
+                           "group_idx": pose["group_idx"],
+                           "matches": matches}
+
+
+def draw_gen_noise(generator: torch.Generator, model: nn.Module,
+                   batch: Dict[str, object], edit: bool = False
+                   ) -> Dict[str, torch.Tensor]:
+    """Every random draw of one [GEN] (or, `edit`, [EDIT]) step: the
+    head's `draw_noise` on the batch's output images."""
+    head = model.ip2p if edit else model.sd
+    return head.draw_noise(generator, batch["output_images"])
+
+
+def gen_loss(model: nn.Module, batch: Dict[str, object],
+             tid: SpecialTokenIds, noise: Dict[str, torch.Tensor],
+             edit: bool = False
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                        Dict[str, object]]:
+    """The [GEN] / [EDIT] step's loss: LM cross entropy + the head's
+    epsilon-prediction loss (it makes no discrete choice)."""
+    if edit:
+        out = model.forward_edit(batch, tid, noise=noise)
+    else:
+        out = model.forward_gen(batch, tid, noise=noise)
+    head = out["ip2p" if edit else "sd"]
+    metrics = {"loss": out["loss"], "lm_loss": out["lm_loss"],
+               "image_loss": head["image_loss"]}
+    if "caption_loss" in head:
+        metrics["caption_loss"] = head["caption_loss"]
+    return out["loss"], metrics, {}
+
+
+def _make_step(model: nn.Module, tx: AdamW, frozen: Frozen, loss_fn,
+               draw):
+    """step(state, batch, generator=None, noise=None) -> (state, metrics)
+    from loss_fn(batch, noise) -> (loss, metrics, choices) and
+    draw(generator, batch) -> noise: the backward over the trainable
+    parameters, the AdamW update (`grad_norm` in the metrics) and the
+    masters written back. `frozen` must be the predicate the state was
+    created with."""
     split_frozen(model, frozen)
 
     def step(state: TrainState, batch, generator=None, noise=None):
         if noise is None:
-            noise = draw_step_noise(generator, model.cfg.gdino,
-                                    batch["targets"])
+            noise = draw(generator, batch)
         trainable = {n: p for n, p in model.named_parameters()
                      if n in state.masters}
         for p in trainable.values():
             p.grad = None
-        loss, metrics, _ = det_loss(model, batch, tid, noise)
+        loss, metrics, _ = loss_fn(batch, noise)
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in trainable.items()}
@@ -246,3 +328,39 @@ def make_det_train_step(model: nn.Module, tx: AdamW, tid: SpecialTokenIds,
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def make_det_train_step(model: nn.Module, tx: AdamW, tid: SpecialTokenIds,
+                        frozen: Frozen = None):
+    """Returns step(state, batch, generator=None, noise=None) ->
+    (state, metrics) for det / grd / seg batches. The draws come from
+    `generator` unless `noise` (`draw_step_noise`'s layout) is given.
+    `frozen` must be the predicate the state was created with."""
+    return _make_step(
+        model, tx, frozen,
+        lambda batch, noise: det_loss(model, batch, tid, noise),
+        lambda g, batch: draw_step_noise(g, model.cfg.gdino,
+                                         batch["targets"]))
+
+
+def make_pose_train_step(model: nn.Module, tx: AdamW, tid: SpecialTokenIds,
+                         num_obj_patches: int, frozen: Frozen = None):
+    """The pose group's step (`pose_loss`; the draws of
+    `draw_pose_noise`); `num_obj_patches` splits the [EMB] text queries
+    into object and keypoint queries."""
+    return _make_step(
+        model, tx, frozen,
+        lambda batch, noise: pose_loss(model, batch, tid, num_obj_patches,
+                                       noise),
+        lambda g, batch: draw_pose_noise(g, model.cfg.unipose,
+                                         batch["targets"]))
+
+
+def make_gen_train_step(model: nn.Module, tx: AdamW, tid: SpecialTokenIds,
+                        edit: bool = False, frozen: Frozen = None):
+    """The [GEN] (or, `edit`, [EDIT]) group's step (`gen_loss`; the draws
+    of `draw_gen_noise`)."""
+    return _make_step(
+        model, tx, frozen,
+        lambda batch, noise: gen_loss(model, batch, tid, noise, edit),
+        lambda g, batch: draw_gen_noise(g, model, batch, edit))

@@ -62,12 +62,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None
                        ) -> Dict[str, Any]:
-    """The state dict of `step` (the latest when None), on the CPU."""
+    """The state dict of `step` (the latest when None), on the CPU, its
+    tensors mapped from the file (read as they are copied, not first
+    loaded whole: a checkpoint of the 7B flagship's tools is 12.7 GB)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     return torch.load(os.path.join(ckpt_dir, str(step), STATE_FILE),
-                      map_location="cpu", weights_only=True)
+                      map_location="cpu", weights_only=True, mmap=True)
 
 
 def _to_cpu(x: Any) -> Any:
