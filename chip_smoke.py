@@ -5,8 +5,10 @@
     python3 chip_smoke.py --kernels flash_bwd,msda_bwd   # checks alone
     python3 chip_smoke.py --phase flagship               # one model phase
     python3 chip_smoke.py --phase eval                   # the eval path
+    python3 chip_smoke.py --phase train                  # the det step
     python3 chip_smoke.py --phase trainer                # Trainer.train
-    python3 chip_smoke.py --phase tooltrain              # four tool groups
+    python3 chip_smoke.py --phase tooltrain              # five tool groups
+    python3 chip_smoke.py --phase loratrain              # LLaMA-7B LoRA
 
 Phases, each printing one JSON line:
 
@@ -191,6 +193,12 @@ Phases, each printing one JSON line:
              frozen parameters bit-identical, and per step flash fwd 56,
              flash bwd 32, MSDA fwd 12, MSDA bwd 12 launches; step ms,
              peak memory, the loss trace;
+             Then the one step (same batch, draws and choices) with
+             `GDinoConfig.remat` "full" and then "dots": each loss term and
+             the gradient within TRAIN_REL_TOL of the step without remat
+             (no bitwise claim: the MSDA backward adds with atomics), MSDA
+             fwd 24 a step (each layer once more in the backward), flash
+             56 / 32 and MSDA bwd 12 as without, each mode's peak;
 15. train_profile - one more step under torch.profiler;
 15b. trainer - `Trainer.train` from files, after the train model is
              freed: the committed JPEG fixtures (`tests/data/jpeg/`, 7
@@ -237,7 +245,7 @@ Phases, each printing one JSON line:
              from the end of the step before (the loop's wait for the
              batch included): device ms and idle share with the prefetch
              loader (step 6) and with the synchronous loop (step 8);
-15d. tooltrain - `Trainer.train` of the whole 7B flagship over the four
+15d. tooltrain - `Trainer.train` of the whole 7B flagship over the five
              tool groups, after the trainer phase's model is freed:
              `build_model(vllm_7b_config())` in bf16 (both Swin-T patch
              biases drawn from a seed, as in the trainer phase), stage 1
@@ -246,34 +254,73 @@ Phases, each printing one JSON line:
              the JPEG fixtures with annotation files the phase writes:
              COCO det (boxes, polygons), COCO keypoints (17 an object in
              its box, visibilities drawn from KEYPOINT_SEED), captions
-             (text2img) and consecutive fixture pairs (ip2p); det and pose
-             at the 640 px bucket, [GEN] / [EDIT] at TOOL_GEN_SIZE px;
-             TOOL_BATCH, TOOL_WORKERS loader threads, TOOL_STEPS steps
-             whose sampler (seed TOOL_SEED) gives each group once in steps
-             1-4 and once in 5-8, a checkpoint at TOOL_SAVE_EVERY. Checks,
-             each failing the run: (a) for the first pose, [GEN] and
-             [EDIT] batch, one step's metrics and gradient norm with the
+             (text2img), consecutive fixture pairs (ip2p) and two-turn
+             llava conversations (chat, `llava_rows`); det and pose at the
+             640 px bucket, [GEN] / [EDIT] at TOOL_GEN_SIZE px, chat's
+             CLIP image padded to a square; TOOL_BATCH, TOOL_WORKERS
+             loader threads, TOOL_STEPS steps whose sampler (seed
+             TOOL_SEED) gives each group once in steps 1-5 and once in
+             6-10, a checkpoint at TOOL_SAVE_EVERY. Checks, each failing
+             the run: (a) for the first pose, [GEN], [EDIT] and chat
+             batch, one step's metrics and gradient norm with the
              kernels within TRAIN_REL_TOL of the plain versions (same
              draws and choices); (b) TOOL_REPEATS fresh Trainers on the
-             same model resume from the step-4 checkpoint (the first
+             same model resume from the step-5 checkpoint (the first
              one's live state equal to it bit for bit) to TOOL_STEPS: step
-             5's loss terms bit for bit, then each run's distance from
-             the straight run in the metrics of steps 5-8 and the final
+             6's loss terms bit for bit, then each run's distance from
+             the straight run in the metrics of steps 6-10 and the final
              masters and moments
              within RESUME_SPREAD_K_LOSS / _STATE times the largest
              distance between two resumed runs (the states compared by
              `state_sketch`); (c) launches per step and group (flash fwd
-             / bwd, MSDA fwd / bwd: det and pose 56 / 32 / 12 / 12, [GEN] 32 /
-             32 / 0 / 0, [EDIT] 56 / 32 / 0 / 0), the frozen parameters
+             / bwd, MSDA fwd / bwd: det and pose 56 / 32 / 12 / 12, [GEN]
+             32 / 32 / 0 / 0, [EDIT] and chat 56 / 32 / 0 / 0), the frozen
+             parameters
              bit-identical after all runs (64-bit digests), 90 % of the
              trainable masters moved; (d) `evaluate_pose` on the pose
              fixtures in test mode at B8 and B1 gives the same metrics,
              and the gt fed back as detections scores OKS mAP 1.0. Prints
              per group the step intervals (median), launches and peak,
              the checkpoint's bytes, save, load and restore seconds;
-15e. tooltrain_profile - each of steps 5-8 of the first resumed run (one
+15e. tooltrain_profile - each of steps 6-10 of the first resumed run (one
              a group) in a synced range of one profiler context: device
              ms, idle share and the port's kernels;
+15f. loratrain - LLaMA-7B's LoRA adapters, with nothing else resident:
+             `build_model(vllm_7b_chat_config(llm=LLMConfig(vocab_size=
+             32096, lora_r=32, lora_alpha=64.0)))` in bf16 (CLIP-ViT-L/336,
+             `mlp2x_gelu`, LLaMA-7B with `LoraLinear` q/k/v/o and
+             gate/up/down), the vision encoder and the LLM frozen (the
+             LoRA factors, the bridge and the [EMB] tables train), from
+             four-turn llava conversations over the JPEG fixtures (each
+             listed LORA_COPIES times) that pad every batch of LORA_BATCH
+             to L LORA_SEQ, LORA_WORKERS loader threads, the CLIP image
+             padded to a square. Checks, each failing the run: (a) the
+             first batch's chat step with the plain versions within
+             TRAIN_REL_TOL of the kernels' in loss and gradient norm
+             (both under remat "full"); (b) the same step under
+             `LLMConfig.remat` "", "full" and "dots" on the one model: the
+             loss bit for bit across the modes, every trainable gradient
+             within LORA_GRAD_REL_TOL of the no-remat run's, flash fwd 56
+             a step without remat and 88 with it, bwd 32; (c) the main
+             path: `Trainer.train` with
+             `grad_accum_steps` LORA_ACCUM under remat "full" for
+             LORA_MICRO_STEPS micro-steps: each micro-step that applies no
+             update leaves the masters and the parameters bit-identical
+             (held against copies on the card), the others move them,
+             LORA_MICRO_STEPS /
+             LORA_ACCUM applied steps at the end, flash 88 / 32 a
+             micro-step; a fresh Trainer resumes from the one checkpoint,
+             taken at micro-step LORA_SAVE_AT (mid-accumulation: its live
+             state equal to it bit for bit, the running mean included)
+             and finishes within LORA_RESUME_REL_TOL of the straight run
+             in masters, moments and metrics (bitwise reported); (d)
+             `merge_lora_params` into a `lora_r=0` model (assigned on the
+             meta device, no second draw) gives the LoRA model's logits
+             within TRAIN_REL_TOL (the base model's distance reported).
+             Prints each remat mode's peak and device ms (a synced range
+             of one profiler context), the main run's step intervals,
+             each resumed micro-step's device ms and idle share, the
+             checkpoint's bytes and save / load seconds;
 16. probes - the gather probes' entry point
              (`visionllm_tpu_torch/tools/msda_kernel_attempts.py`);
 17. gen     - the [GEN] and [EDIT] tools, after the train model is
@@ -286,7 +333,7 @@ Phases, each printing one JSON line:
              VAE at 512 px in [-1, 1]) each make their image GEN_WALL_RUNS
              times as a user does: greedy `build_generate_fn` with the
              first token forced, the 64 [EMB] rows, the head's `generate`
-             (50 DDIM steps, guidance 7.5, image guidance 1.5) from
+             (GEN_STEPS DDIM steps, guidance 7.5, image guidance 1.5) from
              generator seed GEN_SEED. Checks: the forced tokens, flash 0
              and 56 (24 CLIP + 32 LLaMA) launches a generate call, images
              [1, 512, 512, 3] finite and bit-identical across the runs, the
@@ -294,7 +341,7 @@ Phases, each printing one JSON line:
              plain flash run within GEN_REL_TOL (and the distance between
              the images of the two runs' rows). Then the generate call,
              mapper, UNet step (B 2 and B 3, with its FLOP bound and the
-             fp32 score bytes of the 64² attentions), 50-step loop, VAE
+             fp32 score bytes of the 64² attentions), GEN_STEPS loop, VAE
              encode and decode and whole image ms, the weights' and the
              peak memory;
 18. gen_profile - one [EDIT] image under torch.profiler;
@@ -337,7 +384,7 @@ Phases, each printing one JSON line:
              reference's masks, rows and logits; another box's rows
              REGION_SEPARATION times farther off than any of those errors
              or the kernel-vs-plain one. Then TTFT with and without the
-             regions (median of 5),
+             regions (median of FLAGSHIP_TIMED),
              the slot refill gap of a region admission (chunked and B1),
              the region encoder's FLOP and byte bound at R = 8, weights
              and peak memory;
@@ -545,9 +592,10 @@ from visionllm_tpu_torch.infer import (COCO_KEYPOINT_NAMES, Predictor,
                                        det_prompt, grd_prompt, pose_prompt,
                                        prompt_ids)
 from visionllm_tpu_torch.kernels import build, host_build
-from visionllm_tpu_torch.models.composite import (build_core, build_model,
-                                                  model_size)
+from visionllm_tpu_torch.models.composite import (_meta_model, build_core,
+                                                  build_model, model_size)
 from visionllm_tpu_torch.models.llama import KVCache
+from visionllm_tpu_torch.models.lora import merge_lora_params
 from visionllm_tpu_torch.models.stable_diffusion import unet as SDU
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
 from visionllm_tpu_torch.ops import attention as A
@@ -566,7 +614,8 @@ from visionllm_tpu_torch.train.cdn import cdn_groups
 from visionllm_tpu_torch.train.runner import (TrainConfig, Trainer,
                                               frozen_predicate, to_device)
 from visionllm_tpu_torch.train.train_step import (TrainState, build_optimizer,
-                                                  det_loss, draw_gen_noise,
+                                                  chat_loss, det_loss,
+                                                  draw_gen_noise,
                                                   draw_pose_noise,
                                                   draw_step_noise, gen_loss,
                                                   make_det_train_step,
@@ -583,7 +632,7 @@ INT8_TENSOR_OPS = 1979e12     # H100 SXM dense int8 tensor cores
 QUANT_COPIES = 3              # weight sets rotated in the int8 products
 DET_SIZE = 512
 N_REQUESTS = 3
-N_TIMED = 5
+N_TIMED = 3
 # kernel vs plain on the card, bf16 outputs: max |kernel - plain| must
 # stay within ATOL + RTOL * max |plain| (a few bf16 ulps of the outputs,
 # which both round from fp32 sums taken in another order)
@@ -628,20 +677,44 @@ RESUME_SPREAD_K_LOSS = 10.0
 RESUME_SPREAD_K_STATE = 3.0
 # steps after which each run's masters and moments are kept
 SNAP_STEPS = (TRAINER_SAVE_EVERY + 1, TRAINER_STEPS)
-# the tooltrain phase: the whole 7B flagship over the four tool groups
-TOOL_STEPS = 8
-TOOL_SAVE_EVERY = 4
-TOOL_REPEATS = 3              # resumed runs from the step-4 checkpoint
+# the tooltrain phase: the whole 7B flagship over the five tool groups
+TOOL_STEPS = 10
+TOOL_SAVE_EVERY = 5
+TOOL_REPEATS = 3              # resumed runs from the step-5 checkpoint
 TOOL_BATCH = 2
 TOOL_WORKERS = 4
-TOOL_SEED = 0                 # its sampler: one batch of each group in steps
-                              # 1-4 and again in steps 5-8
-TOOL_GROUPS = ("gdino", "unipose", "sd", "ip2p")
+TOOL_SEED = 26                # its sampler: one batch of each group in steps
+                              # 1-5 and again in steps 6-10
+TOOL_GROUPS = ("gdino", "unipose", "sd", "ip2p", "vlm")
 TOOL_GEN_SIZE = 512
 TOOL_BIASES = ("gdino.backbone.patch_embed.bias",
                "unipose.backbone.patch_embed.bias")
 TOOL_EVAL_TOPK = 20
 TOOL_GAP_S = 0.02             # a profiled step's synced range to other work
+# llava conversations over the JPEG fixtures: answers of words drawn from
+# CHAT_WORDS (numpy seed CHAT_SEED)
+CHAT_WORDS = ("the", "a", "picture", "shows", "red", "blue", "green",
+              "grey", "square", "round", "near", "left", "right", "above",
+              "below", "object", "bright", "dark", "small", "large", "and",
+              "with", "one", "two", "edge", "corner", "middle", "shape")
+CHAT_SEED = 5
+# the loratrain phase: LoRA r 32, alpha 64 on LLaMA-7B (the reference's
+# wrap_llm_lora), the vision encoder and the LLM frozen; llava
+# conversations of 4 turns (a 576-token image and about 1000 words: 1025
+# to 2048 tokens, so every batch pads to L 2048), each fixture listed 3
+# times (21 rows, 10 batches of 2); 8 micro-steps at k = 2 under remat
+# "full", one save at micro-step 3 (mid-accumulation); lr 2e-4 (LLaVA's
+# LoRA recipe)
+LORA_R, LORA_ALPHA = 32, 64.0
+LORA_BATCH, LORA_WORKERS, LORA_SEQ = 2, 4, 2048
+LORA_TURNS, LORA_ANSWER_WORDS, LORA_COPIES = 4, 240, 3
+LORA_MICRO_STEPS, LORA_ACCUM, LORA_SAVE_AT = 8, 2, 3
+LORA_LR = 2e-4
+LORA_SEED = 0
+# remat against no remat: the LoRA gradients, relative L2 a tensor; the
+# resumed run against the straight one: masters, moments, metrics
+LORA_GRAD_REL_TOL = 1e-3
+LORA_RESUME_REL_TOL = 1e-5
 SKETCH_BUCKETS = 1 << 22      # buckets of a state's sketch (4 Mi doubles)
 KEYPOINT_SEED = 23
 TRAINER_BIAS = "gdino.backbone.patch_embed.bias"
@@ -682,8 +755,8 @@ DET26B_WITNESS_RATIO = 2.0
 DET26B_PEAK_LIMIT = 80e9
 DET26B_HTTP_TASK = "pose"
 DET26B_GEN_RUNS = 2
-DET26B_CHAT_NEW = 16          # tokens a chat reply (the serve phase's 32 / 2)
-DET26B_GEN_STEPS = 20         # DDIM steps an image (the gen phase's 50)
+DET26B_CHAT_NEW = 8           # tokens a chat reply (the serve phase's 32 / 4)
+DET26B_GEN_STEPS = 8          # DDIM steps an image (the gen phase's 20)
 # the gen phase: the first question templates of the JAX gen datasets
 # (`visionllm_tpu/data/gen_dataset.py:23-40`) with a caption and an
 # instruction, vicuna_v1; DDIM steps and guidance at the JAX `generate`
@@ -695,10 +768,10 @@ GEN_QUESTION = ("Can you generate an image of a red bicycle leaning on a "
                 "stone wall?")
 EDIT_QUESTION = "Please edit the image: make it snow."
 GEN_IMAGE = (512, 512, 3)
-GEN_STEPS, GEN_GUIDANCE, GEN_IMAGE_GUIDANCE = 50, 7.5, 1.5
+GEN_STEPS, GEN_GUIDANCE, GEN_IMAGE_GUIDANCE = 20, 7.5, 1.5
 GEN_SEED = 0
 GEN_WALL_RUNS = 2
-GEN_TIMED = 5
+GEN_TIMED = 3
 GEN_MAX_LEN = 768
 GEN_REL_TOL = 5e-2
 # DCNv3 in InternImage-H at that image's 800x1088 bucket: each stage's
@@ -875,7 +948,10 @@ def attention_cases(g, more=False):
     specs = [("clip_l", 1, 577, 16, 16, 64, False, None),
              ("llama7b_prefill", 1, 586, 32, 32, 128, True, None),
              ("gqa_h32_kv8", 1, 586, 32, 8, 128, True, None),
-             ("segments", 2, 586, 32, 32, 128, True, seg)]
+             ("segments", 2, 586, 32, 32, 128, True, seg),
+             # the loratrain phase's LLaMA layers: B2 at L 2048
+             ("lora_train_b2_l2048", LORA_BATCH, LORA_SEQ, 32, 32, 128, True,
+              None)]
     if more:
         specs += [("chat_prefill_b4", SERVE_BATCH, SERVE_PROMPT, 32, 32, 128,
                    True, None),
@@ -2202,7 +2278,9 @@ def run_train():
     trainable = {n: p for n, p in model.named_parameters()
                  if n in state.masters}
     noise = draw_step_noise(g, cfg.gdino, batch["targets"])
+    torch.cuda.reset_peak_memory_stats()
     mk, gk, choices = loss_and_grad(model, batch, tid, noise, trainable)
+    peak_no_remat = torch.cuda.max_memory_allocated() / 1e9
     with plain_versions():
         mp, gp, _ = loss_and_grad(model, batch, tid, noise, trainable,
                                   choices)
@@ -2224,7 +2302,10 @@ def run_train():
                              f"{TRAIN_REL_TOL})")
     if not all(math.isfinite(v) for v in mk.values()):
         raise AssertionError(f"non-finite loss terms {mk}")
-    del gk, gp, gb
+    del gp, gb
+    remat = train_remat_steps(model, cfg, batch, tid, noise, trainable,
+                              choices, mk, gk, peak_no_remat)
+    del gk
 
     frozen_before = {n: p.detach().clone() for n, p in model.named_parameters()
                      if n not in state.masters}
@@ -2284,9 +2365,52 @@ def run_train():
           "step_ms_median_2_to_5": statistics.median(step_ms[1:]),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "loss_trace": [m["loss"] for m in losses], "last_step": losses[-1],
-          "kernel_step_terms": mk})
+          "kernel_step_terms": mk, "gdino_remat": remat})
     profile_train_step(step, state, batch, g)
     return launches
+
+
+def train_remat_steps(model, cfg, batch, tid, noise, trainable, choices, mk,
+                      gk, peak_no_remat):
+    """The det step with `GDinoConfig.remat` "full" and then "dots" (the
+    built model's Grounding-DINO switched), on the batch, draws and
+    discrete choices of the kernel step without remat (`mk`, `gk`): each
+    loss term and the trainable gradient within TRAIN_REL_TOL of it (the
+    MSDA backward adds with atomics: no bitwise claim), the launches a
+    step (the MSDA forward once more in every recomputed layer), and each
+    mode's peak memory beside the step without remat."""
+    per_step = train_launches_per_step(cfg)
+    msda = cfg.gdino.encoder_layers + cfg.gdino.decoder_layers
+    out = {"none": {"peak_gb": peak_no_remat}}
+    try:
+        for mode in ("full", "dots"):
+            model.gdino.cfg = dataclasses.replace(cfg.gdino, remat=mode)
+            c0 = train_counts()
+            torch.cuda.reset_peak_memory_stats()
+            m, gr, _ = loss_and_grad(model, batch, tid, noise, trainable,
+                                     choices)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            launches = tuple(b - a for a, b in zip(c0, train_counts()))
+            loss_rel = {k: abs(m[k] - mk[k]) / max(abs(mk[k]), 1e-12)
+                        for k in mk}
+            _, grad_rel = grad_groups(gr, gk)
+            want = (per_step[0], per_step[1], per_step[2] + msda,
+                    per_step[3])
+            out[mode] = {"peak_gb": peak, "loss_rel_err": max(
+                loss_rel.values()), "grad_rel_err": grad_rel,
+                "loss_terms_equal": m == mk,
+                "launches": dict(zip([n for n, _ in TRAIN_KERNELS],
+                                     launches))}
+            del gr
+            if not (launches == want
+                    and out[mode]["loss_rel_err"] <= TRAIN_REL_TOL
+                    and grad_rel <= TRAIN_REL_TOL):
+                raise AssertionError(f"det step with remat {mode!r}: "
+                                     f"{out[mode]}, launches want {want} "
+                                     f"(tol {TRAIN_REL_TOL})")
+    finally:
+        model.gdino.cfg = cfg.gdino
+    return out
 
 
 def profile_train_step(step, state, batch, g):
@@ -2548,15 +2672,18 @@ def timed_saves(trainer, seconds):
 
 def check_restored(trainer, state, ck):
     """The resumed Trainer's live state is the checkpoint's, bit for bit:
-    step, sampler position, generator, fp32 masters and both moments on
-    the card, and each trainable parameter its master rounded."""
+    step, the accumulation's micro-step and applied steps, sampler
+    position, generator, fp32 masters, both moments and the running mean
+    on the card, and each trainable parameter its master rounded."""
     params = dict(trainer.model.named_parameters())
-    bad = [f"{part}.{n}" for part in ("masters", "mu", "nu")
+    bad = [f"{part}.{n}" for part in ("masters", "mu", "nu", "acc")
            for n, t in getattr(state, part).items()
            if not torch.equal(t.cpu(), ck[part][n])]
     bad += [n for n, w in state.masters.items()
             if not torch.equal(params[n].detach(), w.to(params[n].dtype))]
     if (bad or state.step != ck["step"] or trainer.position != ck["position"]
+            or (state.mini_step, state.gradient_step)
+            != (ck["mini_step"], ck["gradient_step"])
             or not torch.equal(trainer.generator.get_state(),
                                ck["generator"])):
         raise AssertionError(f"restored state differs from the checkpoint: "
@@ -2816,7 +2943,7 @@ def run_trainer():
 
 
 # ---------------------------------------------------------------------------
-# phase: tooltrain - Trainer.train over the four tool groups of the whole
+# phase: tooltrain - Trainer.train over the five tool groups of the whole
 # 7B flagship
 # ---------------------------------------------------------------------------
 
@@ -2832,17 +2959,18 @@ def tool_launches_per_step(cfg):
     return {"gdino": (clip + llm, llm, det, det),
             "unipose": (clip + llm, llm, pose, pose),
             "sd": (llm, llm, 0, 0),         # text-only prompts: no CLIP
-            "ip2p": (clip + llm, llm, 0, 0)}
+            "ip2p": (clip + llm, llm, 0, 0),
+            "vlm": (clip + llm, llm, 0, 0)}
 
 
 def write_tool_annotations(manifest, root):
-    """The phase's four annotation files over the JPEG fixtures, each
+    """The phase's five annotation files over the JPEG fixtures, each
     fixture once: COCO detection (the drawn objects as boxes and
     polygons), COCO keypoints (17 an object, placed in its box, each
     visibility 0, 1 or 2 drawn from KEYPOINT_SEED, the first joint
-    visible, an invisible joint at (0, 0)), captions for text-to-image
-    and source -> target pairs of consecutive fixtures with an
-    instruction for editing."""
+    visible, an invisible joint at (0, 0)), captions for text-to-image,
+    source -> target pairs of consecutive fixtures with an instruction
+    for editing, and llava conversations (`llava_rows`, two turns)."""
     det, _, _ = write_trainer_annotations(manifest, root, copies=1)
     rng = np.random.default_rng(KEYPOINT_SEED)
     names = sorted(manifest["files"])
@@ -2877,7 +3005,8 @@ def write_tool_annotations(manifest, root):
                                "categories": [{"id": 1, "name": "person",
                                                "keypoints":
                                                COCO_KEYPOINT_NAMES}]}),
-                     ("t2i", t2i), ("ip2p", ip2p)):
+                     ("t2i", t2i), ("ip2p", ip2p),
+                     ("chat", llava_rows(manifest, turns=2))):
         paths[key] = os.path.join(root, f"tool_{key}.json")
         with open(paths[key], "w") as f:
             json.dump(obj, f)
@@ -2886,7 +3015,8 @@ def write_tool_annotations(manifest, root):
 
 def tool_dataset_cfgs(cfg, paths):
     """Det and pose at the 640 px bucket (targets padded to
-    TRAIN_TARGETS), [GEN] and [EDIT] images at TOOL_GEN_SIZE."""
+    TRAIN_TARGETS), [GEN] and [EDIT] images at TOOL_GEN_SIZE, chat with
+    the CLIP image padded to a square."""
     det_size = {"image_size": cfg.vis_encoder.image_size,
                 "img_prefix": JPEG_FIXTURES, "max_gt_per_img": TRAIN_TARGETS,
                 "train_scales": [(480, TRAIN_DET)],
@@ -2899,7 +3029,11 @@ def tool_dataset_cfgs(cfg, paths):
              "num_body_points": cfg.unipose.num_body_points, **det_size},
             {"type": "text2img", "ann_file": paths["t2i"], **gen},
             {"type": "ip2p", "ann_file": paths["ip2p"],
-             "image_size": cfg.vis_encoder.image_size, **gen}]
+             "image_size": cfg.vis_encoder.image_size, **gen},
+            {"type": "llava", "ann_file": paths["chat"],
+             "image_folder": JPEG_FIXTURES,
+             "image_size": cfg.vis_encoder.image_size,
+             "image_aspect_ratio": "pad"}]
 
 
 def tool_model(cfg):
@@ -2935,12 +3069,16 @@ def tool_config(out):
 def tool_loss(model, group, batch, tid, noise, choices=None):
     if group == "unipose":
         return pose_loss(model, batch, tid, 1, noise, choices)
+    if group == "vlm":
+        return chat_loss(model, batch, tid)
     return gen_loss(model, batch, tid, noise, edit=group == "ip2p")
 
 
 def tool_noise(model, group, batch, g):
     if group == "unipose":
         return draw_pose_noise(g, model.cfg.unipose, batch["targets"])
+    if group == "vlm":
+        return {}
     return draw_gen_noise(g, model, batch, edit=group == "ip2p")
 
 
@@ -2969,7 +3107,7 @@ def tool_first_steps(model, trainer, concat, batches, tid):
     TRAIN_REL_TOL."""
     trainable = split_frozen(model, trainer.frozen)
     out = {}
-    for group in ("unipose", "sd", "ip2p"):
+    for group in ("unipose", "sd", "ip2p", "vlm"):
         p = next(i for i, b in enumerate(batches)
                  if group_of_task(concat.task_of(b[0])) == group)
         workers, trainer.tc.num_workers = trainer.tc.num_workers, 0
@@ -3010,10 +3148,10 @@ def tensor_digest(t):
     return int((x * w).sum())
 
 
-def tool_instrument(trainer, rec, profiled=False):
+def tool_instrument(trainer, rec, profiled=False, prefix="tooltrain"):
     """Wrap the Trainer's step: launches of TRAIN_KERNELS and peak memory
     per step with its group; with `profiled`, each step in a synced
-    `record_function` range "tooltrain:<step>:<group>", TOOL_GAP_S apart
+    `record_function` range "<prefix>:<step>:<group>", TOOL_GAP_S apart
     from the loop's other work."""
     step_fn_for = trainer.step_fn_for
 
@@ -3027,7 +3165,7 @@ def tool_instrument(trainer, rec, profiled=False):
             if profiled:
                 torch.cuda.synchronize()
                 time.sleep(TOOL_GAP_S)
-                with record_function(f"tooltrain:{k}:{group}"):
+                with record_function(f"{prefix}:{k}:{group}"):
                     t = time.perf_counter()
                     out = fn(state, batch, **kw)
                     torch.cuda.synchronize()
@@ -3441,6 +3579,436 @@ def run_tooltrain():
 
 
 # ---------------------------------------------------------------------------
+# phase: loratrain - LLaMA-7B's LoRA adapters at L2048 through Trainer.train
+# ---------------------------------------------------------------------------
+
+def llava_rows(manifest, turns, answer_words=8, copies=1, seed=CHAT_SEED):
+    """llava conversations over the JPEG fixtures, each fixture listed
+    `copies` times: `turns` question / answer pairs, the first question
+    with the <image>, each answer `answer_words` words drawn from
+    CHAT_WORDS (numpy seed `seed`)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(copies):
+        for name in sorted(manifest["files"]):
+            cats = [o["category"] for o in manifest["files"][name]["objects"]]
+            conv = []
+            for t in range(turns):
+                q = (f"what does part {t} of the picture show about the "
+                     f"{cats[t % len(cats)]}?")
+                conv += [{"from": "human",
+                          "value": ("<image>\n" if t == 0 else "") + q},
+                         {"from": "gpt", "value": " ".join(
+                             rng.choice(CHAT_WORDS, answer_words))}]
+            rows.append({"image": name, "conversations": conv})
+    return rows
+
+
+def lora_config():
+    """`vllm_7b_chat_config` with LoRA r 32, alpha 64 on LLaMA-7B."""
+    return vllm_7b_chat_config(llm=LLMConfig(vocab_size=32096, lora_r=LORA_R,
+                                             lora_alpha=LORA_ALPHA))
+
+
+def lora_train_config(out):
+    return TrainConfig(output_dir=out, batch_size=LORA_BATCH,
+                       total_steps=LORA_MICRO_STEPS, log_every=1,
+                       save_every=LORA_SAVE_AT, seed=LORA_SEED,
+                       num_workers=LORA_WORKERS, freeze_llm=True,
+                       freeze_vis_encoder=True,
+                       optimizer=OptimizerConfig(
+                           learning_rate=LORA_LR, total_steps=1000,
+                           grad_accum_steps=LORA_ACCUM))
+
+
+def set_llm_remat(model, mode):
+    """Switch the built LLM's rematerialization (its forward reads it)."""
+    llm = model.core.llm
+    llm.cfg = dataclasses.replace(llm.cfg, remat=mode)
+
+
+def lora_launches_per_step(cfg, remat):
+    """(flash fwd, flash bwd) of one chat step: CLIP and LLaMA forward,
+    the LLaMA layers again in the backward under remat, the LLaMA
+    backward."""
+    llm = cfg.llm.num_layers
+    return (cfg.vis_encoder.num_layers + llm * (2 if remat else 1), llm)
+
+
+def chat_loss_and_grads(model, batch, tid, trainable):
+    """One chat step's loss and the trainable gradients in fp32 (no
+    update)."""
+    for p in trainable.values():
+        p.grad = None
+    loss, _, _ = chat_loss(model, batch, tid)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None
+                 else torch.zeros_like(p)).float()
+             for n, p in trainable.items()}
+    for p in trainable.values():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def grads_norm(grads):
+    return math.sqrt(sum(g.double().square().sum().item()
+                         for g in grads.values()))
+
+
+def lora_remat_modes(model, cfg, batch, tid, trainable):
+    """Check (b): the batch's chat step under remat "", "full" and "dots"
+    on the one model: the loss bit for bit across the modes, every
+    trainable gradient within LORA_GRAD_REL_TOL (relative L2 a tensor) of
+    the no-remat run (bitwise equality reported), the flash launches of
+    `lora_launches_per_step`; each mode's peak memory and device ms (its
+    step in a synced range of one profiler context)."""
+    out, losses, grads = {}, {}, {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        walls = {}
+        for mode in ("", "full", "dots"):
+            set_llm_remat(model, mode)
+            label = f"loratrain:remat:{mode or 'none'}"
+            A.flash_attention.launches = 0
+            A.flash_attention_bwd.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            time.sleep(TOOL_GAP_S)
+            with record_function(label):
+                t = time.perf_counter()
+                losses[mode], grads[mode] = chat_loss_and_grads(
+                    model, batch, tid, trainable)
+                torch.cuda.synchronize()
+                walls[label] = (time.perf_counter() - t) * 1e3
+            time.sleep(TOOL_GAP_S)
+            launches = (A.flash_attention.launches,
+                        A.flash_attention_bwd.launches)
+            if launches != lora_launches_per_step(cfg, mode):
+                raise AssertionError(
+                    f"loratrain remat {mode!r}: flash launches {launches}, "
+                    f"want {lora_launches_per_step(cfg, mode)}")
+            out[mode or "none"] = {
+                "loss": losses[mode].item(), "wall_ms": walls[label],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "flash_fwd": launches[0], "flash_bwd": launches[1]}
+    summaries = range_summaries(prof, walls, TOOL_GAP_S * 1e3 / 2)
+    for mode in ("", "full", "dots"):
+        key = mode or "none"
+        summ = summaries[f"loratrain:remat:{key}"]
+        out[key]["device_ms"] = summ["device_busy_ms"]
+        out[key]["device_idle_share"] = summ["device_idle_share"]
+        if mode:
+            rel = {n: rel_err(g, grads[""][n]) if grads[""][n].any()
+                   else float(g.abs().max())
+                   for n, g in grads[mode].items()}
+            out[key]["grad_rel_err_max"] = max(rel.values())
+            out[key]["grads_bitwise"] = all(
+                torch.equal(g, grads[""][n]) for n, g in grads[mode].items())
+            out[key]["loss_bitwise"] = torch.equal(losses[mode], losses[""])
+            if not (out[key]["loss_bitwise"]
+                    and out[key]["grad_rel_err_max"] <= LORA_GRAD_REL_TOL):
+                raise AssertionError(f"loratrain remat {mode!r} against "
+                                     f"none: {out[key]}")
+    del grads, prof
+    return out
+
+
+def lora_watch(trainer, rec):
+    """Wrap the (instrumented) step: copies of each micro-step's masters
+    and trainable parameters before it, compared after it on the card
+    (one sync), so check (c) can hold the ones that apply no update to
+    bit-identical."""
+    step_fn_for = trainer.step_fn_for
+
+    def changed(now, before):
+        return bool(torch.stack([(a != b).any()
+                                 for a, b in zip(now, before)]).any())
+
+    def wrapped_for(group):
+        fn = step_fn_for(group)
+
+        def step(state, batch, **kw):
+            params = dict(trainer.model.named_parameters())
+            names = list(state.masters)
+            masters = [state.masters[n].clone() for n in names]
+            weights = [params[n].detach().clone() for n in names]
+            out = fn(state, batch, **kw)
+            rec.append({"step": state.step,
+                        "gradient_step": state.gradient_step,
+                        "masters_same": not changed(
+                            [state.masters[n] for n in names], masters),
+                        "params_same": not changed(
+                            [params[n].detach() for n in names], weights)})
+            return out
+        return step
+
+    trainer.step_fn_for = wrapped_for
+
+
+def run_loratrain():
+    """The `loratrain` phase, with nothing else resident: LLaMA-7B's LoRA
+    adapters (and the bridge) trained through `Trainer.train` at L 2048;
+    returns the main run's flash launches."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    manifest = fixture_manifest()
+    cfg = lora_config()
+    tid = SpecialTokenIds.synthetic()
+    tok = HashedWordTokenizer()
+    sections = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = os.path.join(tmp, "lora_chat.json")
+        with open(ann, "w") as f:
+            json.dump(llava_rows(manifest, LORA_TURNS, LORA_ANSWER_WORDS,
+                                 copies=LORA_COPIES), f)
+        ds_cfgs = [{"type": "llava", "ann_file": ann,
+                    "image_folder": JPEG_FIXTURES,
+                    "image_size": cfg.vis_encoder.image_size,
+                    "image_aspect_ratio": "pad"}]
+        t = time.perf_counter()
+        model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        weights_gb = torch.cuda.memory_allocated() / 1e9
+        n_params = sum(p.numel() for p in model.parameters())
+        main_dir = os.path.join(tmp, "main")
+        main = Trainer(cfg, lora_train_config(main_dir), tid)
+        main.model = model
+        concat = build_multi_datasets(
+            [{"image_token_len": cfg.image_token_len, **c} for c in ds_cfgs],
+            tok)
+        batches = list(TaskGroupedBatchSampler(concat, LORA_BATCH,
+                                               seed=LORA_SEED))
+        workers, main.tc.num_workers = main.tc.num_workers, 0
+        it = iter(main.loader(concat, batches, 0))
+        _, host = next(it)
+        it.close()
+        main.tc.num_workers = workers
+        batch = to_device(host, "cuda", torch.bfloat16)
+        lengths = [len(concat[i]["input_ids"]) for i in range(len(concat))]
+        if tuple(batch["input_ids"].shape) != (LORA_BATCH, LORA_SEQ):
+            raise AssertionError(f"loratrain batch {batch['input_ids'].shape}"
+                                 f", sample lengths {sorted(set(lengths))}")
+        trainable = split_frozen(model, main.frozen)
+        n_lora = sum(p.numel() for n, p in trainable.items()
+                     if "lora_" in n)
+        n_train = sum(p.numel() for p in trainable.values())
+        # stage 2's freezing: the LoRA factors, the bridge and the [EMB]
+        # embeddings train (no chat batch reads the latter)
+        kinds = {k: sum(1 for n in trainable if k in n)
+                 for k in ("lora_", "core.vl_bridge.",
+                           "core.emb_embeddings")}
+        if sum(kinds.values()) != len(trainable):
+            raise AssertionError(f"loratrain trains {sorted(trainable)}")
+        sections["setup"] = time.perf_counter() - t_phase
+
+        # check (a): the first batch's step with the kernels and with the
+        # plain versions, under "full" (the plain attention's fp32 scores
+        # of 32 layers would not fit without remat); the first step also
+        # warms the card up for (b)'s timings
+        t = time.perf_counter()
+        set_llm_remat(model, "full")
+        loss_k, grads_k = chat_loss_and_grads(model, batch, tid, trainable)
+        with plain_versions():
+            loss_p, grads_p = chat_loss_and_grads(model, batch, tid,
+                                                  trainable)
+        norm_k, norm_p = grads_norm(grads_k), grads_norm(grads_p)
+        first = {"kernel": {"loss": loss_k.item(), "grad_norm": norm_k},
+                 "plain": {"loss": loss_p.item(), "grad_norm": norm_p}}
+        first["rel_err"] = {
+            "loss": abs(first["kernel"]["loss"] - first["plain"]["loss"])
+            / abs(first["plain"]["loss"]),
+            "grad_norm": abs(norm_k - norm_p) / norm_p}
+        if not (math.isfinite(norm_k)
+                and max(first["rel_err"].values()) <= TRAIN_REL_TOL):
+            raise AssertionError(f"loratrain kernel vs plain: {first} "
+                                 f"(tol {TRAIN_REL_TOL})")
+        del grads_k, grads_p
+        sections["first_step_plain"] = time.perf_counter() - t
+
+        # check (b): the batch under each remat mode
+        t = time.perf_counter()
+        remat = lora_remat_modes(model, cfg, batch, tid, trainable)
+        sections["remat_modes"] = time.perf_counter() - t
+
+        # check (c), the main path: LORA_MICRO_STEPS micro-steps at k =
+        # LORA_ACCUM under remat "full", one save at micro-step
+        # LORA_SAVE_AT, then a fresh Trainer resumes from it
+        set_llm_remat(model, "full")
+        rec, watch, saves = [], [], []
+        tool_instrument(main, rec, prefix="loratrain")
+        lora_watch(main, watch)
+        save = main.save
+
+        def save_once(state):
+            if state.step == LORA_SAVE_AT:
+                t0 = time.perf_counter()
+                save(state)
+                saves.append(time.perf_counter() - t0)
+        main.save = save_once
+        for _, fn in TRAIN_KERNELS:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state = main.train(ds_cfgs, tok)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in TRAIN_KERNELS[:2]}
+        peak_main = torch.cuda.max_memory_allocated() / 1e9
+        rows = read_metrics(main_dir)
+        per_step = lora_launches_per_step(cfg, "full")
+        bad = [r for r in rec if r["launches"] != (*per_step, 0, 0)]
+        odd = [w for w in watch if w["step"] % LORA_ACCUM]
+        if (state.step != LORA_MICRO_STEPS or len(rows) != LORA_MICRO_STEPS
+                or state.gradient_step != LORA_MICRO_STEPS // LORA_ACCUM
+                or bad or not all(math.isfinite(v) for r in rows
+                                  for v in r.values())
+                or not all(w["masters_same"] and w["params_same"]
+                           for w in odd)
+                or any(w["masters_same"] for w in watch
+                       if not w["step"] % LORA_ACCUM)):
+            raise AssertionError(f"loratrain main run: {state.step} "
+                                 f"micro-steps, {state.gradient_step} "
+                                 f"applied, launches {bad[:2]}, watch "
+                                 f"{watch}, rows {rows}")
+        intervals = tool_intervals(main, {LORA_SAVE_AT + 1: saves[0]})
+        final = {part: {n: t.clone() for n, t in getattr(state, part).items()}
+                 for part in ("masters", "mu", "nu")}
+        del state
+        t = time.perf_counter()
+        ck = restore_checkpoint(os.path.join(main_dir, "checkpoints"),
+                                LORA_SAVE_AT)
+        load_s = time.perf_counter() - t
+        ckpt_bytes = os.path.getsize(os.path.join(
+            main_dir, "checkpoints", str(LORA_SAVE_AT), "state.pt"))
+        if (ck["mini_step"], ck["gradient_step"]) != (
+                LORA_SAVE_AT % LORA_ACCUM, LORA_SAVE_AT // LORA_ACCUM):
+            raise AssertionError(f"loratrain checkpoint at micro-step "
+                                 f"{ck['step']}: mini_step "
+                                 f"{ck['mini_step']}, gradient_step "
+                                 f"{ck['gradient_step']}")
+
+        # the resumed run, its steps profiled
+        resumed = Trainer(cfg, lora_train_config(os.path.join(tmp, "res")),
+                          tid)
+        resumed.model = model
+        resumed.ckpt_dir = main.ckpt_dir
+        resumed.save = lambda state: None
+        rrec = []
+        tool_instrument(resumed, rrec, profiled=True, prefix="loratrain")
+        init_state = resumed.init_state
+
+        def checked_init():
+            st = init_state()
+            check_restored(resumed, st, ck)
+            return st
+        resumed.init_state = checked_init
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            rstate = resumed.train(ds_cfgs, tok)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t
+        del ck
+        rrows = read_metrics(os.path.join(tmp, "res"))
+        labels = {f"loratrain:{r['step']}:{r['group']}": r for r in rrec}
+        summaries = range_summaries(
+            prof, {k: r["wall_ms"] for k, r in labels.items()},
+            TOOL_GAP_S * 1e3 / 2)
+        del prof
+        resume_err = state_rel_err(
+            {part: getattr(rstate, part) for part in final}, final)
+        resume_bitwise = all(torch.equal(getattr(rstate, part)[n], t)
+                             for part in final
+                             for n, t in final[part].items())
+        metric_err = max(
+            abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+            for a, b in zip(rrows, rows[LORA_SAVE_AT:]) for k in b
+            if k not in ("time", "step"))
+        if (rstate.step != LORA_MICRO_STEPS
+                or rstate.gradient_step != LORA_MICRO_STEPS // LORA_ACCUM
+                or max(resume_err.values()) > LORA_RESUME_REL_TOL
+                or metric_err > LORA_RESUME_REL_TOL):
+            raise AssertionError(f"loratrain resume: {rstate.step} micro-"
+                                 f"steps, state err {resume_err}, metric "
+                                 f"err {metric_err}")
+        del final, rstate
+        sections["train_and_resume"] = time.perf_counter() - t_phase - sum(
+            sections.values())
+
+        # check (d): the adapters merged into a lora_r=0 model
+        t = time.perf_counter()
+        set_llm_remat(model, "")
+        state_dict = model.state_dict()
+        cfg0 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                                lora_r=0))
+        merged = _meta_model(cfg0, torch.bfloat16)
+        merged.load_state_dict(merge_lora_params(state_dict,
+                                                 cfg.llm.lora_alpha),
+                               assign=True)
+        base = _meta_model(cfg0, torch.bfloat16)
+        base.load_state_dict({n: v for n, v in state_dict.items()
+                              if "lora_" not in n}, assign=True)
+        with torch.no_grad():
+            lora_logits = model.forward_chat(batch, tid)["logits"]
+            merged_logits = merged.eval().forward_chat(batch, tid)["logits"]
+            merged_err = rel_err(merged_logits, lora_logits)
+            del merged_logits
+            base_err = rel_err(base.eval().forward_chat(batch, tid)["logits"],
+                               lora_logits)
+        del merged, base, state_dict, lora_logits
+        if not merged_err <= TRAIN_REL_TOL:
+            raise AssertionError(f"merged LoRA logits {merged_err} from the "
+                                 f"LoRA model's (tol {TRAIN_REL_TOL})")
+        sections["merge"] = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, main, resumed, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the main run's step intervals (the resumed run's steps are profiled
+    # and spaced by TOOL_GAP_S)
+    all_iv = [ms for _, ms in intervals]
+    prof_steps = {k: {"wall_ms": v["wall_ms"],
+                      "device_busy_ms": v["device_busy_ms"],
+                      "device_idle_share": v["device_idle_share"]}
+                  for k, v in summaries.items()}
+    emit({"phase": "loratrain",
+          "config": "vllm_7b_chat_config(llm=LLMConfig(vocab_size=32096, "
+                    f"lora_r={LORA_R}, lora_alpha={LORA_ALPHA}))",
+          "params": n_params, "weights_gb": weights_gb,
+          "trainable": n_train, "lora_values": n_lora,
+          "trainable_tensors": len(trainable), "trainable_kinds": kinds,
+          "batch_size": LORA_BATCH,
+          "seq_len": LORA_SEQ, "num_workers": LORA_WORKERS,
+          "sample_lengths": [min(lengths), max(lengths)],
+          "first_step_vs_plain": first, "rel_tol": TRAIN_REL_TOL,
+          "remat_modes": remat, "grad_rel_tol": LORA_GRAD_REL_TOL,
+          "micro_steps": LORA_MICRO_STEPS, "grad_accum_steps": LORA_ACCUM,
+          "launches_per_step": dict(zip(("flash_attn_fwd", "flash_attn_bwd"),
+                                        per_step)),
+          "launches": launches,
+          "odd_micro_steps_unchanged": len(odd),
+          "losses": [r["loss"] for r in rows],
+          "step_interval_ms": all_iv,
+          "step_interval_ms_median": statistics.median(all_iv),
+          "profiled_steps": prof_steps,
+          "device_idle_share_median": statistics.median(
+              v["device_idle_share"] for v in prof_steps.values()),
+          "resume": {"state_rel_err": resume_err, "bitwise": resume_bitwise,
+                     "metric_rel_err": metric_err,
+                     "tol": LORA_RESUME_REL_TOL},
+          "checkpoint_bytes": ckpt_bytes, "save_s": saves, "load_s": load_s,
+          "merge_vs_lora_logits_rel_err": merged_err,
+          "base_vs_lora_logits_rel_err": base_err,
+          "model_build_s": build_s, "train_s": train_s,
+          "resume_s": resume_s, "sections_s": sections,
+          "peak_mem_gb": {"main": peak_main, "phase": peak},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 16: the gather probes' entry point
 # ---------------------------------------------------------------------------
 
@@ -3784,8 +4352,8 @@ FLAGSHIP_NEW = 16
 FLAGSHIP_PROMPT = 640
 FLAGSHIP_CHUNK = 256
 FLAGSHIP_MAX_REGIONS = 8
-FLAGSHIP_TIMED = 5
-FLAGSHIP_GEN_STEPS = 20       # DDIM steps an image (the gen phase's 50)
+FLAGSHIP_TIMED = 3
+FLAGSHIP_GEN_STEPS = 8        # DDIM steps an image (the gen phase's 20)
 # another box's region rows must lie this many times farther from the
 # box's than rounding puts them (kernel vs plain, mode vs B1)
 REGION_SEPARATION = 10
@@ -7468,8 +8036,8 @@ def main(argv=None) -> int:
         f"{', '.join(KERNEL_CHECKS)}: the device and build phases, those "
         "checks, the nvidia-smi line, and no model phase and no ok line")
     parser.add_argument(
-        "--phase", choices=["gen", "flagship", "det26b", "eval", "trainer",
-                            "tooltrain"],
+        "--phase", choices=["train", "gen", "flagship", "det26b", "eval",
+                            "trainer", "tooltrain", "loratrain"],
         help="run this model phase "
         "alone with its profile "
         "(with the device and build phases and the nvidia-smi line; no "
@@ -7503,6 +8071,8 @@ def main(argv=None) -> int:
     if only or args.phase:
         for name in only:
             KERNEL_CHECKS[name](g)
+        if args.phase == "train":
+            run_train()
         if args.phase == "gen":
             run_gen()
         if args.phase == "flagship":
@@ -7515,6 +8085,8 @@ def main(argv=None) -> int:
             run_trainer()
         if args.phase == "tooltrain":
             run_tooltrain()
+        if args.phase == "loratrain":
+            run_loratrain()
         print(smi, flush=True)
         return 0
     attn_cases = check_attention(g)
@@ -7547,6 +8119,9 @@ def main(argv=None) -> int:
     tooltrain = run_tooltrain()
     gc.collect()
     torch.cuda.empty_cache()
+    loratrain = run_loratrain()
+    gc.collect()
+    torch.cuda.empty_cache()
     probe = run_probes()
     gen = run_gen()
     flagship = run_flagship()
@@ -7555,6 +8130,7 @@ def main(argv=None) -> int:
     # each path's counts were read around that path's run alone
     by_path = {"det": det, "perception": perception, "train": train,
                "trainer": trainer, "tooltrain": tooltrain,
+               "loratrain": loratrain,
                "probes": probe, "chat": chat, "slots": slots, "spec": spec,
                "quant": quant, "gen": gen, "flagship": flagship,
                "det26b": det26b, "eval": evaluation}

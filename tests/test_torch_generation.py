@@ -177,11 +177,14 @@ def test_generate_matches_jax(models, force_det):
 
 def test_port_config_rejects_modes_not_ported():
     """The int8 serving modes construct (int8 and w8a8 weights, the int8
-    KV cache); rematerialization is still not ported."""
+    KV cache), and so do both rematerialization modes (ported); a remat
+    mode JAX does not have raises."""
     for kw in (dict(quant="int8"), dict(quant="w8a8"),
                dict(kv_quant="int8")):
         cfg = LLMConfig(**kw)
         assert (cfg.quant, cfg.kv_quant) == (kw.get("quant", ""),
                                              kw.get("kv_quant", ""))
-    with pytest.raises(NotImplementedError):
-        LLMConfig(remat="full")
+    for mode in ("full", "dots"):
+        assert LLMConfig(remat=mode).remat == mode
+    with pytest.raises(ValueError, match="remat='offload'"):
+        LLMConfig(remat="offload")

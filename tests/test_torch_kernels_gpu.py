@@ -590,6 +590,74 @@ def test_backward_through_the_wrappers_reaches_every_input(cuda):
                 A.flash_attention_bwd.launches) == (f0 + 1, b0)
 
 
+def _grads_with_remat(mode, layer, inputs):
+    """Output and input gradients of `layer` run under
+    `remat_call(mode, ALL_DOTS, ...)`, and the flash and MSDA launches
+    (forward, backward) it made."""
+    from visionllm_tpu_torch.models.remat import ALL_DOTS, remat_call
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    c0 = (A.flash_attention.launches, A.flash_attention_bwd.launches,
+          M.ms_deform_attn.launches, M.ms_deform_attn_bwd.launches)
+    out = remat_call(mode, ALL_DOTS, layer, *leaves)
+    grads = torch.autograd.grad(out.float().square().sum(), leaves)
+    torch.cuda.synchronize()
+    c1 = (A.flash_attention.launches, A.flash_attention_bwd.launches,
+          M.ms_deform_attn.launches, M.ms_deform_attn_bwd.launches)
+    return out.detach(), grads, tuple(b - a for a, b in zip(c0, c1))
+
+
+@pytest.mark.parametrize("mode", ["full", "dots"])
+def test_flash_under_checkpoint_equals_the_kernels_without(cuda, mode):
+    """A projection, the flash kernel (causal, B2 L256, 8 heads of 64) and
+    a projection, rematerialized: the forward kernel runs again in the
+    backward (2 forward launches, 1 backward), and the output and every
+    gradient equal the run without remat bit for bit (both flash kernels
+    are deterministic)."""
+    rng = np.random.default_rng(31)
+    x = _bf16(rng, cuda, 2, 256, 512)
+    wq = 0.05 * _bf16(rng, cuda, 512, 3 * 512)
+    wo = 0.05 * _bf16(rng, cuda, 512, 512)
+
+    def layer(x, wq, wo):
+        q, k, v = (x @ wq).reshape(2, 256, 3, 8, 64).unbind(2)
+        return A.flash_attention(q, k, v, causal=True).reshape(
+            2, 256, 512) @ wo
+
+    out0, g0, n0 = _grads_with_remat("", layer, (x, wq, wo))
+    out1, g1, n1 = _grads_with_remat(mode, layer, (x, wq, wo))
+    assert (n0, n1) == ((1, 1, 0, 0), (2, 1, 0, 0))
+    assert torch.equal(out0, out1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["full", "dots"])
+def test_msda_under_checkpoint_matches_the_kernels_without(cuda, mode):
+    """A value projection and the MSDA kernel (the det encoder's levels,
+    Q 300), rematerialized: 2 forward launches and 1 backward; the output
+    bit for bit and the gradients within the kernel tolerance of the run
+    without remat (the backward adds grad_value with atomics)."""
+    rng = np.random.default_rng(32)
+    S = sum(h * w for h, w in SHAPES)
+    x = _bf16(rng, cuda, 1, S, 256)
+    wv = 0.05 * _bf16(rng, cuda, 256, 256)
+    loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (1, 300, 8, 4, 4, 2))
+                           .astype(np.float32)).to(cuda)
+    attw = torch.from_numpy(rng.random((1, 300, 8, 4, 4)).astype(np.float32)
+                            ).to(cuda)
+
+    def layer(x, wv, loc, attw):
+        return M.ms_deform_attn((x @ wv).reshape(1, S, 8, 32), SHAPES, loc,
+                                attw)
+
+    out0, g0, n0 = _grads_with_remat("", layer, (x, wv, loc, attw))
+    out1, g1, n1 = _grads_with_remat(mode, layer, (x, wv, loc, attw))
+    assert (n0, n1) == ((0, 0, 1, 1), (0, 0, 2, 1))
+    assert torch.equal(out0, out1)
+    for a, b in zip(g0, g1):
+        _close(b, a)
+
+
 def test_int4_raises_under_grad(cuda):
     rng = np.random.default_rng(3)
     wp, scale = _int4_weights(rng, cuda, 512, 64)

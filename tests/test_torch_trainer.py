@@ -531,11 +531,16 @@ def test_non_finite_step_raises_before_logging_or_saving(coco_dir, tmp_path):
 
 @pytest.mark.parametrize("task,item", [("chat", "A.7")])
 def test_other_groups_raise_naming_their_roadmap_item(tmp_path, task, item):
+    """No tool group raises any more: the chat group's item (A.7) is
+    ported, so its task gets the chat train step."""
+    import visionllm_tpu_torch.train.runner as trunner
+    assert item not in trunner.NOT_PORTED.values() and not trunner.NOT_PORTED
     tc = TrainConfig(output_dir=str(tmp_path))
     trainer = Trainer(tiny_test_config(), tc, SpecialTokenIds.synthetic(),
                       device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        trainer.step_fn_for(tbuild.group_of_task(task))
+    trainer.init_state()
+    step = trainer.step_fn_for(tbuild.group_of_task(task))
+    assert trainer.step_fn_for("vlm") is step
 
 
 def test_tensor_parallel_raises_naming_a8(tmp_path):

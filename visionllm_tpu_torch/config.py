@@ -1,12 +1,14 @@
 """Config dataclasses of the det, perception, chat, generation, region
-and det-training paths (own copies of the JAX package's
+and training paths (own copies of the JAX package's
 `VisionEncoderConfig`, `LLMConfig`, `GDinoConfig`, `UniPoseConfig`,
 `SDConfig`, `IP2PConfig`, `RegionEncoderConfig`, `VisionLLMConfig`,
 `tiny_test_config` and, from `visionllm_tpu/train/train_step.py`,
 `OptimizerConfig`, cut to the fields this port reads; defaults and the
 tiny dims are the same), and the flagship configs of the paths ported:
 the whole 7B flagship (`vllm_7b_config`), its det, perception, chat and
-generation cuts, and the 26B det config."""
+generation cuts, and the 26B det config. LoRA (`LLMConfig.lora_r`),
+rematerialization (`LLMConfig.remat`, `GDinoConfig.remat`) and gradient
+accumulation (`OptimizerConfig.grad_accum_steps`) are ported."""
 
 from __future__ import annotations
 
@@ -14,10 +16,13 @@ from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Tuple
 
 
-def _no_remat(owner: str, remat: str) -> None:
-    if remat:
-        raise NotImplementedError(f"{owner}.remat={remat!r}: "
-                                  "rematerialization is not ported")
+REMAT_MODES = ("", "dots", "full")
+
+
+def _check_remat(owner: str, remat: str) -> None:
+    if remat not in REMAT_MODES:
+        raise ValueError(f"{owner}.remat={remat!r}: one of '', 'dots', "
+                         "'full'")
 
 
 @dataclass(frozen=True)
@@ -67,6 +72,11 @@ class LLMConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     max_position_embeddings: int = 4096
+    # LoRA on the seven projections of every layer (q/k/v/o, gate/up/
+    # down; `models/lora.py`): rank 0 is off; the reference's r 32 and
+    # alpha 64. It takes priority over `quant` in the layers
+    lora_r: int = 0
+    lora_alpha: float = 64.0
     # serving-only weight storage: "" (model dtype) | "int8" (w8a16,
     # per-channel scales) | "w8a8" (int8 weights and dynamic int8
     # activations, ops/quant.py) | "int4" (w4a16 group-128 packed
@@ -75,11 +85,13 @@ class LLMConfig:
     # serving-only KV-cache storage: "" (model dtype) | "int8" (int8 K/V
     # with per-(token, head) bf16 scales)
     kv_quant: str = ""
-    # training-time rematerialization: only "" (store all activations)
+    # training-time rematerialization of each decoder layer: "" (store
+    # all activations) | "dots" (save the outputs of the 2-D products,
+    # recompute the rest) | "full" (recompute the layer in the backward)
     remat: str = ""
 
     def __post_init__(self):
-        _no_remat("LLMConfig", self.remat)
+        _check_remat("LLMConfig", self.remat)
         if self.arch not in ("llama", "internlm2"):
             raise NotImplementedError(f"LLM {self.arch!r}")
         if self.quant not in ("", "int8", "w8a8", "int4"):
@@ -134,11 +146,13 @@ class GDinoConfig:
     num_mask_points: int = 12544
     oversample_ratio: float = 3.0
     importance_sample_ratio: float = 0.75
-    # training-time rematerialization: only "" (store all activations)
+    # rematerialization of each encoder and decoder layer: "" (store all
+    # activations) | "dots" (save the outputs of every product, batched
+    # ones too) | "full" (recompute the layer in the backward)
     remat: str = ""
 
     def __post_init__(self):
-        _no_remat("GDinoConfig", self.remat)
+        _check_remat("GDinoConfig", self.remat)
 
 
 @dataclass(frozen=True)
@@ -457,12 +471,14 @@ class OptimizerConfig:
     warmup_steps: int = 0
     total_steps: int = 10_000
     schedule: str = "cosine"          # "cosine" | "constant"
-    grad_accum_steps: int = 1         # only 1: accumulation is not ported
+    # micro-batches per optimizer step: the running mean of their
+    # gradients is applied once every k (optax.MultiSteps)
+    grad_accum_steps: int = 1
 
     def __post_init__(self):
-        if self.grad_accum_steps != 1:
-            raise NotImplementedError(
+        if self.grad_accum_steps < 1:
+            raise ValueError(
                 f"OptimizerConfig.grad_accum_steps={self.grad_accum_steps}: "
-                "gradient accumulation is not ported")
+                "at least 1")
         if self.schedule not in ("cosine", "constant"):
             raise ValueError(f"unknown schedule {self.schedule!r}")

@@ -113,6 +113,7 @@ _PARAM_INIT = {
     "ls1": ("const", 0.1),            # InternViT layer scale
     "ls2": ("const", 0.1),
     "mapper_queries": ("normal", 1.0),   # the LLM2SD mapper's queries
+    "lora_b": ("const", 0.0),         # a fresh LoRA adapter adds nothing
 }
 
 
@@ -121,7 +122,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init of every parameter, in `named_parameters`
     order: norms to (1, 0), Linear/Conv weights lecun-normal (flax's
     default, std 1/sqrt(fan_in)) with zero bias, embeddings and plain
-    parameters as their flax initializers."""
+    parameters (a `LoraLinear`'s factors too) as their flax
+    initializers."""
     for mod in module.modules():
         own = dict(mod.named_parameters(recurse=False))
         if not own:
@@ -137,7 +139,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
             if own.get("bias") is not None:
                 own["bias"].zero_()
-            continue
+            own = {n: p for n, p in own.items() if n not in ("weight", "bias")}
         for name, p in own.items():
             kind, val = _PARAM_INIT.get(name, ("normal", 0.02))
             if kind == "const":

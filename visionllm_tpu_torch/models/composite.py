@@ -2,8 +2,8 @@
 config turns it on) + Grounding-DINO + UniPose + the [GEN] and [EDIT]
 heads in one module tree, with the det-VQA inference entry `infer_det`
 (region prompts through `regions`), the pose inference entry
-`infer_pose` and the training forwards `forward_det`, `forward_pose`,
-`forward_gen` and `forward_edit` (counterpart of
+`infer_pose` and the training forwards `forward_chat`, `forward_det`,
+`forward_pose`, `forward_gen` and `forward_edit` (counterpart of
 `visionllm_tpu/models/composite.py:39-155`, `:156-180`). The heads'
 inference entries are their own `generate` methods (`model.sd`,
 `model.ip2p`).
@@ -44,15 +44,12 @@ from visionllm_tpu_torch.train.losses import lm_cross_entropy
 class VisionLLMWithTools(nn.Module):
     """The core with the tools `cfg` turns on: `gdino` (`use_gdino`) for
     det, grounding and segmentation, `unipose` (`use_unipose`) for pose,
-    `sd` (`use_sd`) for [GEN] and `ip2p` (`use_ip2p`) for [EDIT]. An
-    entry point raises when its tool is missing."""
+    `sd` (`use_sd`) for [GEN] and `ip2p` (`use_ip2p`) for [EDIT]; with
+    none it trains the chat group alone (`forward_chat`), as the JAX
+    composite does. An entry point raises when its tool is missing."""
 
     def __init__(self, cfg: VisionLLMConfig):
         super().__init__()
-        if not (cfg.use_gdino or cfg.use_unipose or cfg.use_sd
-                or cfg.use_ip2p):
-            raise ValueError("the composite needs a tool: use_gdino, "
-                             "use_unipose, use_sd or use_ip2p=True")
         self.cfg = cfg
         self.core = VisionLLM(cfg)
         self.gdino = GroundingDino(cfg.gdino) if cfg.use_gdino else None
@@ -115,6 +112,17 @@ class VisionLLMWithTools(nn.Module):
         return unipose(images_aug, tq[:, :n], tq_mask[:, :n], tq[:, n:],
                        tq_mask[:, n:], pixel_mask=pixel_mask)
 
+    def forward_chat(self, batch: Dict[str, torch.Tensor],
+                     tid: SpecialTokenIds) -> Dict[str, torch.Tensor]:
+        """The chat group's training forward (chat, VQA, caption and region
+        batches): the LM cross entropy, times (1 - ignore_flag) (JAX
+        `composite.py:59-71`); `batch["regions"]` [B, R, H, W], when
+        given, feeds the region encoder at the <region> tokens.
+        Returns loss, lm_loss (the same), fp32 logits and ignore_flag."""
+        out, loss = self._lm(batch, tid, regions=batch.get("regions"))
+        return {"loss": loss, "lm_loss": loss, "logits": out["logits"],
+                "ignore_flag": out["ignore_flag"]}
+
     def forward_det(self, batch: Dict[str, torch.Tensor],
                     tid: SpecialTokenIds,
                     dn_noise: Optional[Dict[str, torch.Tensor]] = None,
@@ -141,12 +149,13 @@ class VisionLLMWithTools(nn.Module):
         return {"lm_loss": lm_loss, "det": det,
                 "ignore_flag": out["ignore_flag"]}
 
-    def _lm(self, batch: Dict[str, torch.Tensor], tid: SpecialTokenIds
+    def _lm(self, batch: Dict[str, torch.Tensor], tid: SpecialTokenIds,
+            regions: Optional[torch.Tensor] = None
             ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """The core's prefill over the batch and its LM loss, zeroed by
         the core's ignore_flag."""
         out = self.core(batch["input_ids"], batch.get("images"), tid,
-                        attn_mask=batch.get("attn_mask"))
+                        attn_mask=batch.get("attn_mask"), regions=regions)
         lm_loss = (lm_cross_entropy(out["logits"], batch["labels"])
                    * (1.0 - out["ignore_flag"]))
         return out, lm_loss

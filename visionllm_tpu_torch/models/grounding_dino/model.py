@@ -13,6 +13,12 @@ decoder self-attention is masked between their groups, and the dn slice
 is split off the outputs (JAX `model.py:299-487`). Masks are computed for
 the matching queries only: the losses read no dn mask. The two-stage
 intermediate mask, which no loss reads, is not computed.
+
+`cfg.remat` ("dots" or "full") runs each encoder and decoder layer under
+`models/remat.remat_call` while autograd records (JAX `nn.remat` of the
+layer classes, `model.py:198-206`): "dots" saves every product's output,
+batched ones too (`checkpoint_dots`), "full" recomputes the layer; the
+MSDA kernel runs again in the backward either way.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from visionllm_tpu_torch.models.grounding_dino.layers import (
     FusionLayer, TextEnhancerLayer, TorchMHA, encoder_reference_points,
     get_sine_pos_embed, sine_position_embedding)
 from visionllm_tpu_torch.models.backbone import build_backbone
+from visionllm_tpu_torch.models.remat import ALL_DOTS, remat_call
 from visionllm_tpu_torch.ops.box_ops import inverse_sigmoid
 from visionllm_tpu_torch.train.cdn import build_cdn_queries
 
@@ -316,7 +323,8 @@ class GroundingDino(nn.Module):
         vision, text = src_flat, tq
         vision_pad, text_pad = ~mask_flat, ~text_token_mask
         for i in range(cfg.encoder_layers):
-            vision, text = getattr(self, f"encoder_layer_{i}")(
+            vision, text = remat_call(
+                cfg.remat, ALL_DOTS, getattr(self, f"encoder_layer_{i}"),
                 vision, text, vision_pos=pos_flat,
                 spatial_shapes=spatial_shapes, reference_points=ref_pts,
                 vision_pad_mask=vision_pad, text_pad_mask=text_pad,
@@ -364,7 +372,8 @@ class GroundingDino(nn.Module):
                                             temperature=10000,
                                             exchange_xy=True)
             query_pos = self.reference_points_head(query_sine.to(dt))
-            hidden = getattr(self, f"decoder_layer_{i}")(
+            hidden = remat_call(
+                cfg.remat, ALL_DOTS, getattr(self, f"decoder_layer_{i}"),
                 hidden, query_pos=query_pos, reference_points=ref_input,
                 spatial_shapes=spatial_shapes, vision=vision,
                 vision_valid_mask=mask_flat, text=text,

@@ -1,7 +1,7 @@
 """LLaMA-family causal decoder with a KV cache (counterpart of
-`visionllm_tpu/models/llama.py` without LoRA). The layer stack is a
-ModuleList `layers` run by a Python loop (the flax tree stacks it on
-axis 0 under `layers/layer`).
+`visionllm_tpu/models/llama.py`). The layer stack is a ModuleList
+`layers` run by a Python loop (the flax tree stacks it on axis 0 under
+`layers/layer`).
 
 * `cache=None` runs causal attention over the sequence. With a `KVCache`,
   L > 1 is a prefill that writes the cache window [index, index + L) and
@@ -32,6 +32,14 @@ axis 0 under `layers/layer`).
 * `quant` makes every projection and `lm_head` an `Int8Linear` ("int8"),
   an `Int8ActLinear` ("w8a8") or an `Int4Linear` ("int4";
   `llama.py:87-98`, `:237-248`).
+* `lora_r > 0` makes the seven projections of every layer `LoraLinear`s
+  (`models/lora.py`), ahead of `quant` as in JAX (`llama.py:82-95`);
+  `lm_head` stays as `quant` makes it.
+* `remat` ("dots" or "full") runs each layer under
+  `models/remat.remat_call` while autograd records and no cache is
+  passed (JAX `nn.remat` of the scanned layer, `llama.py:219-225`):
+  "dots" saves the 2-D products' outputs (`dots_with_no_batch_dims_
+  saveable`), "full" recomputes the layer.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ import torch.nn.functional as F
 
 from visionllm_tpu_torch.config import LLMConfig
 from visionllm_tpu_torch.models.common import RMSNorm, apply_rope, rope_cos_sin
+from visionllm_tpu_torch.models.lora import LoraLinear
+from visionllm_tpu_torch.models.remat import NO_BATCH_DOTS, remat_call
 from visionllm_tpu_torch.ops.attention import multi_head_attention
 from visionllm_tpu_torch.ops.quant import (Int8ActLinear, Int8Linear,
                                            int8_kv_attention, quantize_kv)
@@ -121,7 +131,10 @@ _QUANT_LINEAR = {"int8": Int8Linear, "w8a8": Int8ActLinear,
                  "int4": Int4Linear}
 
 
-def _dense(cfg: LLMConfig, fin: int, fout: int) -> nn.Module:
+def _dense(cfg: LLMConfig, fin: int, fout: int, lora: bool = False
+           ) -> nn.Module:
+    if lora and cfg.lora_r > 0:
+        return LoraLinear(fin, fout, cfg.lora_r, cfg.lora_alpha)
     if cfg.quant:
         return _QUANT_LINEAR[cfg.quant](fin, fout)
     return nn.Linear(fin, fout, bias=False)
@@ -133,14 +146,14 @@ class LlamaDecoderLayer(nn.Module):
         self.cfg = cfg
         hid, hd = cfg.hidden_size, cfg.head_dim
         self.input_layernorm = RMSNorm(hid, cfg.rms_norm_eps)
-        self.q_proj = _dense(cfg, hid, cfg.num_heads * hd)
-        self.k_proj = _dense(cfg, hid, cfg.num_kv_heads * hd)
-        self.v_proj = _dense(cfg, hid, cfg.num_kv_heads * hd)
-        self.o_proj = _dense(cfg, cfg.num_heads * hd, hid)
+        self.q_proj = _dense(cfg, hid, cfg.num_heads * hd, lora=True)
+        self.k_proj = _dense(cfg, hid, cfg.num_kv_heads * hd, lora=True)
+        self.v_proj = _dense(cfg, hid, cfg.num_kv_heads * hd, lora=True)
+        self.o_proj = _dense(cfg, cfg.num_heads * hd, hid, lora=True)
         self.post_attention_layernorm = RMSNorm(hid, cfg.rms_norm_eps)
-        self.gate_proj = _dense(cfg, hid, cfg.intermediate_size)
-        self.up_proj = _dense(cfg, hid, cfg.intermediate_size)
-        self.down_proj = _dense(cfg, cfg.intermediate_size, hid)
+        self.gate_proj = _dense(cfg, hid, cfg.intermediate_size, lora=True)
+        self.up_proj = _dense(cfg, hid, cfg.intermediate_size, lora=True)
+        self.down_proj = _dense(cfg, cfg.intermediate_size, hid, lora=True)
 
     def forward(self, hidden, cos, sin, segment_ids=None, bias=None,
                 k_cache=None, v_cache=None, cache_index=0, ks_cache=None,
@@ -224,7 +237,8 @@ class LlamaModel(nn.Module):
         hidden = inputs_embeds.to(dtype)
         for i, layer in enumerate(self.layers):
             if cache is None:
-                hidden = layer(hidden, cos, sin, seg, bias)
+                hidden = remat_call(cfg.remat, NO_BATCH_DOTS, layer, hidden,
+                                    cos, sin, seg, bias)
                 continue
             kc, vc, ks, vs = cache.layer(i)
             hidden = layer(hidden, cos, sin, seg, bias, kc, vc, cache.index,

@@ -34,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from visionllm_tpu_torch.models.lora import LoraLinear
 from visionllm_tpu_torch.ops.quant4 import _PROJ_NAMES, quantize_llm_int4
 
 INT_MM_MIN_ROWS = 17       # torch._int_mm on CUDA: M > 16
@@ -176,7 +177,8 @@ def int8_kv_attention(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
 def quantize_llm_int8(llm: nn.Module, act: bool = False) -> nn.Module:
     """Replace every `{q,k,v,o,gate,up,down}_proj` and `lm_head` Linear of
     a LlamaModel by an `Int8Linear` (`act=True`: an `Int8ActLinear`), in
-    place (counterpart of the JAX `quantize_llm_params`). One Linear at a
+    place (counterpart of the JAX `quantize_llm_params`); a `LoraLinear`
+    stays, as JAX builds LoRA layers whatever `quant` says. One Linear at a
     time is quantized and its weight freed, so the peak is the bf16 tree
     plus one layer. An int8 module of the other mode is re-wrapped over
     its buffers: one quantized tree serves both modes."""
@@ -185,6 +187,8 @@ def quantize_llm_int8(llm: nn.Module, act: bool = False) -> nn.Module:
         for name, child in list(parent.named_children()):
             if name not in _PROJ_NAMES:
                 continue
+            if isinstance(child, LoraLinear):
+                continue          # LoRA wins over quant, as in JAX
             if isinstance(child, nn.Linear):
                 if child.bias is not None:
                     raise ValueError(f"{name}: int8 quantization takes "

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from visionllm_tpu_torch.kernels.build import check, library
+from visionllm_tpu_torch.models.lora import LoraLinear
 
 GROUP = 128           # input rows per scale group (shrinks for tiny dims)
 # the plain version bounds its [rows, groups, N] fp32 partials to about
@@ -216,12 +217,14 @@ _PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
 def quantize_llm_int4(llm: nn.Module) -> nn.Module:
     """Replace every `{q,k,v,o,gate,up,down}_proj` and `lm_head` Linear of
     a LlamaModel by an Int4Linear, in place (counterpart of the JAX
-    `quantize_llm_params_int4` / `quantize_serving_params(bits=4)`). One
+    `quantize_llm_params_int4` / `quantize_serving_params(bits=4)`); a
+    `LoraLinear` stays, as JAX builds LoRA layers whatever `quant` says. One
     Linear at a time is packed and its weight freed, so a 7B never holds
     both copies of the tree."""
     for parent in list(llm.modules()):
         for name, child in list(parent.named_children()):
-            if name in _PROJ_NAMES and isinstance(child, nn.Linear):
+            if (name in _PROJ_NAMES and isinstance(child, nn.Linear)
+                    and not isinstance(child, LoraLinear)):
                 if child.bias is not None:
                     raise ValueError(f"{name}: int4 packing takes Linear "
                                      "without bias")

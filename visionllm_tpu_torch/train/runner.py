@@ -11,11 +11,18 @@ group's train step on the card (the CPU when `device="cpu"`), logging
 `metrics.jsonl` and saving a checkpoint every `save_every` steps and at
 the end.
 
-Ported: the `gdino` group (det, grd and seg tasks) through
-`make_det_train_step`, `unipose` (pose) through `make_pose_train_step`
-(with `tc.num_obj_patches`), `sd` ([GEN]) and `ip2p` ([EDIT]) through
-`make_gen_train_step`. The chat group raises naming its `ROADMAP.md`
-item (A.7), as does `n_model > 1` (tensor parallelism, A.8).
+Every tool group is ported: `vlm` (chat, VQA, caption and region
+tasks) through `make_chat_train_step`, `gdino` (det, grd and seg)
+through `make_det_train_step`, `unipose` (pose) through
+`make_pose_train_step` (with `tc.num_obj_patches`), `sd` ([GEN]) and
+`ip2p` ([EDIT]) through `make_gen_train_step`. `n_model > 1` (tensor
+parallelism) raises naming its `ROADMAP.md` item, A.8. LoRA
+(`LLMConfig.lora_r`; its factors are never frozen), rematerialization
+(`LLMConfig.remat`, `GDinoConfig.remat`) and gradient accumulation
+(`tc.optimizer.grad_accum_steps`) come with the configs. As in JAX,
+`step` counts micro-steps: `log_every`, `save_every`, `total_steps` and
+the checkpoint names count them, and a checkpoint taken mid-accumulation
+holds the running mean, so a resumed run finishes the accumulation.
 
 Resume differs from the JAX Trainer on purpose (`ROADMAP.md` §C.2): the
 JAX `train()` restarts the sampler from its first batch and its PRNG from
@@ -51,6 +58,7 @@ from visionllm_tpu_torch.models.composite import build_model
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
 from visionllm_tpu_torch.train.train_step import (TrainState,
                                                   build_optimizer,
+                                                  make_chat_train_step,
                                                   make_det_train_step,
                                                   make_gen_train_step,
                                                   make_pose_train_step)
@@ -58,8 +66,8 @@ from visionllm_tpu_torch.utils.checkpoint import (latest_step,
                                                   restore_checkpoint,
                                                   save_checkpoint)
 
-# tool group -> the ROADMAP item that ports its train step
-NOT_PORTED = {"vlm": "A.7"}
+# tool group -> the ROADMAP item that ports its train step (all ported)
+NOT_PORTED: Dict[str, str] = {}
 # batch keys of the image arrays, which go to the model's dtype
 IMAGE_KEYS = ("images", "images_aug", "input_images", "output_images")
 
@@ -189,7 +197,8 @@ class Trainer:
         """The model (`build_model` with seed `tc.seed`, unless
         `self.model` is set already), optimizer and state, and the step
         generator; the latest checkpoint under `output_dir` restores the
-        masters, moments, step, generator and sampler position."""
+        masters, moments, step, accumulation state, generator and
+        sampler position."""
         if self.model is None:
             self.model = build_model(self.cfg, device=self.device,
                                      dtype=self.dtype, seed=self.tc.seed)
@@ -204,11 +213,14 @@ class Trainer:
         return state
 
     def save(self, state: TrainState) -> str:
-        """Checkpoint the state, the generator and the sampler position
-        as `ckpt_dir/<step>/`."""
+        """Checkpoint the state (with the accumulation's micro-step,
+        applied steps and running mean), the generator and the sampler
+        position as `ckpt_dir/<step>/`."""
         return save_checkpoint(self.ckpt_dir, state.step, {
             "step": state.step, "masters": state.masters, "mu": state.mu,
-            "nu": state.nu, "generator": self.generator.get_state(),
+            "nu": state.nu, "mini_step": state.mini_step,
+            "gradient_step": state.gradient_step, "acc": state.acc,
+            "generator": self.generator.get_state(),
             "position": self.position, "seed": self.tc.seed})
 
     def _restore(self, state: TrainState, ck: Dict[str, Any]) -> None:
@@ -218,11 +230,16 @@ class Trainer:
         if set(ck["masters"]) != set(state.masters):
             raise ValueError("the checkpoint holds other trainable "
                              "parameters than this model")
+        if set(ck["acc"]) != set(state.acc):
+            raise ValueError("the checkpoint was taken at another "
+                             "grad_accum_steps")
         with torch.no_grad():
-            for part in ("masters", "mu", "nu"):
+            for part in ("masters", "mu", "nu", "acc"):
                 for n, t in getattr(state, part).items():
                     t.copy_(ck[part][n])
         state.step = int(ck["step"])
+        state.mini_step = int(ck["mini_step"])
+        state.gradient_step = int(ck["gradient_step"])
         state.write_back()
         self.generator.set_state(ck["generator"])
         self.position = int(ck["position"])
@@ -236,7 +253,9 @@ class Trainer:
                 f"(ROADMAP.md {NOT_PORTED[group]})")
         if group not in self._steps:
             args = (self.model, self.tx, self.tid)
-            if group == "gdino":
+            if group == "vlm":
+                fn = make_chat_train_step(*args, self.frozen)
+            elif group == "gdino":
                 fn = make_det_train_step(*args, self.frozen)
             elif group == "unipose":
                 fn = make_pose_train_step(*args, self.tc.num_obj_patches,

@@ -1,7 +1,7 @@
-"""Optimizer and the train steps of the det, pose, [GEN] and [EDIT] tool
-groups (counterpart of `visionllm_tpu/train/train_step.py`:
-`build_optimizer`, `split_frozen`, `TrainState`, `make_det_train_step`,
-`make_pose_train_step`, `make_gen_train_step`).
+"""Optimizer and the train steps of the chat, det, pose, [GEN] and [EDIT]
+tool groups (counterpart of `visionllm_tpu/train/train_step.py`:
+`build_optimizer`, `split_frozen`, `TrainState`, `make_chat_train_step`,
+`make_det_train_step`, `make_pose_train_step`, `make_gen_train_step`).
 
 Each step takes its random draws from the caller's `torch.Generator`
 (`draw_step_noise`, `draw_pose_noise`, `draw_gen_noise`) or as `noise=`,
@@ -26,6 +26,18 @@ root, decoupled weight decay on parameters with ndim >= 2, the warmup +
 cosine schedule and the group's lr multiplier. The arithmetic is
 elementwise on the card (PyTorch operations); it launches no kernel of
 this package.
+
+Gradient accumulation (`OptimizerConfig.grad_accum_steps` k > 1) is
+`optax.MultiSteps` as the JAX `build_optimizer` wraps the chain: each
+micro-step folds its gradient into an fp32 running mean, `acc + (g - acc)
+/ (mini_step + 1)` (optax's Welford update), and every k-th applies the
+chain to that mean (clipping sees the mean) and zeroes it. The other
+micro-steps leave the masters, the moments and the model's parameters
+as they are, bit for bit. The schedule and Adam's bias correction count
+applied steps (`TrainState.gradient_step`), `TrainState.step` counts
+micro-steps. Every step reports `grad_norm`: the global norm of the
+gradient the update sees, on a micro-step that does not apply the norm
+of the running mean so far.
 """
 
 from __future__ import annotations
@@ -83,6 +95,11 @@ def split_frozen(model: nn.Module, frozen: Frozen) -> Dict[str, nn.Parameter]:
     return trainable
 
 
+def _global_norm(tensors) -> torch.Tensor:
+    """optax's `global_norm` of a list of fp32 tensors."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
 class AdamW:
     """The JAX `build_optimizer` chain over named trainable parameters."""
 
@@ -114,13 +131,13 @@ class AdamW:
         b1, b2 = cfg.betas
         names = list(state.masters)
         g = [grads[n].float() for n in names]
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        g_norm = _global_norm(g)
         # clip_by_global_norm: t if norm < max else t / norm * max
         clip = torch.where(g_norm < cfg.max_grad_norm,
                            torch.ones_like(g_norm),
                            cfg.max_grad_norm / g_norm)
-        count = state.step + 1
-        lr = self.schedule(state.step)
+        count = state.gradient_step + 1
+        lr = self.schedule(state.gradient_step)
         c1, c2 = 1 - b1 ** count, 1 - b2 ** count
         for n, gi in zip(names, g):
             gi = gi * clip
@@ -144,14 +161,22 @@ def build_optimizer(cfg: OptimizerConfig, model: nn.Module,
 
 @dataclasses.dataclass
 class TrainState:
-    """Step count, the model, and the fp32 masters and Adam moments of its
-    trainable parameters (by dotted path)."""
+    """Step count (micro-steps), the model, and the fp32 masters and Adam
+    moments of its trainable parameters (by dotted path); `mini_step`,
+    micro-steps into the current accumulation, and `gradient_step`,
+    applied steps (Adam's count and the schedule's step; equal to `step`
+    when k is 1), as optax's `MultiStepsState` has them; and `acc`, the
+    fp32 running mean of the gradients (its `acc_grads`), empty when k is
+    1."""
 
     step: int
     model: nn.Module
     masters: Dict[str, torch.Tensor]
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    mini_step: int = 0
+    gradient_step: int = 0
+    acc: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def create(cls, model: nn.Module, tx: AdamW, frozen: Frozen = None
@@ -161,9 +186,12 @@ class TrainState:
             raise ValueError("the optimizer was built for other trainable "
                              "parameters")
         masters = {n: p.detach().float().clone() for n, p in trainable.items()}
-        return cls(step=0, model=model, masters=masters,
-                   mu={n: torch.zeros_like(w) for n, w in masters.items()},
-                   nu={n: torch.zeros_like(w) for n, w in masters.items()})
+
+        def zeros():
+            return {n: torch.zeros_like(w) for n, w in masters.items()}
+        return cls(step=0, model=model, masters=masters, mu=zeros(),
+                   nu=zeros(),
+                   acc=zeros() if tx.cfg.grad_accum_steps > 1 else {})
 
     @torch.no_grad()
     def write_back(self) -> None:
@@ -299,15 +327,28 @@ def gen_loss(model: nn.Module, batch: Dict[str, object],
     return out["loss"], metrics, {}
 
 
+@torch.no_grad()
+def accumulate(grads: Dict[str, torch.Tensor], state: TrainState
+               ) -> Dict[str, torch.Tensor]:
+    """Fold one micro-step's gradients into `state.acc`, optax
+    MultiSteps' running mean `acc + (g - acc) / (mini_step + 1)` in fp32;
+    returns the accumulator."""
+    for n, a in state.acc.items():
+        a.add_((grads[n].float() - a) / (state.mini_step + 1))
+    return state.acc
+
+
 def _make_step(model: nn.Module, tx: AdamW, frozen: Frozen, loss_fn,
                draw):
     """step(state, batch, generator=None, noise=None) -> (state, metrics)
     from loss_fn(batch, noise) -> (loss, metrics, choices) and
     draw(generator, batch) -> noise: the backward over the trainable
-    parameters, the AdamW update (`grad_norm` in the metrics) and the
-    masters written back. `frozen` must be the predicate the state was
-    created with."""
+    parameters, then (every `grad_accum_steps`-th micro-step, see the
+    module docstring) the AdamW update and the masters written back;
+    `grad_norm` in the metrics. `frozen` must be the predicate the state
+    was created with."""
     split_frozen(model, frozen)
+    every = tx.cfg.grad_accum_steps
 
     def step(state: TrainState, batch, generator=None, noise=None):
         if noise is None:
@@ -320,14 +361,44 @@ def _make_step(model: nn.Module, tx: AdamW, frozen: Frozen, loss_fn,
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in trainable.items()}
-        metrics["grad_norm"] = tx.update(grads, state)
+        if every > 1:
+            grads = accumulate(grads, state)
+        if state.mini_step == every - 1:
+            metrics["grad_norm"] = tx.update(grads, state)
+            state.gradient_step += 1
+            for a in state.acc.values():
+                a.zero_()
+            state.write_back()
+        else:
+            metrics["grad_norm"] = _global_norm(
+                [t.float() for t in grads.values()])
+        state.mini_step = (state.mini_step + 1) % every
         state.step += 1
-        state.write_back()
         for p in trainable.values():
             p.grad = None
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def chat_loss(model: nn.Module, batch: Dict[str, object],
+              tid: SpecialTokenIds
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                         Dict[str, object]]:
+    """The chat step's loss: the LM cross entropy of `forward_chat` (it
+    draws nothing and makes no discrete choice); the JAX step reports
+    `loss` alone."""
+    out = model.forward_chat(batch, tid)
+    return out["loss"], {"loss": out["loss"]}, {}
+
+
+def make_chat_train_step(model: nn.Module, tx: AdamW, tid: SpecialTokenIds,
+                         frozen: Frozen = None):
+    """The chat group's step (chat, VQA, caption and region batches;
+    `batch["regions"]` feeds the region encoder): `chat_loss`, no draws."""
+    return _make_step(model, tx, frozen,
+                      lambda batch, noise: chat_loss(model, batch, tid),
+                      lambda g, batch: {})
 
 
 def make_det_train_step(model: nn.Module, tx: AdamW, tid: SpecialTokenIds,

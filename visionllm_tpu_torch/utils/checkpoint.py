@@ -4,8 +4,10 @@
 A checkpoint is one directory a step under `ckpt_dir`, named by the step
 as orbax names them (`ckpt_dir/<step>/`), the last `max_to_keep` kept. It
 holds `state.pt`: a `torch.save` of a dict of tensors and plain values
-(the Trainer's fp32 masters, AdamW moments, step, generator state and
-sampler position), read back with `weights_only=True`. It is written to a
+(the Trainer's fp32 masters of the trainable parameters, LoRA factors
+included, AdamW moments, step, the gradient accumulation's micro-step,
+applied steps and fp32 running mean, generator state and sampler
+position), read back with `weights_only=True`. It is written to a
 temporary directory and renamed into place, so a reader never sees half
 a checkpoint. This is not orbax's format: a JAX checkpoint does not load
 here (the npz files below are the interchange).

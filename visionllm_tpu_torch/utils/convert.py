@@ -20,6 +20,9 @@ the flax ones, so the map is mechanical:
     like a Dense kernel (scanned stacks are sliced per layer first);
     `scale` [out] as it is (a tree of the JAX `quantize_serving_params`
     loads byte for byte)
+  * LoRA `LoraDense` `kernel`, `lora_a` [in, r], `lora_b` [r, out] ->
+    `LoraLinear` `weight` (transposed like a Dense kernel) and the two
+    factors in flax's layout, untransposed (`models/lora.py`)
   * every other leaf keeps its name: plain parameters (InternViT's
     `ls1` / `ls2`, class and position embeddings), and modules named by
     index or position (the `internvl_mlp` bridge's "0" / "1" / "3",
