@@ -451,8 +451,8 @@ def test_registry_builds_the_shipped_configs_types(coco_dir):
         [want.task_of(i) for i in range(len(want))]
     for i in range(len(want)):
         assert_same(got[i], want[i], f"item {i}")
-    with pytest.raises(KeyError, match="odinw_det"):
-        tbuild.build_dataset({"type": "odinw_det"}, tok)
+    with pytest.raises(KeyError, match="no_such_type"):
+        tbuild.build_dataset({"type": "no_such_type"}, tok)
 
 
 def test_load_eval_config_matches_jax():

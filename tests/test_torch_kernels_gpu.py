@@ -728,3 +728,74 @@ def test_row_gather_kernel_matches_plain(cuda, rpb, n):
     got = G.row_gather(table, idx, rpb)
     assert G.row_gather.launches == k + 1
     assert torch.equal(got, G.row_gather_plain(table, idx))
+
+
+# ---------------------------------------------------------------------------
+# the command line
+# ---------------------------------------------------------------------------
+
+def small_cli_config():
+    """The tiny config (region encoder on) widened so that attention takes
+    the flash kernel: 64-wide heads in CLIP and the LLM and a 168 px image
+    (145 vision tokens, prompts over 128). At `--tiny` itself no attention
+    qualifies (head dim 8, 17 vision tokens)."""
+    import dataclasses
+
+    from visionllm_tpu_torch.config import tiny_test_config
+    cfg = tiny_test_config(use_region_encoder=True)
+    r = dataclasses.replace
+    return r(cfg,
+             vis_encoder=r(cfg.vis_encoder, image_size=168, hidden_size=128,
+                           intermediate_size=256, num_heads=2),
+             llm=r(cfg.llm, hidden_size=128, intermediate_size=256,
+                   num_heads=2, num_kv_heads=2),
+             gdino=r(cfg.gdino, text_dim=128),
+             unipose=r(cfg.unipose, text_dim=128),
+             region_encoder=r(cfg.region_encoder, embed_dim=128,
+                              out_dim=128))
+
+
+def write_npy_coco(root):
+    """Two seeded .npy images (the card's machine has no Pillow) with two
+    polygon objects each, as a COCO instances file."""
+    import json
+    rng = np.random.default_rng(0)
+    images, anns = [], []
+    for i, (h, w) in enumerate(((64, 80), (72, 56))):
+        np.save(root / f"im{i}.npy", rng.integers(0, 256, (h, w, 3),
+                                                  dtype=np.uint8))
+        images.append({"id": i, "file_name": f"im{i}.npy", "height": h,
+                       "width": w})
+        for j, (x, y, bw, bh) in enumerate(((4, 5, 20, 16), (30, 22, 18,
+                                                               24))):
+            anns.append({"id": 10 * i + j, "image_id": i,
+                         "category_id": 1 + j, "bbox": [x, y, bw, bh],
+                         "area": bw * bh, "iscrowd": 0,
+                         "segmentation": [[x, y, x + bw, y, x + bw, y + bh,
+                                           x, y + bh]]})
+    path = root / "instances.json"
+    path.write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": 1, "name": "cat"}, {"id": 2, "name": "dog"}]}))
+    return str(path)
+
+
+def test_cli_eval_interactive_launches_the_kernels(cuda, tmp_path, capsys):
+    """`cli.main(["eval-interactive", ...])` on the card (its default
+    device) in bf16 on a small model config: one JSON line with
+    `region_acc@0.5`, and the flash and MSDA kernels launched."""
+    import json
+
+    from visionllm_tpu_torch import cli
+    (tmp_path / "cfg.json").write_text(small_cli_config().to_json())
+    ann = write_npy_coco(tmp_path)
+    f0, m0 = A.flash_attention.launches, M.ms_deform_attn.launches
+    cli.main(["eval-interactive", "--model-config",
+              str(tmp_path / "cfg.json"), "--ann", ann, "--imgs",
+              str(tmp_path), "--limit", "2"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) == {"region_acc@0.5"}
+    assert 0.0 <= out["region_acc@0.5"] <= 1.0
+    assert A.flash_attention.launches - f0 > 0
+    assert M.ms_deform_attn.launches - m0 > 0
+

@@ -12,6 +12,8 @@ accumulation (`OptimizerConfig.grad_accum_steps`) are ported."""
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Tuple
 
@@ -268,6 +270,46 @@ class VisionLLMConfig:
         count of the JAX dataset, `llava_dataset.py:80-82`)."""
         n = self.vis_encoder.num_patches
         return n // 4 if self.use_pixelshuffle else n
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "VisionLLMConfig":
+        return cls.from_dict(json.loads(text))
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "VisionLLMConfig":
+        """The config of a dict such as `to_json` writes, or the JAX
+        package's `to_json`: the fields of it that no module of either
+        package reads (`JAX_ONLY_FIELDS`) are dropped."""
+        def build(klass, val):
+            if val is None:
+                return None
+            val = dict(val)
+            for name in JAX_ONLY_FIELDS.get(klass.__name__, ()):
+                val.pop(name, None)
+            return klass(**val)
+
+        kwargs = dict(raw)
+        for name in JAX_ONLY_FIELDS["VisionLLMConfig"]:
+            kwargs.pop(name, None)
+        kwargs["vis_encoder"] = (build(VisionEncoderConfig,
+                                       raw.get("vis_encoder"))
+                                 or VisionEncoderConfig())
+        kwargs["llm"] = build(LLMConfig, raw.get("llm")) or LLMConfig()
+        for name, klass in (("region_encoder", RegionEncoderConfig),
+                            ("gdino", GDinoConfig),
+                            ("unipose", UniPoseConfig), ("sd", SDConfig),
+                            ("ip2p", IP2PConfig)):
+            kwargs[name] = build(klass, raw.get(name))
+        return cls(**kwargs)
+
+
+# fields of the JAX package's configs that its `to_json` writes and no
+# module of either package reads
+JAX_ONLY_FIELDS = {"VisionLLMConfig": ("param_dtype", "compute_dtype"),
+                   "GDinoConfig": ("aux_loss",)}
 
 
 def vllm_7b_config(**overrides: Any) -> VisionLLMConfig:

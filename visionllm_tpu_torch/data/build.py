@@ -85,8 +85,11 @@ class ConcatDataset:
 def seeded_sample(dataset: Any, idx: int, seed: Union[int, str]) -> Any:
     """`dataset[idx]` with the dataset's random draws (augmentations,
     templates, class sampling: its `rng`) taken from
-    `random.Random(seed)` on a shallow copy, so a sample depends on
-    (idx, seed) alone, whichever thread builds it and in whatever order."""
+    `random.Random(seed)` on a shallow copy, and those of its
+    `ShapeSampler` (the interactive prompt shapes: `sampler.rng`) from
+    `random.Random(f"{seed}/sampler")` on a copy of the sampler, so a
+    sample depends on (idx, seed) alone, whichever thread builds it and
+    in whatever order."""
     if isinstance(dataset, ConcatDataset):
         di = bisect.bisect_right(dataset.cum, idx)
         prev = dataset.cum[di - 1] if di else 0
@@ -96,6 +99,9 @@ def seeded_sample(dataset: Any, idx: int, seed: Union[int, str]) -> Any:
     if hasattr(dataset, "rng"):
         dataset = copy.copy(dataset)
         dataset.rng = random.Random(seed)
+        if hasattr(getattr(dataset, "sampler", None), "rng"):
+            dataset.sampler = copy.copy(dataset.sampler)
+            dataset.sampler.rng = random.Random(f"{seed}/sampler")
     return dataset[idx]
 
 

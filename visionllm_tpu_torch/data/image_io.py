@@ -16,6 +16,11 @@ The port reads three formats, told apart by their magic bytes:
   composited), palette indices look up `PLTE`.
 - `.npy` holding uint8 [H, W, 3] or [H, W] (gray, repeated).
 
+`load_label` reads a label map as `np.asarray(Image.open(path))` gives
+it: a PNG's samples as stored, without the conversion to RGB (gray and
+palette PNGs give [H, W]: the gray value or the palette index; gray+alpha,
+RGB and RGBA give [H, W, 2 / 3 / 4]), or a uint8 `.npy` as it is.
+
 Anything else (arithmetic-coded, 12-bit, lossless, hierarchical or CMYK
 JPEG, other JPEG subsamplings, interlaced or 16-bit PNG, other bit
 depths, other formats) raises `NotImplementedError` naming the file and
@@ -63,6 +68,25 @@ def decode_image_bytes(data: bytes, name: str = "<bytes>") -> np.ndarray:
                               f"port; it reads {READS}")
 
 
+def load_label(path: str) -> np.ndarray:
+    """The label map at `path` as stored (see the module docstring): a
+    PNG's samples or a uint8 `.npy`. A 16-bit PNG raises
+    `NotImplementedError`, as `load_image` does."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(PNG_MAGIC):
+        ctype, px, _ = _png_samples(data, path)
+        return np.ascontiguousarray(px[:, :, 0] if ctype in (0, 3) else px)
+    if data.startswith(NPY_MAGIC):
+        arr = np.load(io.BytesIO(data), allow_pickle=False)
+        if arr.dtype != np.uint8:
+            raise ValueError(f"{path}: .npy labels are uint8, got "
+                             f"{arr.dtype}")
+        return arr
+    raise NotImplementedError(f"{path}: labels are read from PNG (bit "
+                              "depth 8, not interlaced) and .npy files")
+
+
 def _from_npy(arr: np.ndarray, name: str) -> np.ndarray:
     if arr.dtype != np.uint8 or not (
             arr.ndim == 2 or (arr.ndim == 3 and arr.shape[2] == 3)):
@@ -91,6 +115,20 @@ def _chunks(data: bytes, name: str):
 
 
 def _decode_png(data: bytes, name: str) -> np.ndarray:
+    ctype, px, palette = _png_samples(data, name)
+    if ctype == 3:
+        # Pillow's palette starts as a gray ramp; PLTE overwrites its head
+        lut = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+        lut[:len(palette)] = palette[:256]
+        return lut[px[:, :, 0]]
+    if ctype in (0, 4):
+        return np.repeat(px[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(px[:, :, :3])
+
+
+def _png_samples(data: bytes, name: str):
+    """(colour type, the unfiltered samples [H, W, samples a pixel], the
+    PLTE entries or None) of an 8-bit PNG."""
     header, palette, idat = None, None, []
     for kind, body in _chunks(data, name):
         if kind == b"IHDR":
@@ -116,14 +154,7 @@ def _decode_png(data: bytes, name: str) -> np.ndarray:
         raise ValueError(f"{name}: PNG data ends early")
     rows = raw[:h * stride].reshape(h, stride)
     px = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, bpp), name)
-    if ctype == 3:
-        # Pillow's palette starts as a gray ramp; PLTE overwrites its head
-        lut = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
-        lut[:len(palette)] = palette[:256]
-        return lut[px[:, :, 0]]
-    if ctype in (0, 4):
-        return np.repeat(px[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(px[:, :, :3])
+    return ctype, px, palette
 
 
 def _unfilter(ftype: np.ndarray, filt: np.ndarray, name: str) -> np.ndarray:

@@ -9,7 +9,7 @@ mask mAP).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,11 +48,12 @@ def make_det_infer_fn(model: VisionLLMWithTools, tid: SpecialTokenIds,
     return fn
 
 
-def model_inputs(arrays: Dict[str, np.ndarray], device) -> list:
-    """A batch of `batched_samples` as `MODEL_KEYS` tensors on `device`
-    (ids as int64)."""
+def model_inputs(arrays: Dict[str, np.ndarray], device,
+                 keys: Sequence[str] = MODEL_KEYS) -> list:
+    """A batch of `batched_samples` as `keys` tensors on `device` (the
+    first, the ids, as int64)."""
     out = [torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device)
-           for k in MODEL_KEYS]
+           for k in keys]
     out[0] = out[0].long()
     return out
 
