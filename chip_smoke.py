@@ -391,7 +391,34 @@ Phases, each printing one JSON line:
 20. flagship_profile - the three-region request's generate call under
              torch.profiler, its region encoder in a synced range: the
              encoder's device ms and kernels beside its bound;
-20b. evalx - the rest of the eval layer on the flagship model, on sets
+20a. convert - the flagship model written out as the released checkpoint
+             would hold it (`tests/torch_ref_layout.py`): every tensor
+             under the reference's key name as a copy on the card, with
+             the shared heads' tied aliases, the index buffers, CLIP's
+             post_layernorm and the SD text encoders' keys; converted
+             back by `utils.torch_convert.convert_composite` into a second
+             `build_model(cfg, state_dict=...)` (laid out on the meta
+             device, each tensor assigned): no key unread outside the
+             JAX package's allowlist (`ReadRecorder`), no parameter
+             unfilled, every tensor bit-equal to the original's and its
+             `infer_det` bit-equal to the original's on the det request
+             (flash 56 and MSDA 12, counted around it alone); then the
+             region encoder, both mappers and Grounding-DINO written as
+             .safetensors and as .bin, read back by
+             `load_state_dict_files` bit for bit and converted to their
+             modules' state. Prints the seconds to write out, convert,
+             load and compare, the checkpoint's GB, the peak card memory
+             and the host's peak RSS while converting;
+20b. profiling - on the flagship model: one `infer_det` under
+             `utils.profiling.trace`, whose Chrome trace must hold 56
+             flash and 12 MSDA kernel events; one under
+             `profiling.debug_nans` (forward hooks on every module), which
+             must not raise; flash 112 and MSDA 24 launches around the
+             two. Then `fit_device_time` of the flash forward at the
+             kernel table's main case (LLaMA B1 L586 32x128 causal),
+             finite and positive, beside the kernel phase's `device_ms`
+             of that case (in a whole run);
+20c. evalx - the rest of the eval layer on the flagship model, on sets
              written without Pillow (`write_evalx_set`: the eval phase's
              COCO set, 4 RGB PNGs at ADE20K sizes with gray label PNGs
              over the 150 classes, a region-caption file): with the
@@ -426,12 +453,22 @@ Phases, each printing one JSON line:
              Then, on that one model, in sections, each with its launch
              counts set to 0 before its main path and read after it, and
              each failing at a peak of DET26B_PEAK_LIMIT bytes or more:
+             convert26 - InternViT-6B's and InternLM2-20B's 48 layers
+             each, one at a time, written out under the reference's key
+             names (InternLM2's q / k / v packed into `wqkv` at 48 heads
+             over 8) and converted back by `convert_intern_vit_layer` /
+             `convert_internlm2_layer` bit for bit, every key read; then
+             the embeddings, InternLM2's norm and `output` head, the
+             `internvl_mlp` bridge and the region encoder; the
+             Grounding-DINO and UniPose converters must raise naming
+             `intern_image_h` (no reference converter reads InternImage;
+             `ROADMAP.md` §C.2). Launches no kernel;
              det - an 800x1088 uint8 image answers a det request as a
              7-tile stack (`dynamic_preprocess`: 7 x 256 image tokens, L
-             1868) and as one tile (L 332), each once and 3 warm repeats
-             more through `infer_det`: shapes, finite values, flash 96 (48
-             InternViT + 48 InternLM2) and MSDA 62 (50 DCNv3 + 12
-             Grounding-DINO) launches a request. Each request's text
+             1868) and as one tile (L 332), each once and DET26B_REPEATS
+             warm repeats more through `infer_det`: shapes, finite values,
+             flash 96 (48 InternViT + 48 InternLM2) and MSDA 62 (50 DCNv3
+             + 12 Grounding-DINO) launches a request. Each request's text
              queries and the raw tool outputs of its last `infer_det`
              call are held against the plain versions on the same
              weights (the kernel run's proposal choice) within
@@ -440,8 +477,8 @@ Phases, each printing one JSON line:
              Grounding-DINO widened to fp32, plain versions): the kernel
              run may sit at most DET26B_WITNESS_RATIO times as far from
              it as the bf16 plain run, for the text queries, the tool
-             alone, the whole path and each InternImage stage map; 16
-             greedy tokens at B1 from the 7-tile prompt
+             alone, the whole path and each InternImage stage map;
+             DET26B_DECODE greedy tokens at B1 from the 7-tile prompt
              (`build_generate_fn` on the same core) against the plain
              run's by the near-tie token rule; request,
              vision, prefill and Grounding-DINO ms, the decode ms a step
@@ -526,8 +563,10 @@ Phases, each printing one JSON line:
 24. eval_profile - the first B8 batch's forward and top-k under
              torch.profiler.
 
-Then it prints the `{"kernels": [...]}` line, the card's name and power
-limit, and as its last line `{"ok": true, "device": {...}}`. Any failed
+Then it prints the `{"kernels": [...]}` line (each kernel's
+`launches_by_path` counts every path that launched it, `convert` and
+`profiling` among them), the card's name and power limit, and as its last
+line `{"ok": true, "device": {...}}`. Any failed
 check raises, so the script exits nonzero and prints no ok line.
 """
 
@@ -539,7 +578,9 @@ import copy
 import dataclasses
 import functools
 import gc
+import glob
 import hashlib
+import importlib.util
 import itertools
 import json
 import math
@@ -653,10 +694,27 @@ from visionllm_tpu_torch.train.train_step import (TrainState, build_optimizer,
                                                   draw_step_noise, gen_loss,
                                                   make_det_train_step,
                                                   pose_loss, split_frozen)
+from visionllm_tpu_torch.utils import profiling
 from visionllm_tpu_torch.utils.checkpoint import restore_checkpoint
+from visionllm_tpu_torch.utils.convert_gdino import convert_gdino
+from visionllm_tpu_torch.utils.convert_unipose import convert_unipose
+from visionllm_tpu_torch.utils.torch_convert import (
+    ReadRecorder, convert_composite, convert_intern_vit,
+    convert_intern_vit_layer, convert_internlm2, convert_internlm2_layer,
+    convert_llm2sd_mapper, convert_region_encoder, convert_vl_bridge,
+    load_state_dict_files)
 from visionllm_tpu_torch.utils.simple_tokenizer import (HashedWordTokenizer,
                                                         RoundTripTokenizer,
                                                         SimpleTokenizer)
+
+# the reference-layout writer lives with the tests (the package has no
+# exporter); it is loaded by its path, since a machine may have another
+# package named `tests` installed
+_RL_SPEC = importlib.util.spec_from_file_location(
+    "torch_ref_layout", os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests", "torch_ref_layout.py"))
+RL = importlib.util.module_from_spec(_RL_SPEC)
+_RL_SPEC.loader.exec_module(RL)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
@@ -774,8 +832,8 @@ PERCEPTION_REL_TOL = 5e-2
 DET26B_IMAGE = (800, 1088, 3)
 DET26B_TILES = {"tiles7": 7, "tile1": 1}
 DET26B_CLASSES = ["person", "dog", "bicycle"]
-DET26B_REPEATS = 3
-DET26B_DECODE = 16
+DET26B_REPEATS = 2            # few: the script's 1200 s limit
+DET26B_DECODE = 8
 DET26B_MAX_LEN = 1920
 DET26B_REL_TOL = 5e-2
 # the fp32 witness: the kernel run may sit at most this many times as far
@@ -4781,9 +4839,13 @@ def check_region_path(seen, refs, first_b1, rows_plain_err):
             "separation": REGION_SEPARATION}
 
 
-def run_flagship():
-    """Phases `flagship` and `flagship_profile`: see the module docstring.
-    Returns the launch counts of the phase's main path."""
+def run_flagship(flash_device_ms=None):
+    """Phases `flagship` and `flagship_profile`, and the `convert`,
+    `profiling` and `evalx` checks on the same model: see the module
+    docstring (`flash_device_ms`: the kernel phase's device ms of the
+    flash case `FIT_FLASH_CASE`, where it ran). Returns the launch
+    counts of the phase's main path and of the evalx, convert and
+    profiling paths."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5077,6 +5139,9 @@ def run_flagship():
           "seconds": time.perf_counter() - t_phase})
     emit({"phase": "flagship_profile", "request": "three regions, B1",
           "bound_ms": timings["region_encoder_cost"]["bound_ms"], **prof})
+    det = (det_ids, det_img, det_aug)
+    convert = flagship_convert(model, cfg, tid, det, want)
+    profiled = flagship_profiling(model, tid, det, want, flash_device_ms)
     with tempfile.TemporaryDirectory() as root:
         files = write_evalx_set(root)
         evalx = run_evalx(model, cfg, root, files)
@@ -5085,11 +5150,11 @@ def run_flagship():
         torch.cuda.empty_cache()
         evalx["cli"] = run_cli_eval(root, files)
     emit({**evalx, "nvidia_smi": nvidia_smi()})
-    return launches, evalx["launches"]
+    return launches, evalx["launches"], convert, profiled
 
 
 # ---------------------------------------------------------------------------
-# phase 19b: the semseg, interactive, region and det-variant evals of the
+# phase 20c: the semseg, interactive, region and det-variant evals of the
 # flagship model, then the command line
 # ---------------------------------------------------------------------------
 
@@ -5470,6 +5535,245 @@ def run_cli_eval(root, files):
 
 
 # ---------------------------------------------------------------------------
+# phases 20a-20b: the flagship written out as a reference checkpoint and
+# converted back (`convert`), and the profiling harness (`profiling`)
+# ---------------------------------------------------------------------------
+
+# the part of the written checkpoint that also goes through files: the
+# region encoder, both mappers and Grounding-DINO
+CONVERT_FILE_PREFIXES = ("region_encoder.", "gdino.", "sd.emb_proj.",
+                         "sd.llm2sd_mapper", "ip2p.emb_proj.",
+                         "ip2p.llm2sd_mapper")
+# fit_device_time's flash case: LLaMA-7B's prefill (the kernel phase's
+# `llama7b_prefill`), B1 L586, 32 heads of 128, causal
+FIT_FLASH_CASE = (1, 586, 32, 128)
+# the port's kernel names in a trace's kernel events, by launch counter
+TRACE_KERNELS = {"flash_attn_fwd": "flash_fwd_kernel",
+                 "ms_deform_attn_fwd": "msda_fwd_kernel"}
+
+
+class HostRssPeak:
+    """The largest resident set of this process while the block runs,
+    read from /proc/self/statm by a thread every `period_s`."""
+
+    def __init__(self, period_s=0.005):
+        self.period_s = period_s
+        self.peak = self.start = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+
+    @staticmethod
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _watch(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self.rss())
+            time.sleep(self.period_s)
+
+    def __enter__(self):
+        self.peak = self.start = self.rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(10)
+        self.peak = max(self.peak, self.rss())
+
+
+def same_tensors(what, got, want):
+    """Raise unless `got` and `want` hold the same keys and each tensor
+    the same dtype, shape and values, bit for bit (compared on `got`'s
+    device). Returns the number of tensors."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys differ: "
+                             f"{sorted(set(got) ^ set(want))[:10]}")
+    bad = [k for k, w in want.items() if got[k].dtype != w.dtype
+           or got[k].shape != w.shape
+           or not torch.equal(got[k], w.to(got[k].device))]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(want)} tensors "
+                             f"differ: {bad[:10]}")
+    return len(want)
+
+
+def flagship_convert(model, cfg, tid, det, want):
+    """The flagship phase's `convert` check (see the module docstring):
+    the model written out under the reference's key names as copies on
+    the card, converted back into a second model laid out on the meta
+    device, every tensor and an `infer_det` bit for bit; then the region
+    encoder, the mappers and Grounding-DINO through .safetensors and .bin
+    files. Returns the converted model's `infer_det` launches."""
+    t_check = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    with torch.no_grad():
+        ref_out = model.infer_det(*det, tid)
+    state = model.state_dict()
+    secs = {}
+    with HostRssPeak() as rss:
+        t = time.perf_counter()
+        ckpt = RL.write_composite(state, cfg)
+        torch.cuda.synchronize()
+        secs["write_out"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec = ReadRecorder(ckpt)
+        conv = convert_composite(rec, cfg)
+        secs["convert"] = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = build_model(cfg, dtype=torch.bfloat16, state_dict=conv)
+        torch.cuda.synchronize()
+        secs["load"] = time.perf_counter() - t
+    unread = rec.unread()
+    if unread:
+        raise AssertionError(f"convert: {len(unread)} keys unread: "
+                             f"{unread[:10]}")
+    allowlisted = rec.unread(lambda k: False)
+    check_param_dtypes(loaded, "convert")
+    t = time.perf_counter()
+    n_equal = same_tensors("convert: the converted model",
+                           loaded.state_dict(), state)
+    secs["compare"] = time.perf_counter() - t
+    A.flash_attention.launches = 0
+    M.ms_deform_attn.launches = 0
+    with torch.no_grad():
+        out = loaded.infer_det(*det, tid)
+    torch.cuda.synchronize()
+    launches = {"flash_attn_fwd": A.flash_attention.launches,
+                "ms_deform_attn_fwd": M.ms_deform_attn.launches}
+    if tuple(launches.values()) != want["infer_det"]:
+        raise AssertionError(f"convert: infer_det launches {launches}, "
+                             f"want {want['infer_det']}")
+    outs = {k: v for k, v in ref_out.items() if isinstance(v, torch.Tensor)}
+    same_tensors("convert: infer_det on the converted model",
+                 {k: out[k] for k in outs}, outs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ckpt_bytes = sum(v.untyped_storage().nbytes() for v in ckpt.values())
+
+    # part of the checkpoint through files, read by load_state_dict_files
+    host = {k: v.cpu() for k, v in ckpt.items()
+            if k.startswith(CONVERT_FILE_PREFIXES)}
+    checks = {"gdino.": (lambda sd: convert_gdino(sd, cfg.gdino, "gdino."),
+                         model.gdino),
+              "region_encoder.": (convert_region_encoder,
+                                  model.core.region_encoder),
+              "sd.": (lambda sd: convert_llm2sd_mapper(sd, "sd."),
+                      model.sd.mapper),
+              "ip2p.": (lambda sd: convert_llm2sd_mapper(sd, "ip2p."),
+                        model.ip2p.mapper)}
+    files = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, write in (("part.safetensors", RL.save_safetensors),
+                            ("part.bin", torch.save)):
+            path = os.path.join(root, name)
+            t = time.perf_counter()
+            write(host, path)
+            write_s = time.perf_counter() - t
+            t = time.perf_counter()
+            back = load_state_dict_files(path)
+            same_tensors(f"convert: {name} read back", back, host)
+            for what, (fn, module) in checks.items():
+                same_tensors(f"convert: {what} from {name}", fn(back),
+                             module.state_dict())
+            files[name] = {"bytes": os.path.getsize(path),
+                           "write_s": write_s,
+                           "read_convert_compare_s": time.perf_counter() - t}
+    result = {
+        "phase": "convert", "config": "vllm_7b_config()",
+        "nvidia_smi": nvidia_smi(),
+        "params": sum(p.numel() for p in loaded.parameters()),
+        "checkpoint_keys": len(ckpt), "checkpoint_gb": ckpt_bytes / 1e9,
+        "allowlisted_unread": len(allowlisted), "unread": unread,
+        "tensors_equal": n_equal,
+        "infer_det_equal": sorted(outs), "launches": launches,
+        "seconds": secs, "files": {**files, "keys": len(host)},
+        "resident_before_gb": resident_gb, "peak_mem_gb": peak_gb,
+        "host_rss_gb": {"before": rss.start / 1e9, "peak": rss.peak / 1e9},
+        "check_s": time.perf_counter() - t_check}
+    del loaded, conv, rec, ckpt, state, host, out, ref_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(result)
+    return launches
+
+
+def trace_kernel_counts(log_dir):
+    """Kernel events of the one Chrome trace under `log_dir` that name
+    each of `TRACE_KERNELS`, and the trace's size."""
+    paths = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"profiling: {len(paths)} traces written")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    return ({k: sum(name in e for e in kernels)
+             for k, name in TRACE_KERNELS.items()},
+            {"bytes": os.path.getsize(paths[0]), "events": len(events),
+             "kernel_events": len(kernels)})
+
+
+def flagship_profiling(model, tid, det, want, kernel_device_ms):
+    """The flagship phase's `profiling` check (see the module docstring):
+    one `infer_det` under `profiling.trace`, one under
+    `profiling.debug_nans`, and `fit_device_time` of the flash forward,
+    printed beside the kernel phase's `device_ms` of the same case
+    (`kernel_device_ms`, None when the kernel phase did not run: a
+    profiler context this late in the process has lost its device events
+    before). Returns the launches of the two requests."""
+    t_check = time.perf_counter()
+    A.flash_attention.launches = 0
+    M.ms_deform_attn.launches = 0
+    with tempfile.TemporaryDirectory() as log_dir:
+        t = time.perf_counter()
+        with torch.no_grad(), profiling.trace(log_dir):
+            model.infer_det(*det, tid)
+            torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t
+        in_trace, trace_file = trace_kernel_counts(log_dir)
+    if tuple(in_trace.values()) != want["infer_det"]:
+        raise AssertionError(f"profiling: the trace names {in_trace}, want "
+                             f"{want['infer_det']}")
+    t = time.perf_counter()
+    with torch.no_grad(), profiling.debug_nans(model):
+        out = model.infer_det(*det, tid)
+        torch.cuda.synchronize()
+    debug_nans_s = time.perf_counter() - t
+    launches = {"flash_attn_fwd": A.flash_attention.launches,
+                "ms_deform_attn_fwd": M.ms_deform_attn.launches}
+    if tuple(launches.values()) != tuple(2 * n for n in want["infer_det"]):
+        raise AssertionError(f"profiling: launches {launches}, want 2 x "
+                             f"{want['infer_det']}")
+    if not all(torch.isfinite(v).all() for k, v in out.items()
+               if k in ("logits", "pred_boxes")):
+        raise AssertionError("profiling: infer_det under debug_nans")
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(*FIT_FLASH_CASE, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+
+    def chained(q, k, v, carry):
+        return A.flash_attention(q, k, v, causal=True)[0, 0] + carry
+
+    fit_ms = profiling.fit_device_time(chained, q, k, v) * 1e3
+    if not (math.isfinite(fit_ms) and fit_ms > 0):
+        raise AssertionError(f"profiling: fit_device_time {fit_ms} ms")
+    emit({"phase": "profiling", "nvidia_smi": nvidia_smi(),
+          "trace_kernel_events": in_trace, "trace_file": trace_file,
+          "trace_request_s": trace_s, "debug_nans_request_s": debug_nans_s,
+          "launches": launches,
+          "fit_device_time": {"case": list(FIT_FLASH_CASE), "causal": True,
+                              "ms": fit_ms,
+                              "kernel_phase_device_ms": kernel_device_ms},
+          "check_s": time.perf_counter() - t_check})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 21-22: the 26B flagship's det path at full width and depth
 # ---------------------------------------------------------------------------
 
@@ -5635,6 +5939,7 @@ def run_det26b():
     if peaks["build"] * 1e9 >= DET26B_PEAK_LIMIT:
         raise AssertionError(f"det26b: the build peaked at {peaks['build']} "
                              "GB")
+    section("convert26", lambda: det26b_convert(model, cfg))
     section("det", lambda: det26b_det(model, cfg, tid, build))
     section("predictor", lambda: det26b_predictor(model, cfg))
     section("gen", lambda: det26b_gen(model, cfg, tid))
@@ -5650,6 +5955,83 @@ def run_det26b():
     gc.collect()
     torch.cuda.empty_cache()
     return totals
+
+
+def det26b_convert(model, cfg):
+    """The det26b phase's `convert26` section (see the module docstring):
+    each of InternViT-6B's and InternLM2-20B's layers written out under
+    the reference's key names (InternLM2's q / k / v packed into `wqkv`
+    at 48 heads over 8) and converted back bit for bit, one layer at a
+    time; then the embeddings, the final norm and the head, the
+    `internvl_mlp` bridge and the region encoder; and the InternImage
+    tools' named error. Launches no kernel."""
+    t_section = time.perf_counter()
+    core = model.core
+    secs, layers = {}, {}
+    with HostRssPeak() as rss:
+        for name, stack, write, convert, c, prefix in (
+                ("intern_vit", core.vis_encoder.layers,
+                 RL.write_intern_vit_layer, convert_intern_vit_layer,
+                 cfg.vis_encoder, "vis_encoder."),
+                ("internlm2", core.llm.layers, RL.write_internlm2_layer,
+                 convert_internlm2_layer, cfg.llm, "llm.model.")):
+            t = time.perf_counter()
+            for i, layer in enumerate(stack):
+                state = layer.state_dict()
+                rec = ReadRecorder(write(state, c, i, prefix))
+                same_tensors(f"convert26: {name} layer {i}",
+                             convert(rec, c, i, prefix), state)
+                if rec.unread(lambda k: False):
+                    raise AssertionError(f"convert26: {name} layer {i} left "
+                                         f"{rec.unread(lambda k: False)}")
+                del rec
+            torch.cuda.synchronize()
+            secs[name + "_layers"] = time.perf_counter() - t
+            layers[name] = len(stack)
+        t = time.perf_counter()
+        vis = {k: v for k, v in core.vis_encoder.state_dict().items()
+               if not k.startswith("layers.")}
+        top = dataclasses.replace(cfg.vis_encoder, num_layers=0)
+        ref = RL.write_intern_vit(vis, top, "vis_encoder.")
+        same_tensors("convert26: InternViT's embeddings",
+                     convert_intern_vit(ref, top, "vis_encoder."), vis)
+        llm = {k: v for k, v in core.llm.state_dict().items()
+               if not k.startswith("layers.")}
+        top = dataclasses.replace(cfg.llm, num_layers=0)
+        ref = RL.write_internlm2(llm, top, "llm.model.")
+        same_tensors("convert26: InternLM2's embeddings, norm and output",
+                     convert_internlm2(ref, top, "llm.model."), llm)
+        del ref
+        for what, module, write, convert in (
+                ("internvl_mlp", core.vl_bridge, RL.write_vl_bridge,
+                 convert_vl_bridge),
+                ("region encoder", core.region_encoder,
+                 RL.write_region_encoder, convert_region_encoder)):
+            state = module.state_dict()
+            same_tensors(f"convert26: {what}", convert(write(state)), state)
+        torch.cuda.synchronize()
+        secs["top"] = time.perf_counter() - t
+    refused = {}
+    for tool, fn in (("gdino", lambda: convert_gdino({}, cfg.gdino,
+                                                     "gdino.")),
+                     ("unipose", lambda: convert_unipose({}, cfg.unipose,
+                                                         "unipose."))):
+        try:
+            fn()
+        except ValueError as e:
+            refused[tool] = str(e)
+        backbone = getattr(cfg, tool).backbone
+        if backbone not in refused.get(tool, ""):
+            raise AssertionError(f"convert26: {tool} on {backbone} gave "
+                                 f"{refused.get(tool)!r}")
+    emit({"phase": "convert26", "config": "vllm_26b_config()",
+          "layers": layers, "heads": [cfg.llm.num_heads,
+                                      cfg.llm.num_kv_heads],
+          "hidden": cfg.llm.hidden_size, "seconds": secs,
+          "host_rss_gb": {"before": rss.start / 1e9, "peak": rss.peak / 1e9},
+          "refused": refused, "nvidia_smi": nvidia_smi(),
+          "section_s": time.perf_counter() - t_section})
+    return {}
 
 
 def det26b_det(model, cfg, tid, build):
@@ -8545,7 +8927,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     probe = run_probes()
     gen = run_gen()
-    flagship, evalx = run_flagship()
+    flagship, evalx, convert, profiled = run_flagship(next(
+        c["device_ms"] for c in attn_cases if c["case"] == "llama7b_prefill"))
     det26b = run_det26b()
     evaluation = run_eval()
     # each path's counts were read around that path's run alone
@@ -8554,7 +8937,8 @@ def main(argv=None) -> int:
                "loratrain": loratrain,
                "probes": probe, "chat": chat, "slots": slots, "spec": spec,
                "quant": quant, "gen": gen, "flagship": flagship,
-               "evalx": evalx, "det26b": det26b, "eval": evaluation}
+               "evalx": evalx, "convert": convert, "profiling": profiled,
+               "det26b": det26b, "eval": evaluation}
 
     def launches(name):
         per = {p: c[name] for p, c in by_path.items() if name in c}

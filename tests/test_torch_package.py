@@ -12,7 +12,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "visionllm_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "visionllm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "visionllm_tpu",
+             "transformers")
 
 
 def _port_sources():
@@ -21,6 +22,9 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the reference-layout writer that chip_smoke.py imports
+    yield os.path.join(ROOT, "tests", "torch_ref_layout.py")
+    yield os.path.join(ROOT, "tests", "sd15_published_keys.py")
 
 
 def _imported_modules(path):

@@ -15,14 +15,16 @@ seeded `torch.Generator`; the heads' mappers and norms and the region
 encoder's LayerNorms stay fp32, as flax keeps them (`fp32_modules`).
 `build_core` does the same for the `VisionLLM`
 core alone (the chat path) and quantizes its LLM when `cfg.llm.quant`
-is "int4", "int8" or "w8a8". Load real weights with
-`utils.convert.load_jax_params`.
+is "int4", "int8" or "w8a8". `build_model(cfg, state_dict=...)` fills
+the model from a converted reference checkpoint instead
+(`utils.torch_convert.convert_composite`); a JAX-package param tree
+loads with `utils.convert.load_jax_params`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -39,6 +41,7 @@ from visionllm_tpu_torch.models.unipose.model import UniPose
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds, VisionLLM
 from visionllm_tpu_torch.ops.quant import quantize_serving_params
 from visionllm_tpu_torch.train.losses import lm_cross_entropy
+from visionllm_tpu_torch.utils.torch_convert import load_converted
 
 
 class VisionLLMWithTools(nn.Module):
@@ -231,11 +234,19 @@ def _text_mask(tq_mask: torch.Tensor, max_text_len: int) -> torch.Tensor:
 def build_model(cfg: VisionLLMConfig, *,
                 device: Optional[Union[str, torch.device]] = None,
                 dtype: torch.dtype = torch.bfloat16,
-                seed: int = 0) -> VisionLLMWithTools:
+                seed: int = 0,
+                state_dict: Optional[Mapping[str, torch.Tensor]] = None
+                ) -> VisionLLMWithTools:
     """Build `VisionLLMWithTools` directly on `device` (CUDA when None;
     raises when there is none) in `dtype` (`fp32_modules` in fp32), with
-    seeded random weights."""
+    seeded random weights, or with `state_dict`'s (the port's keys, as
+    `utils.torch_convert.convert_composite` gives them): the model is
+    laid out on the meta device and each tensor assigned in its
+    parameter's dtype, so no weight is drawn or held twice."""
     dev = resolve_device(device)
+    if state_dict is not None:
+        return load_converted(_meta_model(cfg, dtype), state_dict,
+                              dev).eval()
     model = _meta_model(cfg, dtype).to_empty(device=dev)
     init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     return model.eval()
