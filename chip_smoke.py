@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase trainer                # Trainer.train
     python3 chip_smoke.py --phase tooltrain              # five tool groups
     python3 chip_smoke.py --phase loratrain              # LLaMA-7B LoRA
+    python3 chip_smoke.py --phase parallel               # the mesh, world 1
 
 Phases, each printing one JSON line:
 
@@ -441,6 +442,31 @@ Phases, each printing one JSON line:
              eval-interactive --limit 2` in a subprocess on the card (it
              builds `vllm_7b_config()` itself): exit 0, one JSON line with
              `region_acc@0.5`, its build and eval seconds;
+20d. parallel - the parallel layer on the flagship model, its last use
+             (after evalx's gates, before the CLI subprocess): one rank
+             over NCCL through a `file://` store, `build_mesh()` at
+             (data 1, context 1, model 1) and the model's placements by
+             mesh rule (`shard_params`: parameters, values and bytes). The
+             det request's `infer_det` and a PAR_GEN_NEW-token greedy
+             generate run unwrapped, after `apply_tensor_parallel` (the
+             LLaMA projections as DTensor tensor-parallel layers over the
+             model axis of 1) and after `apply_shardings` (FSDP2 over
+             "data" added): the 8 outputs and the generate call's hidden
+             states bit-equal, else within LOGIT_REL_TOL (the difference
+             printed); tokens equal; flash 56 and MSDA 12 the wrapped
+             request; the wall ms of each stage, whose differences are
+             the host cost of the DTensor dispatch and of the FSDP2 hooks.
+             Then the world-1 GPipe prefill (`pipeline_llm_forward`, B4
+             L586 in 4 microbatches) within LOGIT_REL_TOL of the plain
+             prefill, flash 128; and the ring's block loop at LLaMA-7B's
+             heads (B1 L8192 32x128 bf16 causal as 4 blocks of 2048
+             through `ring_step`, flash 10: 4 diagonal and 6 earlier
+             blocks) within the kernel gate and, block by block, within
+             RING_REL_TOL of the plain blocks and of one flash call over
+             all 8192; the row lse of a diagonal and of an earlier
+             2048-block within LSE_ATOL of the plain pair's; the device
+             ms of the loop, of the single call and of one 2048-block
+             beside its bound and SDPA's;
 21. det26b - the whole 26B flagship, with nothing else resident:
              `build_model(vllm_26b_config())` once, at full width and
              depth (InternViT-6B/448 48 layers, pixel shuffle and
@@ -602,8 +628,10 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
+from torch.distributed.device_mesh import init_device_mesh
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from visionllm_tpu_torch import constants as C
@@ -679,7 +707,11 @@ from visionllm_tpu_torch.ops import quant as Q8
 from visionllm_tpu_torch.ops import quant4 as Q
 from visionllm_tpu_torch.ops.dcnv3 import dcnv3_msda_args
 from visionllm_tpu_torch.ops import rle as R
+from visionllm_tpu_torch.ops import ring_attention as RA
 from visionllm_tpu_torch.ops.rle import rle_encode
+from visionllm_tpu_torch.parallel import mesh as PM
+from visionllm_tpu_torch.parallel import pipeline as PP
+from visionllm_tpu_torch.parallel.mesh import MeshRules
 from visionllm_tpu_torch.serve import (ChatService, _Request, make_server,
                                        perception_json)
 from visionllm_tpu_torch.slots import build_slot_fns
@@ -862,7 +894,7 @@ GEN_IMAGE = (512, 512, 3)
 GEN_STEPS, GEN_GUIDANCE, GEN_IMAGE_GUIDANCE = 10, 7.5, 1.5
 GEN_SEED = 0
 GEN_WALL_RUNS = 2
-GEN_TIMED = 3
+GEN_TIMED = 2
 GEN_MAX_LEN = 768
 GEN_REL_TOL = 5e-2
 # DCNv3 in InternImage-H at that image's 800x1088 bucket: each stage's
@@ -4603,6 +4635,28 @@ def flagship_det_ids(tid, cfg, regions=0):
         + [2]
 
 
+def flagship_det_request(cfg, tid):
+    """(ids, CLIP pixels, det pixels) of the flagship phase's det request,
+    the pixels drawn from seed 1 on the card."""
+    size = cfg.vis_encoder.image_size
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.tensor([flagship_det_ids(tid, cfg)], device="cuda")
+    img = (0.3 * torch.randn(1, size, size, 3, generator=g,
+                             device="cuda")).to(torch.bfloat16)
+    aug = (0.3 * torch.randn(1, DET_SIZE, DET_SIZE, 3, generator=g,
+                             device="cuda")).to(torch.bfloat16)
+    return ids, img, aug
+
+
+def run_parallel_alone():
+    """`--phase parallel`: the flagship model built from seed 0 and the
+    parallel phase on it, without the flagship phase."""
+    cfg = vllm_7b_config()
+    tid = SpecialTokenIds.synthetic()
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    return run_parallel(model, cfg, tid, flagship_det_request(cfg, tid))
+
+
 def det_plain_errs(model, tid, ids, images, aug, regions=None):
     """One det request with the kernels against the same request with the
     plain versions on the kernel run's proposal choice: relative error of
@@ -4866,14 +4920,9 @@ def run_flagship(flash_device_ms=None):
     weights_gb = torch.cuda.memory_allocated() / 1e9
     core = model.core
     size = cfg.vis_encoder.image_size
-    g = torch.Generator(device="cuda").manual_seed(1)
-    det_ids = torch.tensor([flagship_det_ids(tid, cfg)], device="cuda")
+    det_ids, det_img, det_aug = flagship_det_request(cfg, tid)
     det_reg_ids = torch.tensor([flagship_det_ids(tid, cfg, 1)],
                                device="cuda")
-    det_img = (0.3 * torch.randn(1, size, size, 3, generator=g,
-                                 device="cuda")).to(torch.bfloat16)
-    det_aug = (0.3 * torch.randn(1, DET_SIZE, DET_SIZE, 3, generator=g,
-                                 device="cuda")).to(torch.bfloat16)
     det_region = torch.zeros(1, 1, size, size, device="cuda")
     det_region[0, 0, size // 4:size // 2, size // 5:size * 3 // 5] = 1
     perc_img = np.random.RandomState(4).randint(0, 256, FLAGSHIP_DET_IMAGE,
@@ -5145,12 +5194,292 @@ def run_flagship(flash_device_ms=None):
     with tempfile.TemporaryDirectory() as root:
         files = write_evalx_set(root)
         evalx = run_evalx(model, cfg, root, files)
-        del model, core, pred, gen, svcs, rec, prof
+        del pred, gen, svcs, rec, prof
+        parallel = run_parallel(model, cfg, tid, det)
+        del model, core
         gc.collect()
         torch.cuda.empty_cache()
         evalx["cli"] = run_cli_eval(root, files)
     emit({**evalx, "nvidia_smi": nvidia_smi()})
-    return launches, evalx["launches"], convert, profiled
+    return launches, evalx["launches"], convert, profiled, parallel
+
+
+# ---------------------------------------------------------------------------
+# phase 20d: the parallel layer on the flagship model, at world 1
+# ---------------------------------------------------------------------------
+
+PAR_GEN_NEW = 16              # greedy tokens with and without the mesh
+PAR_RING = (1, 8192, 32, 128)  # B, L, H, D: LLaMA-7B's heads
+PAR_RING_BLOCKS = 4           # 2048-token blocks driven through ring_step
+PAR_PIPE = (4, 586)           # B, L of the world-1 pipeline
+PAR_PIPE_MICRO = 4
+# the ring loop vs the plain blocks and vs one call: relative Frobenius
+# error of each 2048-query block. The output shrinks down the sequence
+# (a row averages ~n/e values), so a block-wise relative error sees a
+# merge fault in a late block that the max-abs kernel gate, set by row
+# 0's |v|, would pass
+RING_REL_TOL = 1e-2
+LSE_ATOL = 1e-3               # a block's row logsumexp vs the plain pair's
+
+
+def ring_blocks(q, k, v, S):
+    """Causal attention of q [B, L, H, D] as S query blocks, each merging
+    its key blocks through `ring_step` in a ring's order (block me meets
+    me, me - 1, ...): the work one context rank of S does, in one
+    process. fp32 inputs take the plain block, bf16 ones the kernel."""
+    qs, ks, vs = (t.chunk(S, 1) for t in (q, k, v))
+    outs = []
+    for me in range(S):
+        acc, lse = RA.ring_init(qs[me])
+        for step in range(S):
+            src = (me - step) % S
+            acc, lse = RA.ring_step(qs[me], ks[src], vs[src], acc, lse,
+                                    q_block=me, kv_block=src, causal=True)
+        outs.append(acc)
+    return torch.cat(outs, 1).to(q.dtype)
+
+
+def ring_case(g, device="cuda"):
+    """The ring's block loop at LLaMA-7B's heads through the flash kernel
+    (4 diagonal and 6 earlier blocks: flash 10), against the plain
+    blocks and one flash call over the whole sequence, with the device
+    time of the loop, of the single call and of one 2048-block beside
+    its bound and SDPA's time for the same block."""
+    B, L, H, D = PAR_RING
+    S = PAR_RING_BLOCKS
+    Lc = L // S
+    q, k, v = (torch.randn(B, L, H, D, generator=g, device=device).to(
+        torch.bfloat16) for _ in range(3))
+    f0 = A.flash_attention.launches
+    got = ring_blocks(q, k, v, S)
+    torch.cuda.synchronize()
+    launches = A.flash_attention.launches - f0
+    if launches != S + S * (S - 1) // 2:
+        raise AssertionError(f"parallel ring: flash {launches}")
+    plain = ring_blocks(q.float(), k.float(), v.float(), S)
+    single = A.flash_attention(q, k, v, causal=True)
+    errs = {"vs_plain_blocks": check_close("ring blocks vs plain", got,
+                                           plain),
+            "vs_single_call": check_close("ring blocks vs one call", got,
+                                          single.float())}
+    block_rel = {name: [rel_err(a, b) for a, b in zip(got.chunk(S, 1),
+                                                       want.chunk(S, 1))]
+                 for name, want in (("vs_plain_blocks", plain),
+                                    ("vs_single_call", single))}
+    if any(not e <= RING_REL_TOL for es in block_rel.values() for e in es):
+        raise AssertionError(f"parallel ring: block rel err {block_rel}")
+    qs, ks, vs = (t.chunk(S, 1) for t in (q, k, v))
+    lse_err = {}
+    for name, qi, causal in (("diagonal", 0, True), ("earlier", 1, False)):
+        _, lse = A.attention_lse(qs[qi], ks[0], vs[0], causal=causal)
+        _, want = A.attention_lse_plain(qs[qi], ks[0], vs[0], causal=causal)
+        lse_err[name] = (lse - want).abs().max().item()
+    if any(not e <= LSE_ATOL for e in lse_err.values()):
+        raise AssertionError(f"parallel ring: lse err {lse_err}")
+    qb, kb, vb = (t[:, :Lc].contiguous() for t in (q, k, v))
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (qb, kb, vb))
+    timed = {"ring_blocks": lambda: ring_blocks(q, k, v, S),
+             "single_call": lambda: A.flash_attention(q, k, v, causal=True),
+             "block:kernel": lambda: A.attention_lse(qb, kb, vb),
+             "block:library": lambda: sdpa(qh, kh, vh, False, None)}
+    dev, stray = device_ms(timed, n=5)
+
+    def flash_ms(label):
+        return sum(t for name, t in dev[label]["ms_by_kernel"].items()
+                   if TRACE_KERNELS["flash_attn_fwd"] in name)
+
+    nbytes = 2 * 4 * qb.numel() + 4 * B * H * Lc
+    b_ms, b_by = bound(nbytes, 4 * B * H * Lc * Lc * D, BF16_TENSOR_FLOPS)
+    block = {"shape": [B, Lc, H, H, D], "causal": False,
+             "ms": cuda_ms(timed["block:kernel"]),
+             "device_ms": dev["block:kernel"]["ms"],
+             "plain_ms": cuda_ms(lambda: A.attention_lse_plain(qb, kb, vb)),
+             "library_ms": cuda_ms(timed["block:library"]),
+             "library_device_ms": dev["block:library"]["ms"],
+             "bound_ms": b_ms, "bound_by": b_by}
+    return {"shape": list(PAR_RING), "blocks": S, "flash_launches": launches,
+            "max_abs_err": errs, "tol": [ATOL, RTOL],
+            "block_rel_err": block_rel, "block_rel_tol": RING_REL_TOL,
+            "lse_max_abs_err_2048": lse_err, "lse_tol": LSE_ATOL,
+            "device_ms": dev["ring_blocks"]["ms"],
+            "flash_device_ms_10_blocks": flash_ms("ring_blocks"),
+            "single_call_device_ms": dev["single_call"]["ms"],
+            "kernels_per_loop": dev["ring_blocks"]["kernels_per_call"],
+            "profiler_stray_kernels": stray, "block_2048": block}, launches
+
+
+def placement_counts(model, mesh):
+    """Parameters and bytes of `model` by the mesh rule that places them
+    (`MeshRules.fsdp_tp()` on `mesh`'s axis sizes), and by spec."""
+    rules = MeshRules.fsdp_tp()
+    sizes = PM.axis_sizes(mesh)
+    layouts = PM.param_layouts(model)
+    by_rule, by_spec = {}, {}
+    for name, p in model.named_parameters():
+        i, spec = rules.match(name, tuple(p.shape), sizes, layouts[name])
+        for table, key in ((by_rule, rules.rules[i][0] if i >= 0 else
+                            "(no rule: whole)"), (by_spec, str(spec))):
+            row = table.setdefault(key, {"params": 0, "values": 0,
+                                         "bytes": 0})
+            row["params"] += 1
+            row["values"] += p.numel()
+            row["bytes"] += p.numel() * p.element_size()
+    return {"by_rule": by_rule, "by_spec": by_spec}
+
+
+def run_parallel(model, cfg, tid, det, device="cuda"):
+    """Phase `parallel` on the flagship model (its last use: the mesh
+    wraps it in place). World 1 over NCCL through a `file://` store,
+    `build_mesh()` at (1, 1, 1), the placements of `shard_params`; then
+    the det request's `infer_det` and a PAR_GEN_NEW-token greedy generate
+    unwrapped, after `apply_tensor_parallel` and after `apply_shardings`
+    (outputs and hidden states bit-equal, else within LOGIT_REL_TOL;
+    tokens equal; flash 56 and MSDA 12 a wrapped request; the walls of
+    the three stages), the world-1 GPipe prefill of the LLaMA at B4 L586
+    in 4 microbatches (within LOGIT_REL_TOL of the plain prefill; flash
+    128) and the ring's block loop (`ring_case`). Returns the launches of
+    the wrapped main path: the det request, the generate call, the
+    pipeline and the ring loop."""
+    t_phase = time.perf_counter()
+    ids, images, aug = det
+    core = model.core
+    store = tempfile.mkdtemp()
+    t = time.perf_counter()
+    PM.init_process_group_for(device, init_method=f"file://{store}/store",
+                              world_size=1, rank=0)
+    try:
+        mesh = PM.build_mesh()
+        group_s = time.perf_counter() - t
+        placements = placement_counts(model, mesh)
+        chat_ids = ids[:, :cfg.image_token_len + 4]
+        gen = build_generate_fn(core, tid, max_new_tokens=PAR_GEN_NEW,
+                                max_len=chat_ids.shape[1] + PAR_GEN_NEW + 8)
+
+        def det_call():
+            return model.infer_det(ids, images, aug, tid)
+
+        def gen_call():
+            res = gen(chat_ids, images)
+            return {"tokens": res["out_tokens"], "hidden": res["out_hidden"]}
+
+        def outputs():
+            return {"det": det_call(), "gen": gen_call()}
+
+        def compare(stage, got):
+            """Bit-equality of each det output and of the hidden states
+            with the unwrapped run; any other float output within
+            LOGIT_REL_TOL; the tokens equal."""
+            pairs = dict(got["det"], hidden=got["gen"]["hidden"])
+            want = dict(plain["det"], hidden=plain["gen"]["hidden"])
+            equal = {k: bool(torch.equal(want[k], v)) for k, v in pairs.items()}
+            rel = {k: rel_err(v, want[k]) for k, v in pairs.items()
+                   if v.is_floating_point() and not equal[k]}
+            if any(not e <= LOGIT_REL_TOL for e in rel.values()):
+                raise AssertionError(f"parallel {stage}: {rel}")
+            if not torch.equal(plain["gen"]["tokens"], got["gen"]["tokens"]):
+                raise AssertionError(
+                    f"parallel {stage} generate: tokens "
+                    f"{plain['gen']['tokens'].tolist()} vs "
+                    f"{got['gen']['tokens'].tolist()}")
+            return {"bit_equal": equal, "rel_err": rel}
+
+        with torch.no_grad():
+            plain = outputs()
+            walls = {"infer_det_ms_unwrapped": host_ms(det_call),
+                     "generate_ms_unwrapped": host_ms(gen_call)}
+            # the DTensor path over the model axis of 1, which
+            # `apply_shardings` skips there: its walls against the
+            # unwrapped ones are the dispatch's host cost
+            t = time.perf_counter()
+            PM.apply_tensor_parallel(model, mesh)
+            tp_s = time.perf_counter() - t
+            stages = {"tensor_parallel": compare("tensor_parallel",
+                                                 outputs())}
+            walls.update(infer_det_ms_tensor_parallel=host_ms(det_call),
+                         generate_ms_tensor_parallel=host_ms(gen_call))
+            t = time.perf_counter()
+            PM.apply_shardings(model, mesh)
+            torch.cuda.synchronize()
+            apply_s = time.perf_counter() - t
+            launches = {"flash_attn_fwd": 0, "ms_deform_attn_fwd": 0}
+            calls = {}
+
+            def counted(what, fn):
+                f0, m0 = A.flash_attention.launches, M.ms_deform_attn.launches
+                out = fn()
+                torch.cuda.synchronize()
+                got = (A.flash_attention.launches - f0,
+                       M.ms_deform_attn.launches - m0)
+                calls[what] = got
+                launches["flash_attn_fwd"] += got[0]
+                launches["ms_deform_attn_fwd"] += got[1]
+                return out
+
+            A.flash_attention.launches = 0
+            M.ms_deform_attn.launches = 0
+            wrapped = {"det": counted("infer_det", det_call),
+                       "gen": counted("generate", gen_call)}
+            want = flagship_launches(cfg)["infer_det"]
+            if calls["infer_det"] != want:
+                raise AssertionError(f"parallel infer_det launches "
+                                     f"{calls['infer_det']}, want {want}")
+            stages["tensor_parallel_fsdp2"] = compare("apply_shardings",
+                                                      wrapped)
+            walls.update(infer_det_ms_wrapped=host_ms(det_call),
+                         generate_ms_wrapped=host_ms(gen_call))
+            host_cost = {
+                f"{what}_ms_{layer}": walls[f"{what}_ms_{b}"]
+                - walls[f"{what}_ms_{a}"]
+                for what in ("infer_det", "generate")
+                for layer, a, b in (
+                    ("dtensor_dispatch", "unwrapped", "tensor_parallel"),
+                    ("fsdp2_hooks", "tensor_parallel", "wrapped"))}
+            # the world-1 GPipe prefill of the wrapped LLaMA
+            B, L = PAR_PIPE
+            g = torch.Generator(device=device).manual_seed(3)
+            embeds = (0.3 * torch.randn(B, L, cfg.llm.hidden_size,
+                                        generator=g, device=device)).to(
+                core.llm.norm.weight.dtype)
+            pos = torch.arange(L, device=device).expand(B, L)
+            pipe_mesh = init_device_mesh(mesh.device_type, (1,),
+                                         mesh_dim_names=("pipe",))
+            logits = counted("pipeline", lambda: PP.pipeline_llm_forward(
+                cfg.llm, core.llm, embeds, pos, pipe_mesh,
+                n_microbatch=PAR_PIPE_MICRO))
+            if calls["pipeline"][0] != cfg.llm.num_layers * PAR_PIPE_MICRO:
+                raise AssertionError(f"parallel pipeline: flash "
+                                     f"{calls['pipeline'][0]}")
+            with plain_versions():
+                want_logits = core.llm(embeds, pos)[1]
+            pipe_err = rel_err(logits, want_logits)
+            if not pipe_err <= LOGIT_REL_TOL:
+                raise AssertionError(f"parallel pipeline: rel err "
+                                     f"{pipe_err}")
+            del logits, want_logits
+            f0 = A.flash_attention.launches
+            ring, n_ring = ring_case(g, device)
+            # the ring case's comparison calls are not the main path's
+            A.flash_attention.launches = f0 + n_ring
+            launches["flash_attn_fwd"] += n_ring
+            calls["ring_blocks"] = (n_ring, 0)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "parallel", "config": "vllm_7b_config()",
+          "mesh": {"data": 1, "context": 1, "model": 1},
+          "backend": dist.Backend.NCCL if device == "cuda" else "gloo",
+          "init_group_and_mesh_s": group_s,
+          "apply_tensor_parallel_s": tp_s, "apply_shardings_s": apply_s,
+          "placements": placements, "launches": launches,
+          "calls": {k: list(v) for k, v in calls.items()},
+          "vs_unwrapped": stages,
+          "generate_tokens": wrapped["gen"]["tokens"][0].tolist(),
+          "walls_ms": walls, "host_cost_ms": host_cost, "pipeline": {
+              "shape": list(PAR_PIPE), "microbatches": PAR_PIPE_MICRO,
+              "rel_err_vs_plain": pipe_err, "tol": LOGIT_REL_TOL},
+          "ring": ring, "nvidia_smi": nvidia_smi(),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -8840,7 +9169,7 @@ def main(argv=None) -> int:
         "checks, the nvidia-smi line, and no model phase and no ok line")
     parser.add_argument(
         "--phase", choices=["train", "gen", "flagship", "det26b", "eval",
-                            "trainer", "tooltrain", "loratrain"],
+                            "trainer", "tooltrain", "loratrain", "parallel"],
         help="run this model phase "
         "alone with its profile "
         "(with the device and build phases and the nvidia-smi line; no "
@@ -8890,6 +9219,8 @@ def main(argv=None) -> int:
             run_tooltrain()
         if args.phase == "loratrain":
             run_loratrain()
+        if args.phase == "parallel":
+            run_parallel_alone()
         print(smi, flush=True)
         return 0
     attn_cases = check_attention(g)
@@ -8927,7 +9258,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     probe = run_probes()
     gen = run_gen()
-    flagship, evalx, convert, profiled = run_flagship(next(
+    flagship, evalx, convert, profiled, parallel = run_flagship(next(
         c["device_ms"] for c in attn_cases if c["case"] == "llama7b_prefill"))
     det26b = run_det26b()
     evaluation = run_eval()
@@ -8938,6 +9269,7 @@ def main(argv=None) -> int:
                "probes": probe, "chat": chat, "slots": slots, "spec": spec,
                "quant": quant, "gen": gen, "flagship": flagship,
                "evalx": evalx, "convert": convert, "profiling": profiled,
+               "parallel": parallel,
                "det26b": det26b, "eval": evaluation}
 
     def launches(name):

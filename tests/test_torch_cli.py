@@ -246,17 +246,58 @@ def test_dist_kwargs_from_env_matches_jax(case):
 
 
 def test_cli_refusals(cli_set, capsys):
-    """`--distributed` names ROADMAP A.8; `--tokenizer` exits with the
-    message; without a card a run needs `--device`."""
+    """`train` over two processes names ROADMAP A.8.2 (before joining any
+    group); `--tokenizer` exits with the message; without a card a run
+    needs `--device`."""
     base = ["eval-det", "--tiny", "--config",
             str(cli_set["configs"]["eval-det"])]
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tcli.main(base + ["--distributed"])
+    with pytest.raises(NotImplementedError, match="A.8.2"):
+        tcli.main(["train", "--tiny", "--data", "unused.json", "--device",
+                   "cpu", "--distributed", "--coordinator", "127.0.0.1:1",
+                   "--num-processes", "2", "--process-id", "0"])
+    assert not torch.distributed.is_initialized()
     with pytest.raises(SystemExit, match="transformers"):
         tcli.main(base + ["--tokenizer", "some/dir", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tcli.main(base)
+
+
+def test_cli_distributed_two_ranks(cli_set):
+    """`eval-det --distributed --device cpu` on two processes launched as
+    torchrun launches them (RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT):
+    both join one gloo group, run the command whole and print the same
+    metrics."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = [sys.executable, "-m", "visionllm_tpu_torch.cli", "eval-det",
+            "--tiny", "--device", "cpu", "--distributed", "--ckpt",
+            cli_set["npz"], "--config", str(cli_set["configs"]["eval-det"]),
+            "--limit", "2"]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   LOCAL_RANK=str(rank), OMP_NUM_THREADS="1",
+                   PYTHONPATH=root)
+        procs.append(subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    assert outs[0] == outs[1] and outs[0]
 
 
 @pytest.mark.parametrize("name", ["vllm_7b_config", "vllm_26b_config",

@@ -430,11 +430,11 @@ def test_region_masks_reach_no_train_step(data_dir):
 # the loader's seeded samples, the registry, the shipped configs
 # ---------------------------------------------------------------------------
 
-def _interactive_batches(files, root, workers):
+def _interactive_batches(files, root, workers, tok):
     ds = tbuild.build_dataset(
         {"type": "coco_interactive", "ann_file": files["instances"],
          "img_prefix": str(root), "test_mode": False, "max_regions": 4},
-        MockTokenizer(), image_token_len=IMAGE_TOKENS,
+        tok, image_token_len=IMAGE_TOKENS,
         image_size=IMAGE_SIZE)
     concat = tbuild.ConcatDataset([ds])
     batches = [[0, 1], [2, 3], [1, 0], [3, 2]]
@@ -452,11 +452,48 @@ def test_interactive_batches_equal_across_four_worker_runs(data_dir):
     runs at 4 workers give equal batches, prompt shapes included, and
     the same index gives the same sample in any batch."""
     root, files = data_dir
-    runs = [_interactive_batches(files, root, 4) for _ in range(2)]
+    # the word-level tokenizer numbers words in the order the loader's
+    # threads meet them: one synchronous pass fixes every id first
+    tok = MockTokenizer()
+    _interactive_batches(files, root, 0, tok)
+    runs = [_interactive_batches(files, root, 4, tok) for _ in range(2)]
     assert len(runs[0]) == len(runs[1]) == 4
     for a, b in zip(*runs):
         assert_same(a, b)
     assert_same(runs[0][0][0], runs[0][2][1])
+
+
+def test_simple_tokenizer_threads_get_distinct_ids():
+    """8 threads tokenizing disjoint words give every word its own id (the
+    port's `SimpleTokenizer` locks its counter), and one thread's ids are
+    the JAX tokenizer's."""
+    import sys
+    import threading
+
+    from visionllm_tpu_torch.utils.simple_tokenizer import SimpleTokenizer
+
+    text = "a photo of two cats , and a dog ."
+    assert SimpleTokenizer()(text).input_ids == MockTokenizer()(text).input_ids
+    tok = SimpleTokenizer()
+    words = [[f"w{t}x{i}" for i in range(400)] for t in range(8)]
+    got = [None] * 8
+
+    def work(t):
+        got[t] = [tok.tokenize_str(w)[0] for w in words[t]]
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=30)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    ids = [i for g in got for i in g]
+    assert len(ids) == 3200 and len(set(ids)) == 3200
 
 
 def test_registries_match():

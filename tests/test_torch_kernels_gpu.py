@@ -4,7 +4,8 @@ JAX) run them with
 
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
 
-and one kernel's cases alone with `-k flash` (or `-k int4`, `-k msda`;
+and one kernel's cases alone with `-k flash` (or `-k attention_lse`, the
+ring attention's block; `-k int4`, `-k msda`;
 `-k int8` the int8 serving modes' library products; `-k "dcnv3 or
 internvit or internlm2"` the 26B det path's shapes).
 
@@ -152,6 +153,27 @@ def test_flash_lse_and_autograd_match_plain(cuda, name):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.bfloat16
         _close(g, w)
+
+
+@pytest.mark.parametrize("name", ["causal_d128", "gqa", "long_d128"])
+def test_attention_lse_kernel_matches_plain(cuda, name):
+    """`attention_lse` (the ring's block) on bf16 CUDA inputs launches
+    the flash kernel once and returns its bf16 output within the kernel
+    gate and its row logsumexp within 1e-3 of `attention_lse_plain`'s
+    fp32 pair; fp32 inputs take the plain pair and launch nothing."""
+    q, k, v, _, _, causal = _flash_case(name, 600, cuda)
+    n = A.flash_attention.launches
+    out, lse = A.attention_lse(q, k, v, causal=causal)
+    assert A.flash_attention.launches == n + 1
+    want, want_lse = A.attention_lse_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _close(out, want)
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    plain = A.attention_lse(q.float(), k.float(), v.float(), causal=causal)
+    assert A.flash_attention.launches == n + 1
+    assert torch.equal(plain[1], A.attention_lse_plain(
+        q.float(), k.float(), v.float(), causal=causal)[1])
 
 
 def test_flash_kernel_takes_strided_views(cuda):

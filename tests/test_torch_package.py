@@ -25,6 +25,8 @@ def _port_sources():
     # the reference-layout writer that chip_smoke.py imports
     yield os.path.join(ROOT, "tests", "torch_ref_layout.py")
     yield os.path.join(ROOT, "tests", "sd15_published_keys.py")
+    # the multi-process scenarios the parallel tests spawn
+    yield os.path.join(ROOT, "tests", "torch_dist_worker.py")
 
 
 def _imported_modules(path):

@@ -31,8 +31,14 @@ Differences from the JAX CLI (`ROADMAP.md` §C.3):
   exits with a message, and every command uses the word-level
   `SimpleTokenizer` with `SpecialTokenIds.synthetic()`, as the JAX CLI
   uses its `MockTokenizer` without `--tokenizer`;
-- `--distributed` raises `NotImplementedError`: parallelism is not
-  ported (`ROADMAP.md` A.8). `dist_kwargs_from_env` is ported as it is.
+- `--distributed` joins the processes through
+  `parallel.mesh.init_process_group_for` (NCCL on `cuda:{LOCAL_RANK}`
+  unless `--device` names another device; gloo on the CPU) where the JAX
+  CLI calls `jax.distributed.initialize`, from `--coordinator /
+  --num-processes / --process-id` or a scheduler's environment
+  (`dist_kwargs_from_env`); every process then runs the command whole, as
+  the JAX CLI's do. `train` over more than one process raises
+  `NotImplementedError`: the Trainer under a mesh is `ROADMAP.md` A.8.2.
 """
 
 from __future__ import annotations
@@ -194,7 +200,9 @@ def _common(sub) -> None:
 
 def _dist_flags(p) -> None:
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host run: not ported (ROADMAP.md A.8)")
+                   help="multi-process run: join the processes' group "
+                        "(torchrun, slurm or OpenMPI environment, or the "
+                        "three flags below)")
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -268,11 +276,40 @@ def dist_kwargs_from_env(environ) -> dict:
     return {}
 
 
-def _refuse_distributed(args) -> None:
-    if getattr(args, "distributed", False):
+def _maybe_init_distributed(args) -> None:
+    """Join the process group of a `--distributed` run: the coordinator,
+    size and rank from the three flags or from the scheduler's
+    environment; the device `cuda:{LOCAL_RANK}` unless `--device` names
+    another (which then also picks the backend)."""
+    if not getattr(args, "distributed", False):
+        return
+    import os
+
+    from visionllm_tpu_torch.parallel.mesh import init_process_group_for
+    if args.coordinator:
+        kw = dict(coordinator_address=args.coordinator,
+                  num_processes=args.num_processes,
+                  process_id=args.process_id)
+        if None in kw.values():
+            raise SystemExit("--coordinator needs --num-processes and "
+                             "--process-id")
+    else:
+        kw = dist_kwargs_from_env(os.environ)
+        if not kw:
+            raise SystemExit(
+                "--distributed needs --coordinator / --num-processes / "
+                "--process-id or a launcher's environment (torchrun's "
+                "RANK / WORLD_SIZE / MASTER_ADDR, slurm or OpenMPI)")
+    if args.cmd == "train" and kw["num_processes"] > 1:
         raise NotImplementedError(
-            "--distributed: multi-process runs are not ported "
-            "(ROADMAP.md A.8)")
+            f"train over {kw['num_processes']} processes: the Trainer under "
+            "a mesh is not ported (ROADMAP.md A.8.2)")
+    if args.device is None:
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    init_process_group_for(args.device,
+                           init_method=kw["coordinator_address"],
+                           world_size=kw["num_processes"],
+                           rank=kw["process_id"])
 
 
 # ---------------------------------------------------------------- parser
@@ -546,7 +583,15 @@ def run_train(args) -> None:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_distributed(args)
+    _maybe_init_distributed(args)
+    try:
+        _run(args, parser)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, parser) -> None:
     if args.cmd in EVAL_DATASETS:
         print(json.dumps(run_eval(args)))
     elif args.cmd == "eval-vqa":

@@ -40,6 +40,12 @@
   passed (JAX `nn.remat` of the scanned layer, `llama.py:219-225`):
   "dots" saves the 2-D products' outputs (`dots_with_no_batch_dims_
   saveable`), "full" recomputes the layer.
+* Under tensor parallelism (`parallel/mesh.apply_tensor_parallel`, which
+  sets `LlamaModel.tp_size`) each rank's projections hold H / tp query
+  and H_kv / tp kv heads: the layer reshapes by the head dim alone, and
+  the cache holds the local kv heads. `constrain_seq` runs where JAX
+  calls it (`llama.py:186`, `:275`); on the plain activations the model
+  runs on today it returns them unchanged (`ROADMAP.md` A.8.3).
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from visionllm_tpu_torch.ops.attention import multi_head_attention
 from visionllm_tpu_torch.ops.quant import (Int8ActLinear, Int8Linear,
                                            int8_kv_attention, quantize_kv)
 from visionllm_tpu_torch.ops.quant4 import Int4Linear
+from visionllm_tpu_torch.parallel.sequence import constrain_seq
 
 
 class KVCache:
@@ -76,9 +83,11 @@ class KVCache:
 
     @classmethod
     def create(cls, cfg: LLMConfig, batch: int, max_len: int,
-               dtype: torch.dtype, device) -> "KVCache":
-        """Zeroed buffers in `dtype`; `torch.int8` makes an int8 cache."""
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+               dtype: torch.dtype, device, tp_size: int = 1) -> "KVCache":
+        """Zeroed buffers in `dtype`; `torch.int8` makes an int8 cache.
+        Under tensor parallelism of `tp_size` ranks each holds H_kv /
+        tp_size heads."""
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads // tp_size,
                  cfg.head_dim)
         k, v = (torch.zeros(shape, dtype=dtype, device=device)
                 for _ in range(2))
@@ -166,9 +175,11 @@ class LlamaDecoderLayer(nn.Module):
         cfg = self.cfg
         B, L, _ = hidden.shape
         x = self.input_layernorm(hidden)
-        q = self.q_proj(x).reshape(B, L, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).reshape(B, L, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(x).reshape(B, L, cfg.num_kv_heads, cfg.head_dim)
+        # by the head dim alone: under tensor parallelism the projections
+        # give this rank's heads
+        q = self.q_proj(x).reshape(B, L, -1, cfg.head_dim)
+        k = self.k_proj(x).reshape(B, L, -1, cfg.head_dim)
+        v = self.v_proj(x).reshape(B, L, -1, cfg.head_dim)
         q, k = apply_rope(q, k, cos, sin)
         if k_cache is not None and k_cache.dtype == torch.int8:
             for buf, sbuf, new in ((k_cache, ks_cache, k),
@@ -193,8 +204,9 @@ class LlamaDecoderLayer(nn.Module):
             attn = multi_head_attention(q, k_cache, v_cache, mask=bias)
         hidden = hidden + self.o_proj(attn.reshape(B, L, -1))
         x = self.post_attention_layernorm(hidden)
-        return hidden + self.down_proj(F.silu(self.gate_proj(x))
-                                       * self.up_proj(x))
+        hidden = hidden + self.down_proj(F.silu(self.gate_proj(x))
+                                         * self.up_proj(x))
+        return constrain_seq(hidden)
 
 
 class LlamaModel(nn.Module):
@@ -208,6 +220,7 @@ class LlamaModel(nn.Module):
             LlamaDecoderLayer(cfg) for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = _dense(cfg, cfg.hidden_size, cfg.vocab_size)
+        self.tp_size = 1    # set by parallel/mesh.apply_tensor_parallel
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
@@ -226,6 +239,7 @@ class LlamaModel(nn.Module):
         cfg = self.cfg
         dtype = self.norm.weight.dtype
         B, L, _ = inputs_embeds.shape
+        inputs_embeds = constrain_seq(inputs_embeds)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                                 dtype=dtype)
         seg = bias = None

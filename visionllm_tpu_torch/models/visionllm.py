@@ -182,7 +182,8 @@ class VisionLLM(nn.Module):
         `generation.py:245-247`)."""
         w = self.llm.norm.weight
         dtype = torch.int8 if self.cfg.llm.kv_quant == "int8" else w.dtype
-        return KVCache.create(self.cfg.llm, batch, max_len, dtype, w.device)
+        return KVCache.create(self.cfg.llm, batch, max_len, dtype, w.device,
+                              self.llm.tp_size)
 
     def splice_emb_embeddings(self, inputs_embeds: torch.Tensor,
                               input_ids: torch.Tensor,

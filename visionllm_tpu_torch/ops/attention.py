@@ -21,6 +21,11 @@ backward launches `csrc/flash_attn_bwd.cu` (the counterpart of the Pallas
 `_flash_attention_bwd_dkv` / `_flash_attention_bwd_dq`) through
 `flash_attention_bwd`, whose plain version is autograd of
 `flash_attention_plain`.
+
+`attention_lse` returns the row logsumexp beside the output, without
+autograd, for callers that merge attention blocks (`ops/ring_attention.py`):
+the same kernel where `multi_head_attention` would flash a bf16 CUDA call,
+`attention_lse_plain` (fp32) elsewhere.
 """
 
 from __future__ import annotations
@@ -247,6 +252,40 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=False,
 
 
 flash_attention_bwd.launches = 0
+
+
+def attention_lse_plain(q, k, v, *, causal=False):
+    """(out, lse) of the flash kernel's function in fp32: out [B, Lq, H, D]
+    and the row logsumexp of the scaled scores [B, H, Lq] (start-aligned
+    causal mask, GQA)."""
+    H, H_kv = q.shape[2], k.shape[2]
+    k, v = k.float(), v.float()
+    if H_kv != H:
+        k = k.repeat_interleave(H // H_kv, dim=2)
+        v = v.repeat_interleave(H // H_kv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * q.shape[-1] ** -0.5
+    if causal:
+        Lq, Lk = q.shape[1], k.shape[1]
+        cm = (torch.arange(Lk, device=q.device)[None, :]
+              <= torch.arange(Lq, device=q.device)[:, None])
+        s = s.masked_fill(~cm, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+    return out, lse
+
+
+def attention_lse(q, k, v, *, causal=False):
+    """(out, lse) of softmax attention, without autograd, for callers that
+    merge blocks (ring attention): the flash kernel, which writes the row
+    logsumexp beside its bf16 output, where `multi_head_attention` would
+    flash a bf16 CUDA call; the plain version in fp32 elsewhere."""
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16 \
+            and _flash_ok(q, k, None, causal):
+        _check_flash_args(q, k, v, causal, None)
+        B, Lq, H, _ = q.shape
+        lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
+        return _launch_fwd(q, k, v, causal, None, lse), lse
+    return attention_lse_plain(q, k, v, causal=causal)
 
 
 def _flash_ok(q, k, mask, causal) -> bool:

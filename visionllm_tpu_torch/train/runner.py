@@ -177,7 +177,7 @@ class Trainer:
         if tc.n_model > 1:
             raise NotImplementedError(
                 f"TrainConfig.n_model={tc.n_model}: tensor parallelism is "
-                "not ported (ROADMAP.md A.8)")
+                "not ported (ROADMAP.md A.8.2)")
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.tc = tc

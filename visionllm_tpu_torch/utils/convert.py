@@ -29,31 +29,48 @@ the flax ones, so the map is mechanical:
     InternImage's `stage{s}_block{b}`).
 
 It raises on any flax leaf that maps to no parameter and on any
-parameter that no leaf fills.
+parameter that no leaf fills. A model already sharded by
+`parallel.mesh.apply_shardings` loads too: each DTensor parameter takes
+its shard of the array (every rank passes the whole tree).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from visionllm_tpu_torch.ops.quant import Int8Linear
 
 
+def flax_leaf(mod: nn.Module, name: str
+              ) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """The flax leaf of `mod`'s parameter `name`: its flax name and
+    `axes`, where `axes[j]` is the port's dim of flax dim j (None: the
+    same order)."""
+    if name == "weight":
+        if isinstance(mod, nn.Linear):
+            return "kernel", (1, 0)               # [in, out] <- [out, in]
+        if isinstance(mod, nn.Conv2d):
+            return "kernel", (2, 3, 1, 0)         # HWIO <- OIHW
+        if isinstance(mod, nn.Embedding):
+            return "embedding", None
+        if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+            return "scale", None
+    return name, None
+
+
 def _leaf(mod: nn.Module, name: str, arr: np.ndarray):
-    if name == "kernel" and isinstance(mod, nn.Linear):
-        return "weight", arr.T
+    """The port's name and array of `mod`'s flax leaf `name`."""
     if name == "kernel_q" and isinstance(mod, Int8Linear):
         return name, np.swapaxes(arr, -1, -2)
-    if name == "kernel" and isinstance(mod, nn.Conv2d):
-        return "weight", arr.transpose(3, 2, 0, 1)
-    if name == "embedding" and isinstance(mod, nn.Embedding):
-        return "weight", arr
-    if name == "scale" and isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
-        return "weight", arr
+    leaf, axes = flax_leaf(mod, "weight")
+    if name == leaf != "weight":
+        return "weight", arr if axes is None else arr.transpose(
+            np.argsort(axes))
     return name, arr
 
 
@@ -111,6 +128,9 @@ def load_jax_params(module: nn.Module, params: Mapping) -> None:
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: flax shape {arr.shape} vs port "
                              f"{tuple(p.shape)}")
-        src = np.array(arr, dtype=np.int64 if np.issubdtype(
-            np.asarray(arr).dtype, np.integer) else np.float32)
-        p.copy_(torch.from_numpy(src))
+        src = torch.from_numpy(np.array(arr, dtype=np.int64 if np.issubdtype(
+            np.asarray(arr).dtype, np.integer) else np.float32))
+        if isinstance(p, DTensor):
+            src = distribute_tensor(src.to(p.dtype), p.device_mesh,
+                                    p.placements)
+        p.copy_(src)

@@ -9,6 +9,7 @@ angled) as single ids, pad/bos ids, `legacy` flag.
 """
 
 import re
+import threading
 import zlib
 from typing import List
 
@@ -45,14 +46,18 @@ class SimpleTokenizer:
         self.vocab["<|im_start|>"] = base + len(order)
         self.vocab["<|im_end|>"] = base + len(order) + 1
         self._next = 4
+        self._lock = threading.Lock()
 
     def _word_id(self, w: str) -> int:
-        if w not in self.vocab:
-            self.vocab[w] = self._next
-            self._next += 1
-            if self._next >= 31000:
-                self._next = 4
-        return self.vocab[w]
+        # the loader's threads tokenize concurrently: without the lock
+        # two new words can read the same `_next`
+        with self._lock:
+            if w not in self.vocab:
+                self.vocab[w] = self._next
+                self._next += 1
+                if self._next >= 31000:
+                    self._next = 4
+            return self.vocab[w]
 
     def tokenize_str(self, text: str) -> List[int]:
         ids = []
