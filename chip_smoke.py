@@ -247,7 +247,9 @@ Phases, each printing one JSON line:
              batch included): device ms and idle share with the prefetch
              loader (step 6) and with the synchronous loop (step 8);
 15d. tooltrain - `Trainer.train` of the whole 7B flagship over the five
-             tool groups, after the trainer phase's model is freed:
+             tool groups, after the loratrain phase's model is freed
+             (loratrain runs first: this phase joins the process group,
+             under which a Trainer lays a mesh):
              `build_model(vllm_7b_config())` in bf16 (both Swin-T patch
              biases drawn from a seed, as in the trainer phase), stage 1
              (the vision encoder, the LLM, the [GEN] UNet and both VAEs
@@ -280,12 +282,29 @@ Phases, each printing one JSON line:
              bit-identical after all runs (64-bit digests), 90 % of the
              trainable masters moved; (d) `evaluate_pose` on the pose
              fixtures in test mode at B8 and B1 gives the same metrics,
-             and the gt fed back as detections scores OKS mAP 1.0. Prints
-             per group the step intervals (median), launches and peak,
-             the checkpoint's bytes, save, load and restore seconds;
+             and the gt fed back as detections scores OKS mAP 1.0; (e)
+             the mesh run, the model's last use: a Trainer under the
+             world-1 NCCL group (`world_group`, which the parallel phase
+             shares), its mesh of data 1, model 1 sharding the model in
+             place (`apply_shardings`: FSDP2), resumed from the step-5
+             checkpoint to TOOL_STEPS, its steps profiled, is held to
+             (b)'s gate beside the resumed runs (step 6 bit for bit; its
+             gaps against the plain resumed runs' spread, which it does
+             not set, and printed apart as `mesh_gap`) and to (c)'s
+             launch table; its step-10 checkpoint, gathered and written
+             by rank 0, has the straight run's keys, shapes and dtypes,
+             and a one-process Trainer restores it into a stand-in of the
+             trainable parameters (`trainable_standin`) to the mesh
+             run's state sketch exactly. Prints per group the step
+             intervals (median), launches and peak, the checkpoint's
+             bytes, save, load and restore seconds, and the mesh run's
+             step walls beside the first resumed run's, idle share, peak,
+             restore (with `apply_shardings`), save and plain-restore
+             seconds;
 15e. tooltrain_profile - each of steps 6-10 of the first resumed run (one
-             a group) in a synced range of one profiler context: device
-             ms, idle share and the port's kernels;
+             a group) and of the mesh run in a synced range of one
+             profiler context each: device ms, idle share and the port's
+             kernels;
 15f. loratrain - LLaMA-7B's LoRA adapters, with nothing else resident:
              `build_model(vllm_7b_chat_config(llm=LLMConfig(vocab_size=
              32096, lora_r=32, lora_alpha=64.0)))` in bf16 (CLIP-ViT-L/336,
@@ -444,7 +463,8 @@ Phases, each printing one JSON line:
              `region_acc@0.5`, its build and eval seconds;
 20d. parallel - the parallel layer on the flagship model, its last use
              (after evalx's gates, before the CLI subprocess): one rank
-             over NCCL through a `file://` store, `build_mesh()` at
+             over NCCL (`world_group`: the group the tooltrain phase
+             joined, else joined here), `build_mesh()` at
              (data 1, context 1, model 1) and the model's placements by
              mesh rule (`shard_params`: parameters, values and bytes). The
              det request's `infer_det` and a PAR_GEN_NEW-token greedy
@@ -717,6 +737,7 @@ from visionllm_tpu_torch.serve import (ChatService, _Request, make_server,
 from visionllm_tpu_torch.slots import build_slot_fns
 from visionllm_tpu_torch.tools import msda_kernel_attempts as probes
 from visionllm_tpu_torch.train.cdn import cdn_groups
+from visionllm_tpu_torch.train import runner as TR
 from visionllm_tpu_torch.train.runner import (TrainConfig, Trainer,
                                               frozen_predicate, to_device)
 from visionllm_tpu_torch.train.train_step import (TrainState, build_optimizer,
@@ -3303,6 +3324,7 @@ def tool_instrument(trainer, rec, profiled=False, prefix="tooltrain"):
                                           zip(c0, train_counts())),
                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
             return out
+        step.draw = fn.draw
         return step
 
     trainer.step_fn_for = wrapped_for
@@ -3362,6 +3384,15 @@ def state_sketch(state):
     return out
 
 
+def state_digests(state):
+    """`tensor_digest` of each master, moment and running mean of a
+    state: integer sums, so equal tensors give equal digests in any
+    summation order (a sketch's fp64 atomics do not)."""
+    return {part: {n: tensor_digest(t) for n, t in getattr(state,
+                                                           part).items()}
+            for part in ("masters", "mu", "nu", "acc")}
+
+
 def sketch_rel_err(a, b):
     """`state_rel_err` of two `state_sketch`es: |a - b| / |b| a part."""
     return {part: float((a[part] - b[part]).norm() / b[part].norm())
@@ -3412,6 +3443,125 @@ def tool_resume(cfg, tid, tok, ds_cfgs, model, ckpt_dir, ck, out,
     return run
 
 
+def trainable_standin(model, names):
+    """A module holding only `names` of `model`'s parameters, each an
+    empty tensor of its shape, dtype and device under its dotted name: a
+    plain Trainer restores a checkpoint of the phase's trainable state
+    into it without a second model."""
+    params = dict(model.named_parameters())
+    root = torch.nn.Module()
+    for n in names:
+        mod = root
+        *path, leaf = n.split(".")
+        for part in path:
+            if not hasattr(mod, part):
+                mod.add_module(part, torch.nn.Module())
+            mod = getattr(mod, part)
+        mod.register_parameter(leaf, torch.nn.Parameter(torch.empty(
+            params[n].shape, dtype=params[n].dtype,
+            device=params[n].device)))
+    return root
+
+
+def tool_mesh_resume(cfg, tid, tok, ds_cfgs, model, ckpt_root, out):
+    """Check (e), the mesh run: a Trainer under the world-1 process group
+    (`world_group`; its mesh of data 1, model 1 shards the phase's model
+    in place by `apply_shardings`) resumed from the step-TOOL_SAVE_EVERY
+    checkpoint under `ckpt_root` to TOOL_STEPS, its steps profiled as
+    the first resumed run's; its step-TOOL_STEPS checkpoint written by
+    the gathered save into `out`. Returns `tool_resume`'s keys plus the
+    seconds of its restore (`apply_shardings` apart), of its save, and
+    the checkpoint's directory."""
+    world_group()
+    ckpt_dir = os.path.join(out, "checkpoints")
+    os.makedirs(ckpt_dir)
+    os.symlink(os.path.join(ckpt_root, str(TOOL_SAVE_EVERY)),
+               os.path.join(ckpt_dir, str(TOOL_SAVE_EVERY)))
+    trainer = Trainer(cfg, tool_config(out), tid)
+    if trainer.mesh is None:
+        raise AssertionError("the Trainer laid no mesh under the group")
+    trainer.model = model
+    trainer.ckpt_dir = ckpt_dir
+    rec, secs = [], {}
+    tool_instrument(trainer, rec, True, prefix="tooltrain_mesh")
+    shard, init_state, save = TR.apply_shardings, trainer.init_state, \
+        trainer.save
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t0
+            return res
+        return call
+    restore = timed("restore_s", init_state)
+
+    def restore_then_drop():
+        state = restore()
+        # the straight run's checkpoint is read: its 12.7 GB go before the
+        # mesh run writes its own
+        shutil.rmtree(os.path.join(ckpt_root, str(TOOL_SAVE_EVERY)))
+        return state
+    trainer.init_state = restore_then_drop
+    trainer.save = timed("save_s", save)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with mock.patch.object(TR, "apply_shardings",
+                           timed("apply_shardings_s", shard)):
+        prof.start()
+        state = trainer.train(ds_cfgs, tok)
+        prof.stop()
+    if state.step != TOOL_STEPS or state.mesh is None:
+        raise AssertionError(f"the mesh run stopped at {state.step}")
+    run = {"rows": read_metrics(out), "rec": rec,
+           "sketch": state_sketch(state), "digests": state_digests(state),
+           "intervals": tool_intervals(trainer), "prof": prof,
+           "ckpt_dir": ckpt_dir, "position": trainer.position, **secs}
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def tool_mesh_checkpoint(cfg, tid, model, run, layout, names, out):
+    """The mesh run's gathered checkpoint: its keys, shapes and dtypes are
+    `layout`'s (the straight run's step-TOOL_SAVE_EVERY checkpoint), and
+    a one-process Trainer restores it into a stand-in of the trainable
+    parameters (`trainable_standin`): its step and position the mesh
+    run's, every tensor of its state the mesh run's final one bit for
+    bit (`state_digests`)."""
+    ck = restore_checkpoint(run["ckpt_dir"], TOOL_STEPS)
+    got = {part: {n: (tuple(t.shape), t.dtype) for n, t in ck[part].items()}
+           for part in ("masters", "mu", "nu", "acc")}
+    if got != layout or ck["step"] != TOOL_STEPS:
+        raise AssertionError(f"the gathered checkpoint's layout differs: "
+                             f"step {ck['step']}")
+    del ck
+    plain = Trainer(cfg, tool_config(out), tid)
+    plain.mesh = None            # the one-process Trainer, under the group
+    plain.model = trainable_standin(model, names)
+    plain.ckpt_dir = run["ckpt_dir"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = plain.init_state()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    digests = state_digests(state)
+    bad = [(p, n) for p in digests for n in digests[p]
+           if digests[p][n] != run["digests"][p][n]]
+    if (bad or state.step != TOOL_STEPS
+            or plain.position != run["position"]):
+        raise AssertionError(f"the plain restore of the mesh checkpoint: "
+                             f"step {state.step}, position "
+                             f"{plain.position}, differing {bad[:5]}")
+    del state, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layout_equal": True, "plain_restore_s": restore_s,
+            "state_bit_equal": True}
+
+
 def tool_intervals(trainer, minus=None):
     """(group, ms) of each step after a run's first: from the end of the
     step before to its own end (the wait for its batch, moving it, the
@@ -3423,50 +3573,63 @@ def tool_intervals(trainer, minus=None):
             for a, b in zip(h, h[1:])]
 
 
-def tool_resume_gate(rows, sketch, runs):
-    """Check (b)'s gate: each resumed run's step TOOL_SAVE_EVERY + 1 loss
-    terms bit for bit, then its distance from the straight run (`gap`)
-    against the largest distance between two resumed runs (`spread`), in
-    the
-    metrics of steps TOOL_SAVE_EVERY + 1 to TOOL_STEPS (relative to the
-    straight run's) within RESUME_SPREAD_K_LOSS and in the final masters
-    and moments (`sketch_rel_err` of the `state_sketch`es) within
-    RESUME_SPREAD_K_STATE, as the trainer phase's check 6."""
+def tool_resume_gate(rows, sketch, runs, mesh_run):
+    """Check (b)'s gate and (e)'s: each resumed run's and the mesh run's
+    step TOOL_SAVE_EVERY + 1 loss terms bit for bit, then each one's
+    distance from the straight run (`gap`) against the largest distance
+    between two of the plain resumed runs `runs` (`spread`: the mesh run
+    sets none of it), in the metrics of steps TOOL_SAVE_EVERY + 1 to
+    TOOL_STEPS (relative to the straight run's) within
+    RESUME_SPREAD_K_LOSS and in the final masters and moments
+    (`sketch_rel_err` of the `state_sketch`es) within
+    RESUME_SPREAD_K_STATE, as the trainer phase's check 6. The mesh
+    run's gaps are reported apart (`mesh_gap`)."""
     at = TOOL_SAVE_EVERY
     keys = [(s, k) for s in range(at, TOOL_STEPS) for k in rows[s]
             if k not in ("time", "step")]
     want = np.array([rows[s][k] for s, k in keys])
-    got = [np.array([r["rows"][s - at][k] for s, k in keys]) for r in runs]
-    for i, r in enumerate(runs):
+    want_terms = {k: v for k, v in rows[at].items()
+                  if k not in ("time", "grad_norm")}
+    for i, r in enumerate(runs + [mesh_run]):
         terms = {k: v for k, v in r["rows"][0].items()
                  if k not in ("time", "grad_norm")}
-        want_terms = {k: v for k, v in rows[at].items()
-                      if k not in ("time", "grad_norm")}
         if terms != want_terms:
-            raise AssertionError(f"resumed run {i}: step {at + 1} {terms} "
+            who = "the mesh run" if i == len(runs) else f"resumed run {i}"
+            raise AssertionError(f"{who}: step {at + 1} {terms} "
                                  f"against {want_terms}")
+
+    def metrics(r):
+        return np.array([r["rows"][s - at][k] for s, k in keys])
 
     def rel(a, b):
         return float(np.max(np.abs(a - b) / np.maximum(np.abs(want),
                                                        1e-30)))
+    got = [metrics(r) for r in runs]
+    mesh_got = metrics(mesh_run)
     pairs = list(itertools.combinations(range(len(runs)), 2))
     out = {"metric": {"gap": max(rel(g, want) for g in got),
+                      "mesh_gap": rel(mesh_got, want),
                       "spread": max(rel(got[j], got[i]) for i, j in pairs),
                       "k": RESUME_SPREAD_K_LOSS},
            "k_state": RESUME_SPREAD_K_STATE,
            "losses": [[row["loss"] for row in r["rows"]] for r in runs],
+           "mesh_losses": [row["loss"] for row in mesh_run["rows"]],
            "state": {}}
     gaps = [sketch_rel_err(r["sketch"], sketch) for r in runs]
+    mesh_gaps = sketch_rel_err(mesh_run["sketch"], sketch)
     spreads = [sketch_rel_err(runs[j]["sketch"], runs[i]["sketch"])
                for i, j in pairs]
     for part in ("masters", "mu", "nu"):
         out["state"][part] = {"gap": max(g[part] for g in gaps),
+                              "mesh_gap": mesh_gaps[part],
                               "spread": max(d[part] for d in spreads)}
-    if (out["metric"]["gap"] > RESUME_SPREAD_K_LOSS * out["metric"]["spread"]
-            or any(v["gap"] > RESUME_SPREAD_K_STATE * v["spread"]
+    m = out["metric"]
+    if (max(m["gap"], m["mesh_gap"]) > RESUME_SPREAD_K_LOSS * m["spread"]
+            or any(max(v["gap"], v["mesh_gap"])
+                   > RESUME_SPREAD_K_STATE * v["spread"]
                    for v in out["state"].values())):
-        raise AssertionError(f"resumed runs drift from the straight run "
-                             f"beyond their own spread: {out}")
+        raise AssertionError(f"resumed or mesh runs drift from the straight "
+                             f"run beyond the resumed runs' spread: {out}")
     return out
 
 
@@ -3617,6 +3780,9 @@ def run_tooltrain():
         t = time.perf_counter()
         ck = restore_checkpoint(ckpt_root, TOOL_SAVE_EVERY)
         load_s = time.perf_counter() - t
+        layout = {part: {n: (tuple(v.shape), v.dtype)
+                         for n, v in ck[part].items()}
+                  for part in ("masters", "mu", "nu", "acc")}
         # the first resumed run holds its restored state to the checkpoint
         # bit for bit (the restore is the same code for each)
         t = time.perf_counter()
@@ -3627,7 +3793,6 @@ def run_tooltrain():
                    for i in range(TOOL_REPEATS)]
         sections["resumed_runs"] = time.perf_counter() - t
         del ck
-        resume = tool_resume_gate(rows, sketch, resumed)
         bad = [(r["group"], r["launches"]) for run in resumed
                for r in run["rec"] if r["launches"] != per_step[r["group"]]]
         if bad:
@@ -3646,6 +3811,8 @@ def run_tooltrain():
                                      for iv in r["intervals"]]
         peaks["resumed"] = max(r["peak_gb"] for run in resumed
                                for r in run["rec"])
+        unwrapped = {r["group"]: r["wall_ms"] for r in resumed[0]["rec"]}
+        gated = [{"rows": r["rows"], "sketch": r["sketch"]} for r in resumed]
         del resumed, prof
         gc.collect()
 
@@ -3662,6 +3829,36 @@ def run_tooltrain():
         evaluation = tool_eval_pose(model, tid, tok, paths, cfg)
         sections["evaluate_pose"] = time.perf_counter() - t
         peaks["evaluate_pose"] = torch.cuda.max_memory_allocated() / 1e9
+
+        # check (e): the mesh run, the model's last use (FSDP2 wraps it)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _, fn in TRAIN_KERNELS:
+            fn.launches = 0
+        mesh_run = tool_mesh_resume(cfg, tid, tok, ds_cfgs, model, ckpt_root,
+                                    os.path.join(tmp, "mesh"))
+        mesh_launches = {name: fn.launches for name, fn in TRAIN_KERNELS}
+        sections["mesh_run"] = time.perf_counter() - t
+        peaks["mesh_run"] = max(r["peak_gb"] for r in mesh_run["rec"])
+        bad = [(r["group"], r["launches"]) for r in mesh_run["rec"]
+               if r["launches"] != per_step[r["group"]]]
+        if bad:
+            raise AssertionError(f"mesh run launches per step {bad}")
+        t = time.perf_counter()
+        labels = {f"tooltrain_mesh:{r['step']}:{r['group']}": r
+                  for r in mesh_run["rec"]}
+        summaries = range_summaries(
+            mesh_run["prof"], {k: r["wall_ms"] for k, r in labels.items()},
+            TOOL_GAP_S * 1e3 / 2)
+        mesh_profiled = {r["group"]: summaries[k] for k, r in labels.items()}
+        mesh_run.pop("prof")
+        sections["mesh_profile_read"] = time.perf_counter() - t
+        t = time.perf_counter()
+        names = list(layout["masters"])
+        mesh_ckpt = tool_mesh_checkpoint(cfg, tid, model, mesh_run, layout,
+                                         names, os.path.join(tmp, "plain"))
+        sections["mesh_checkpoint_check"] = time.perf_counter() - t
+        resume = tool_resume_gate(rows, sketch, gated, mesh_run)
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3679,9 +3876,24 @@ def run_tooltrain():
             "step_interval_ms_median": statistics.median(iv) if iv else None,
             "peak_gb": max(r["peak_gb"] for r in steps),
             "profiled_step": prof_g}
+    mesh_groups = {}
+    for g in TOOL_GROUPS:
+        iv = [ms for gg, ms in mesh_run["intervals"] if gg == g]
+        mesh_groups[g] = {
+            "step_wall_ms": mesh_profiled[g]["wall_ms"],
+            "unwrapped_step_wall_ms": unwrapped.get(g),
+            "step_interval_ms": iv,
+            "device_busy_ms": mesh_profiled[g]["device_busy_ms"],
+            "device_idle_share": mesh_profiled[g]["device_idle_share"],
+            "unwrapped_device_idle_share":
+                profiled[g]["device_idle_share"] if g in profiled else None,
+            "device_kernels": mesh_profiled[g]["device_kernels"],
+            "peak_gb": max(r["peak_gb"] for r in mesh_run["rec"]
+                           if r["group"] == g)}
     emit({"phase": "tooltrain_profile",
           "steps": {g: p["wall_ms"] for g, p in profiled.items()},
-          **{g: p for g, p in profiled.items()}})
+          **{g: p for g, p in profiled.items()},
+          "mesh": mesh_profiled})
     emit({"phase": "tooltrain", "config": "vllm_7b_config() stage 1",
           "params": n_params, "trainable": n_trainable,
           "trainable_tensors": len(trained_digest),
@@ -3693,12 +3905,20 @@ def run_tooltrain():
           "by_group": by_group, "launches": launches,
           "losses": [r["loss"] for r in rows], "metrics": rows,
           "resume": resume,
+          "mesh_run": {
+              "mesh": {"data": 1, "context": 1, "model": 1},
+              "backend": str(dist.get_backend()),
+              "launches": mesh_launches, "by_group": mesh_groups,
+              "losses": [r["loss"] for r in mesh_run["rows"]],
+              "restore_s": mesh_run["restore_s"],
+              "apply_shardings_s": mesh_run["apply_shardings_s"],
+              "save_s": mesh_run["save_s"], **mesh_ckpt},
           "checkpoint_bytes": ckpt_bytes, "save_s": saves, "load_s": load_s,
           "resume_init_s": resume_init_s, "evaluate_pose": evaluation,
           "model_build_s": build_s, "train_s": train_s,
           "sections_s": sections,
           "peak_mem_gb": peaks, "phase_s": time.perf_counter() - t_phase})
-    return launches
+    return launches, mesh_launches
 
 
 # ---------------------------------------------------------------------------
@@ -5208,7 +5428,9 @@ def run_flagship(flash_device_ms=None):
 # phase 20d: the parallel layer on the flagship model, at world 1
 # ---------------------------------------------------------------------------
 
-PAR_GEN_NEW = 16              # greedy tokens with and without the mesh
+# greedy tokens with and without the mesh (16 in PR 24; 8 pays for the
+# tooltrain phase's mesh run)
+PAR_GEN_NEW = 8
 PAR_RING = (1, 8192, 32, 128)  # B, L, H, D: LLaMA-7B's heads
 PAR_RING_BLOCKS = 4           # 2048-token blocks driven through ring_step
 PAR_PIPE = (4, 586)           # B, L of the world-1 pipeline
@@ -5327,9 +5549,19 @@ def placement_counts(model, mesh):
     return {"by_rule": by_rule, "by_spec": by_spec}
 
 
+def world_group(device="cuda"):
+    """Join this process's world-1 group once (NCCL on the card, gloo on
+    the CPU) through a `file://` store: the tooltrain phase's mesh run
+    and the parallel phase share it, and `main` ends it."""
+    if not dist.is_initialized():
+        PM.init_process_group_for(
+            device, init_method=f"file://{tempfile.mkdtemp()}/store",
+            world_size=1, rank=0)
+
+
 def run_parallel(model, cfg, tid, det, device="cuda"):
     """Phase `parallel` on the flagship model (its last use: the mesh
-    wraps it in place). World 1 over NCCL through a `file://` store,
+    wraps it in place). World 1 over NCCL (`world_group`),
     `build_mesh()` at (1, 1, 1), the placements of `shard_params`; then
     the det request's `infer_det` and a PAR_GEN_NEW-token greedy generate
     unwrapped, after `apply_tensor_parallel` and after `apply_shardings`
@@ -5343,127 +5575,122 @@ def run_parallel(model, cfg, tid, det, device="cuda"):
     t_phase = time.perf_counter()
     ids, images, aug = det
     core = model.core
-    store = tempfile.mkdtemp()
     t = time.perf_counter()
-    PM.init_process_group_for(device, init_method=f"file://{store}/store",
-                              world_size=1, rank=0)
-    try:
-        mesh = PM.build_mesh()
-        group_s = time.perf_counter() - t
-        placements = placement_counts(model, mesh)
-        chat_ids = ids[:, :cfg.image_token_len + 4]
-        gen = build_generate_fn(core, tid, max_new_tokens=PAR_GEN_NEW,
-                                max_len=chat_ids.shape[1] + PAR_GEN_NEW + 8)
+    world_group(device)
+    mesh = PM.build_mesh()
+    group_s = time.perf_counter() - t
+    placements = placement_counts(model, mesh)
+    chat_ids = ids[:, :cfg.image_token_len + 4]
+    gen = build_generate_fn(core, tid, max_new_tokens=PAR_GEN_NEW,
+                            max_len=chat_ids.shape[1] + PAR_GEN_NEW + 8)
 
-        def det_call():
-            return model.infer_det(ids, images, aug, tid)
+    def det_call():
+        return model.infer_det(ids, images, aug, tid)
 
-        def gen_call():
-            res = gen(chat_ids, images)
-            return {"tokens": res["out_tokens"], "hidden": res["out_hidden"]}
+    def gen_call():
+        res = gen(chat_ids, images)
+        return {"tokens": res["out_tokens"], "hidden": res["out_hidden"]}
 
-        def outputs():
-            return {"det": det_call(), "gen": gen_call()}
+    def outputs():
+        return {"det": det_call(), "gen": gen_call()}
 
-        def compare(stage, got):
-            """Bit-equality of each det output and of the hidden states
-            with the unwrapped run; any other float output within
-            LOGIT_REL_TOL; the tokens equal."""
-            pairs = dict(got["det"], hidden=got["gen"]["hidden"])
-            want = dict(plain["det"], hidden=plain["gen"]["hidden"])
-            equal = {k: bool(torch.equal(want[k], v)) for k, v in pairs.items()}
-            rel = {k: rel_err(v, want[k]) for k, v in pairs.items()
-                   if v.is_floating_point() and not equal[k]}
-            if any(not e <= LOGIT_REL_TOL for e in rel.values()):
-                raise AssertionError(f"parallel {stage}: {rel}")
-            if not torch.equal(plain["gen"]["tokens"], got["gen"]["tokens"]):
-                raise AssertionError(
-                    f"parallel {stage} generate: tokens "
-                    f"{plain['gen']['tokens'].tolist()} vs "
-                    f"{got['gen']['tokens'].tolist()}")
-            return {"bit_equal": equal, "rel_err": rel}
+    def compare(stage, got):
+        """Bit-equality of each det output and of the hidden states
+        with the unwrapped run; any other float output within
+        LOGIT_REL_TOL; the tokens equal."""
+        pairs = dict(got["det"], hidden=got["gen"]["hidden"])
+        want = dict(plain["det"], hidden=plain["gen"]["hidden"])
+        equal = {k: bool(torch.equal(want[k], v)) for k, v in pairs.items()}
+        rel = {k: rel_err(v, want[k]) for k, v in pairs.items()
+               if v.is_floating_point() and not equal[k]}
+        if any(not e <= LOGIT_REL_TOL for e in rel.values()):
+            raise AssertionError(f"parallel {stage}: {rel}")
+        if not torch.equal(plain["gen"]["tokens"], got["gen"]["tokens"]):
+            raise AssertionError(
+                f"parallel {stage} generate: tokens "
+                f"{plain['gen']['tokens'].tolist()} vs "
+                f"{got['gen']['tokens'].tolist()}")
+        return {"bit_equal": equal, "rel_err": rel}
 
-        with torch.no_grad():
-            plain = outputs()
-            walls = {"infer_det_ms_unwrapped": host_ms(det_call),
-                     "generate_ms_unwrapped": host_ms(gen_call)}
-            # the DTensor path over the model axis of 1, which
-            # `apply_shardings` skips there: its walls against the
-            # unwrapped ones are the dispatch's host cost
-            t = time.perf_counter()
-            PM.apply_tensor_parallel(model, mesh)
-            tp_s = time.perf_counter() - t
-            stages = {"tensor_parallel": compare("tensor_parallel",
-                                                 outputs())}
-            walls.update(infer_det_ms_tensor_parallel=host_ms(det_call),
-                         generate_ms_tensor_parallel=host_ms(gen_call))
-            t = time.perf_counter()
-            PM.apply_shardings(model, mesh)
+    with torch.no_grad():
+        plain = outputs()
+        walls = {"infer_det_ms_unwrapped": host_ms(det_call),
+                 "generate_ms_unwrapped": host_ms(gen_call)}
+        # the DTensor path over the model axis of 1, which
+        # `apply_shardings` skips there: its walls against the
+        # unwrapped ones are the dispatch's host cost
+        t = time.perf_counter()
+        PM.apply_tensor_parallel(model, mesh)
+        tp_s = time.perf_counter() - t
+        stages = {"tensor_parallel": compare("tensor_parallel",
+                                             outputs())}
+        walls.update(infer_det_ms_tensor_parallel=host_ms(det_call),
+                     generate_ms_tensor_parallel=host_ms(gen_call))
+        t = time.perf_counter()
+        PM.apply_shardings(model, mesh)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t
+        launches = {"flash_attn_fwd": 0, "ms_deform_attn_fwd": 0}
+        calls = {}
+
+        def counted(what, fn):
+            f0, m0 = A.flash_attention.launches, M.ms_deform_attn.launches
+            out = fn()
             torch.cuda.synchronize()
-            apply_s = time.perf_counter() - t
-            launches = {"flash_attn_fwd": 0, "ms_deform_attn_fwd": 0}
-            calls = {}
+            got = (A.flash_attention.launches - f0,
+                   M.ms_deform_attn.launches - m0)
+            calls[what] = got
+            launches["flash_attn_fwd"] += got[0]
+            launches["ms_deform_attn_fwd"] += got[1]
+            return out
 
-            def counted(what, fn):
-                f0, m0 = A.flash_attention.launches, M.ms_deform_attn.launches
-                out = fn()
-                torch.cuda.synchronize()
-                got = (A.flash_attention.launches - f0,
-                       M.ms_deform_attn.launches - m0)
-                calls[what] = got
-                launches["flash_attn_fwd"] += got[0]
-                launches["ms_deform_attn_fwd"] += got[1]
-                return out
-
-            A.flash_attention.launches = 0
-            M.ms_deform_attn.launches = 0
-            wrapped = {"det": counted("infer_det", det_call),
-                       "gen": counted("generate", gen_call)}
-            want = flagship_launches(cfg)["infer_det"]
-            if calls["infer_det"] != want:
-                raise AssertionError(f"parallel infer_det launches "
-                                     f"{calls['infer_det']}, want {want}")
-            stages["tensor_parallel_fsdp2"] = compare("apply_shardings",
-                                                      wrapped)
-            walls.update(infer_det_ms_wrapped=host_ms(det_call),
-                         generate_ms_wrapped=host_ms(gen_call))
-            host_cost = {
-                f"{what}_ms_{layer}": walls[f"{what}_ms_{b}"]
-                - walls[f"{what}_ms_{a}"]
-                for what in ("infer_det", "generate")
-                for layer, a, b in (
-                    ("dtensor_dispatch", "unwrapped", "tensor_parallel"),
-                    ("fsdp2_hooks", "tensor_parallel", "wrapped"))}
-            # the world-1 GPipe prefill of the wrapped LLaMA
-            B, L = PAR_PIPE
-            g = torch.Generator(device=device).manual_seed(3)
-            embeds = (0.3 * torch.randn(B, L, cfg.llm.hidden_size,
-                                        generator=g, device=device)).to(
-                core.llm.norm.weight.dtype)
-            pos = torch.arange(L, device=device).expand(B, L)
-            pipe_mesh = init_device_mesh(mesh.device_type, (1,),
-                                         mesh_dim_names=("pipe",))
-            logits = counted("pipeline", lambda: PP.pipeline_llm_forward(
-                cfg.llm, core.llm, embeds, pos, pipe_mesh,
-                n_microbatch=PAR_PIPE_MICRO))
-            if calls["pipeline"][0] != cfg.llm.num_layers * PAR_PIPE_MICRO:
-                raise AssertionError(f"parallel pipeline: flash "
-                                     f"{calls['pipeline'][0]}")
-            with plain_versions():
-                want_logits = core.llm(embeds, pos)[1]
-            pipe_err = rel_err(logits, want_logits)
-            if not pipe_err <= LOGIT_REL_TOL:
-                raise AssertionError(f"parallel pipeline: rel err "
-                                     f"{pipe_err}")
-            del logits, want_logits
-            f0 = A.flash_attention.launches
-            ring, n_ring = ring_case(g, device)
-            # the ring case's comparison calls are not the main path's
-            A.flash_attention.launches = f0 + n_ring
-            launches["flash_attn_fwd"] += n_ring
-            calls["ring_blocks"] = (n_ring, 0)
-    finally:
-        dist.destroy_process_group()
+        A.flash_attention.launches = 0
+        M.ms_deform_attn.launches = 0
+        wrapped = {"det": counted("infer_det", det_call),
+                   "gen": counted("generate", gen_call)}
+        want = flagship_launches(cfg)["infer_det"]
+        if calls["infer_det"] != want:
+            raise AssertionError(f"parallel infer_det launches "
+                                 f"{calls['infer_det']}, want {want}")
+        stages["tensor_parallel_fsdp2"] = compare("apply_shardings",
+                                                  wrapped)
+        walls.update(infer_det_ms_wrapped=host_ms(det_call),
+                     generate_ms_wrapped=host_ms(gen_call))
+        host_cost = {
+            f"{what}_ms_{layer}": walls[f"{what}_ms_{b}"]
+            - walls[f"{what}_ms_{a}"]
+            for what in ("infer_det", "generate")
+            for layer, a, b in (
+                ("dtensor_dispatch", "unwrapped", "tensor_parallel"),
+                ("fsdp2_hooks", "tensor_parallel", "wrapped"))}
+        # the world-1 GPipe prefill of the wrapped LLaMA
+        B, L = PAR_PIPE
+        g = torch.Generator(device=device).manual_seed(3)
+        embeds = (0.3 * torch.randn(B, L, cfg.llm.hidden_size,
+                                    generator=g, device=device)).to(
+            core.llm.norm.weight.dtype)
+        pos = torch.arange(L, device=device).expand(B, L)
+        pipe_mesh = init_device_mesh(mesh.device_type, (1,),
+                                     mesh_dim_names=("pipe",))
+        logits = counted("pipeline", lambda: PP.pipeline_llm_forward(
+            cfg.llm, core.llm, embeds, pos, pipe_mesh,
+            n_microbatch=PAR_PIPE_MICRO))
+        if calls["pipeline"][0] != cfg.llm.num_layers * PAR_PIPE_MICRO:
+            raise AssertionError(f"parallel pipeline: flash "
+                                 f"{calls['pipeline'][0]}")
+        with plain_versions():
+            want_logits = core.llm(embeds, pos)[1]
+        pipe_err = rel_err(logits, want_logits)
+        if not pipe_err <= LOGIT_REL_TOL:
+            raise AssertionError(f"parallel pipeline: rel err "
+                                 f"{pipe_err}")
+        del logits, want_logits
+        f0 = A.flash_attention.launches
+        ring, n_ring = ring_case(g, device)
+        # the ring case's comparison calls are not the main path's
+        A.flash_attention.launches = f0 + n_ring
+        launches["flash_attn_fwd"] += n_ring
+        calls["ring_blocks"] = (n_ring, 0)
     emit({"phase": "parallel", "config": "vllm_7b_config()",
           "mesh": {"data": 1, "context": 1, "model": 1},
           "backend": dist.Backend.NCCL if device == "cuda" else "gloo",
@@ -9162,6 +9389,14 @@ KERNEL_CHECKS = {"flash_fwd": check_attention,
 
 
 def main(argv=None) -> int:
+    try:
+        return _main(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--kernels", help="comma-separated kernel checks to run alone, of "
@@ -9250,10 +9485,12 @@ def main(argv=None) -> int:
     trainer = run_trainer()
     gc.collect()
     torch.cuda.empty_cache()
-    tooltrain = run_tooltrain()
+    # loratrain before tooltrain: the tooltrain phase joins the process
+    # group, under which a Trainer lays a mesh
+    loratrain = run_loratrain()
     gc.collect()
     torch.cuda.empty_cache()
-    loratrain = run_loratrain()
+    tooltrain, tooltrain_mesh = run_tooltrain()
     gc.collect()
     torch.cuda.empty_cache()
     probe = run_probes()
@@ -9265,7 +9502,7 @@ def main(argv=None) -> int:
     # each path's counts were read around that path's run alone
     by_path = {"det": det, "perception": perception, "train": train,
                "trainer": trainer, "tooltrain": tooltrain,
-               "loratrain": loratrain,
+               "tooltrain_mesh": tooltrain_mesh, "loratrain": loratrain,
                "probes": probe, "chat": chat, "slots": slots, "spec": spec,
                "quant": quant, "gen": gen, "flagship": flagship,
                "evalx": evalx, "convert": convert, "profiling": profiled,

@@ -246,16 +246,10 @@ def test_dist_kwargs_from_env_matches_jax(case):
 
 
 def test_cli_refusals(cli_set, capsys):
-    """`train` over two processes names ROADMAP A.8.2 (before joining any
-    group); `--tokenizer` exits with the message; without a card a run
-    needs `--device`."""
+    """`--tokenizer` exits with the message; without a card a run needs
+    `--device`."""
     base = ["eval-det", "--tiny", "--config",
             str(cli_set["configs"]["eval-det"])]
-    with pytest.raises(NotImplementedError, match="A.8.2"):
-        tcli.main(["train", "--tiny", "--data", "unused.json", "--device",
-                   "cpu", "--distributed", "--coordinator", "127.0.0.1:1",
-                   "--num-processes", "2", "--process-id", "0"])
-    assert not torch.distributed.is_initialized()
     with pytest.raises(SystemExit, match="transformers"):
         tcli.main(base + ["--tokenizer", "some/dir", "--device", "cpu"])
     if not torch.cuda.is_available():

@@ -14,6 +14,7 @@ indexed parameter (`emb_embeddings_det[off_p]`) otherwise sums in thread
 order, which would hide the resume's own exactness.
 """
 
+import dataclasses
 import json
 import os
 import random
@@ -31,6 +32,7 @@ import optax
 
 from tests.mock_tokenizer import MockTokenizer
 from tests.test_torch_train import _capture_grads, jax_noise
+from tests.torch_dist_worker import run
 from visionllm_tpu.config import tiny_test_config as jax_tiny_config
 from visionllm_tpu.data import build as jbuild
 from visionllm_tpu.data import collator as jcollator
@@ -544,10 +546,25 @@ def test_other_groups_raise_naming_their_roadmap_item(tmp_path, task, item):
 
 
 def test_tensor_parallel_raises_naming_a8(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
+    """`Trainer(n_model=2)` on two gloo ranks: a LoRA and an int4 LLM
+    raise naming ROADMAP.md A.8.4 where the model is sharded; with no
+    process group `n_model > 1` is a `ValueError`."""
+    with pytest.raises(ValueError, match="process group"):
         Trainer(tiny_test_config(), TrainConfig(output_dir=str(tmp_path),
                                                 n_model=2),
                 SpecialTokenIds.synthetic(), device="cpu")
+    cfg = tiny_test_config(use_gdino=False, gdino=None, use_unipose=False,
+                           unipose=None)
+    cfgs = {name: dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, **kw)) for name, kw in (("lora", {"lora_r": 4}),
+                                         ("int4", {"quant": "int4"}))}
+    torch.save({"cfgs": cfgs, "out": str(tmp_path)},
+               tmp_path / "inputs.pt")
+    errors = run("trainer_refusals", 2, str(tmp_path))
+    assert errors[0] == errors[1]
+    for name in cfgs:
+        assert errors[0][name].startswith("NotImplementedError"), errors
+        assert "ROADMAP.md A.8.4" in errors[0][name], errors
 
 
 def test_trainer_without_device_raises_on_cpu_host(tmp_path):

@@ -4,8 +4,10 @@
 each) that join a gloo group through a `file://` store in `workdir`,
 read `workdir/inputs.pt` (written by the caller with `torch.save`), run
 the scenario and write each rank's result to `workdir/result{rank}.pt`;
-it returns the results in rank order. A scenario that raises fails the
-call with the rank's traceback.
+it returns the results in rank order and removes those files. A
+scenario that raises fails the call with the rank's traceback. `start`
+spawns the ranks and returns the call that waits for them, so the
+caller can work meanwhile.
 
 This module imports nothing of JAX or the JAX package: the tests that
 use it compute the JAX side in their own process and pass arrays in and
@@ -14,9 +16,10 @@ out.
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 import time
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -25,18 +28,38 @@ import torch.distributed as dist
 
 def run(scenario: str, world: int, workdir: str,
         timeout_s: float = 300.0) -> List[Any]:
+    return start(scenario, world, workdir, timeout_s)()
+
+
+def start(scenario: str, world: int, workdir: str,
+          timeout_s: float = 300.0) -> Callable[[], List[Any]]:
+    """`run` without waiting: the ranks start, and the returned call
+    waits for them and returns their results. The ranks fork from a
+    fresh server process that imported torch and the port once (the
+    caller's process may run JAX's threads, which a fork must not
+    copy)."""
+    multiprocessing.set_forkserver_preload(
+        ["torch", "visionllm_tpu_torch.models.composite",
+         "visionllm_tpu_torch.train.runner", __name__])
     ctx = torch.multiprocessing.start_processes(
         _entry, args=(world, str(workdir), scenario), nprocs=world,
-        join=False, start_method="spawn")
+        join=False, start_method="forkserver")
     deadline = time.monotonic() + timeout_s
-    while not ctx.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"{scenario}: ranks did not finish in "
-                               f"{timeout_s} s")
-    return [torch.load(os.path.join(workdir, f"result{r}.pt"),
-                       weights_only=False) for r in range(world)]
+
+    def results() -> List[Any]:
+        while not ctx.join(timeout=0.2):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{scenario}: ranks did not finish in "
+                                   f"{timeout_s} s")
+        paths = [os.path.join(workdir, f"result{r}.pt") for r in range(world)]
+        out = [torch.load(p, weights_only=False) for p in paths]
+        # the inputs and results hold whole models' trees: gone once read
+        for p in paths + [os.path.join(workdir, "inputs.pt")]:
+            os.remove(p)
+        return out
+    return results
 
 
 def _entry(rank: int, world: int, workdir: str, scenario: str) -> None:
@@ -307,5 +330,111 @@ def tp_refusals(rank: int, world: int, inputs: Dict) -> Dict:
     return {"errors": errors, "data_only": data_only}
 
 
+def mesh_train(rank: int, world: int, inputs: Dict) -> Dict:
+    """Each case of `inputs["cases"]`: the model of `cfg` loaded from the
+    flax tree `params`, its group's train step and a fresh state put on a
+    (data world / n_model, model n_model) mesh by `shard_train_step`, then
+    one step for each global batch with its global draws (`noise`), each
+    rank on its rows. Returns every rank's metrics, the trainable
+    parameters the mesh left whole (plain tensors, not FSDP2's shards)
+    and, on rank 0, the state gathered whole (masters, moments,
+    running mean)."""
+    from visionllm_tpu_torch.config import OptimizerConfig
+    from visionllm_tpu_torch.models.composite import build_model
+    from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
+    from visionllm_tpu_torch.parallel.mesh import (build_mesh, full_of,
+                                                   shard_batch)
+    from visionllm_tpu_torch.train import train_step as ts
+    from visionllm_tpu_torch.train.runner import (TrainConfig,
+                                                  frozen_predicate, to_device)
+    from visionllm_tpu_torch.utils.convert import load_jax_params
+
+    tid = SpecialTokenIds.synthetic()
+    out = {}
+    for name, case in inputs["cases"].items():
+        cfg = case["cfg"]
+        model = build_model(cfg, device="cpu", dtype=torch.float32)
+        load_jax_params(model, case["params"])
+        frozen = frozen_predicate(TrainConfig(**case["tc"]), cfg)
+        tx = ts.build_optimizer(OptimizerConfig(**case["opt"]), model, frozen)
+        state = ts.TrainState.create(model, tx, frozen)
+        group = case["group"]
+        if group == "gdino":
+            step = ts.make_det_train_step(model, tx, tid, frozen)
+        elif group == "unipose":
+            step = ts.make_pose_train_step(model, tx, tid, 1, frozen)
+        elif group == "vlm":
+            step = ts.make_chat_train_step(model, tx, tid, frozen)
+        else:
+            step = ts.make_gen_train_step(model, tx, tid,
+                                          edit=group == "ip2p", frozen=frozen)
+        mesh = build_mesh(n_model=case["n_model"])
+        batches = [to_device(b, torch.device("cpu"), torch.float32)
+                   for b in case["batches"]]
+        step, state, local = ts.shard_train_step(step, mesh, state,
+                                                 batches[0])
+        rows = local["input_ids"].shape[0]
+        metrics = []
+        for i, (batch, noise) in enumerate(zip(batches, case["noises"])):
+            if i:
+                local = shard_batch(batch, mesh)
+            if noise is None:         # a group that draws nothing
+                noise = step.draw(None, batch)
+            state, m = step(state, local, noise=noise)
+            metrics.append({k: float(v) for k, v in m.items()})
+        full = {part: {n: full_of(t, state.params[n]).numpy()
+                       for n, t in getattr(state, part).items()}
+                for part in ("masters", "mu", "nu", "acc")}
+        out[name] = {"metrics": metrics, "rows": rows,
+                     "whole": sorted(n for n, p in state.params.items()
+                                     if not hasattr(p, "to_local")),
+                     "state": full if rank == 0 else None,
+                     "steps": (state.step, state.gradient_step)}
+    return out
+
+
+def trainer_refusals(rank: int, world: int, inputs: Dict) -> Dict:
+    """`Trainer(n_model=world)` on a LoRA and on an int4 LLM: the error
+    of each (raised where the model is sharded)."""
+    from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
+    from visionllm_tpu_torch.train.runner import TrainConfig, Trainer
+
+    errors = {}
+    for name, cfg in inputs["cfgs"].items():
+        tc = TrainConfig(output_dir=os.path.join(inputs["out"], name),
+                         n_model=world, batch_size=2)
+        try:
+            Trainer(cfg, tc, SpecialTokenIds.synthetic(), device="cpu",
+                    dtype=torch.float32).init_state()
+            errors[name] = None
+        except (ValueError, NotImplementedError) as e:
+            errors[name] = f"{type(e).__name__}: {e}"
+    return errors
+
+
+def trainer_runs(rank: int, world: int, inputs: Dict) -> Dict:
+    """`Trainer.train` on the mesh over the world for each run of
+    `inputs["runs"]` in turn: (output dir, max steps); a run whose
+    directory holds a checkpoint resumes from it."""
+    from visionllm_tpu_torch.config import OptimizerConfig
+    from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
+    from visionllm_tpu_torch.train.runner import TrainConfig, Trainer
+    from visionllm_tpu_torch.utils.simple_tokenizer import HashedWordTokenizer
+
+    torch.use_deterministic_algorithms(True)
+    out = []
+    for out_dir, steps in inputs["runs"]:
+        tc = TrainConfig(output_dir=out_dir, optimizer=OptimizerConfig(
+            **inputs["opt"]), **inputs["tc"])
+        trainer = Trainer(inputs["cfg"], tc, SpecialTokenIds.synthetic(),
+                          device="cpu", dtype=torch.float32)
+        state = trainer.train(inputs["ds_cfgs"], HashedWordTokenizer(),
+                              max_steps=steps)
+        out.append({"step": state.step,
+                    "groups": [h["group"] for h in trainer.history]})
+    return out
+
+
 SCENARIOS = {f.__name__: f for f in (multihost, ring, pipeline, constrain, tp,
-                                     tp_refusals)}
+                                     tp_refusals, mesh_train,
+                                     trainer_refusals, trainer_runs)}

@@ -37,8 +37,8 @@ Differences from the JAX CLI (`ROADMAP.md` §C.3):
   CLI calls `jax.distributed.initialize`, from `--coordinator /
   --num-processes / --process-id` or a scheduler's environment
   (`dist_kwargs_from_env`); every process then runs the command whole, as
-  the JAX CLI's do. `train` over more than one process raises
-  `NotImplementedError`: the Trainer under a mesh is `ROADMAP.md` A.8.2.
+  the JAX CLI's do: `train` lays the Trainer's mesh over the processes
+  (`train/runner.py`), and rank 0 writes the one-process checkpoint.
 """
 
 from __future__ import annotations
@@ -300,10 +300,6 @@ def _maybe_init_distributed(args) -> None:
                 "--distributed needs --coordinator / --num-processes / "
                 "--process-id or a launcher's environment (torchrun's "
                 "RANK / WORLD_SIZE / MASTER_ADDR, slurm or OpenMPI)")
-    if args.cmd == "train" and kw["num_processes"] > 1:
-        raise NotImplementedError(
-            f"train over {kw['num_processes']} processes: the Trainer under "
-            "a mesh is not ported (ROADMAP.md A.8.2)")
     if args.device is None:
         args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
     init_process_group_for(args.device,

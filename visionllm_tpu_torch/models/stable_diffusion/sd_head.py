@@ -43,6 +43,7 @@ from visionllm_tpu_torch.models.stable_diffusion.unet import (
     GroupNorm32, LayerNorm, UNet2DCondition, UNetConfig)
 from visionllm_tpu_torch.models.stable_diffusion.vae import (AutoencoderKL,
                                                              VAEConfig)
+from visionllm_tpu_torch.parallel.global_batch import data_shards
 
 
 class TorchTransformerLayer(nn.Module):
@@ -196,13 +197,16 @@ class _DiffusionHead(nn.Module):
                   caption_weight: float) -> Dict[str, torch.Tensor]:
         """fp32 mean squared error of the UNet's epsilon at `unet_in`, plus
         `caption_weight` times the conditioning's distance from the
-        caption embeddings when given."""
+        caption embeddings when given. Under a data split each is the
+        mean over this rank's equal share of the global batch over the
+        number of shares (`data_shards`): its part of the global mean."""
+        shares = data_shards()
         pred = self.unet(unet_in.to(self.dtype), noise["t"], cond)
-        image_loss = (pred.float() - noise["eps"]).square().mean()
+        image_loss = (pred.float() - noise["eps"]).square().mean() / shares
         out = {"image_loss": image_loss, "loss": image_loss}
         if caption_embeds is not None:
             out["caption_loss"] = (cond - caption_embeds.to(cond.dtype)
-                                   ).square().mean()
+                                   ).square().mean() / shares
             out["loss"] = image_loss + caption_weight * out["caption_loss"]
         return out
 

@@ -41,7 +41,7 @@ from visionllm_tpu_torch.models.grounding_dino.layers import (
     TorchMHA, encoder_reference_points, get_sine_pos_embed,
     sine_position_embedding)
 from visionllm_tpu_torch.models.grounding_dino.model import (
-    _downsample_mask, _nchw, _valid_ratio, contrastive_logits,
+    GroupNorm, _downsample_mask, _nchw, _valid_ratio, contrastive_logits,
     encoder_proposals, generate_masks_with_text_query_masks)
 from visionllm_tpu_torch.ops.box_ops import inverse_sigmoid
 from visionllm_tpu_torch.train.cdn import build_cdn_queries
@@ -176,15 +176,17 @@ class UniPose(nn.Module):
         self.projection_llava = MLP(cfg.text_dim, d, d, 3)
         self.projection_kpt_llava = MLP(cfg.text_dim, d, d, 3)
         # 1x1 conv + GN for backbone strides 8/16/32, an extra 3x3
-        # stride-2 conv from the stride-32 feature
+        # stride-2 conv from the stride-32 feature (Grounding-DINO's GN:
+        # a sample's 1 x 1 level of one-channel groups, at the tiny
+        # config's width, is flax's bias, not `F.group_norm`'s refusal)
         for i in range(3):
             self.add_module(f"input_proj_{i}",
                             nn.Conv2d(bb_cfg.stage_dim(i + 1), d, 1))
             self.add_module(f"input_proj_norm_{i}",
-                            nn.GroupNorm(32, d, eps=FLAX_LN_EPS))
+                            GroupNorm(32, d, eps=FLAX_LN_EPS))
         self.input_proj_3 = nn.Conv2d(bb_cfg.stage_dim(3), d, 3, stride=2,
                                       padding=1)
-        self.input_proj_norm_3 = nn.GroupNorm(32, d, eps=FLAX_LN_EPS)
+        self.input_proj_norm_3 = GroupNorm(32, d, eps=FLAX_LN_EPS)
         self.level_embed = nn.Parameter(torch.zeros(cfg.num_feature_levels, d))
         for i in range(cfg.encoder_layers):
             self.add_module(f"encoder_layer_{i}", UniPoseEncoderLayer(cfg))

@@ -30,6 +30,7 @@ from visionllm_tpu_torch.models.llama import KVCache, LlamaModel
 from visionllm_tpu_torch.models.region_encoder import (LayerNorm2d,
                                                        RegionEncoder)
 from visionllm_tpu_torch.models.vl_bridge import VLBridge, pixel_shuffle
+from visionllm_tpu_torch.parallel.global_batch import data_group, global_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,6 +302,12 @@ class VisionLLM(nn.Module):
             image_features, vit_hs = self.encode_images(images)
             n_imp = (input_ids == tid.imp).sum()
             expected = image_features.shape[0] * image_features.shape[1]
+            if data_group() is not None:
+                # the global batch's counts: the flag gates its LM loss
+                # as one, as in JAX
+                n_imp = global_sum(n_imp)
+                expected = global_sum(torch.tensor(expected,
+                                                   device=n_imp.device))
             bad = n_imp > expected if images.ndim == 5 else n_imp != expected
             ignore_flag = bad.float()
             if images.ndim == 5:

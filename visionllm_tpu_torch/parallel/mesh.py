@@ -24,6 +24,9 @@ devices and lets XLA place every parameter from a regex table of
   (`fully_shard`) over "data", each parameter split on JAX's data dim.
   A "model" axis of 1 splits nothing, so it adds no DTensor dispatch.
 * `shard_batch` takes this rank's slice of a batch's leading dim.
+* `local_part`, `shard_of`, `full_of` and `holders` move a state tensor
+  between its whole and the parts the ranks hold (the Trainer's sharded
+  optimizer state and gathered checkpoints).
 
 Deliberate differences from JAX (`ROADMAP.md` §C.3): `apply_shardings`
 needs "model" to divide both head counts (XLA splits inside a head;
@@ -32,8 +35,9 @@ parameter JAX leaves whole is split on dim 0, and a non-contiguous one
 (a channels_last conv weight) stays whole; the root unit and the fp32
 modules' units are gathered once when the mesh is applied and stay
 gathered, because the entry points call methods other than `forward` on
-them (the layer units gather on use and free after); sizes that do not
-divide the world raise `ValueError` where JAX asserts.
+them (the layer units gather on use and free after; a train step's
+backward frees them all, and the step gathers them again, `regather`);
+sizes that do not divide the world raise `ValueError` where JAX asserts.
 """
 
 from __future__ import annotations
@@ -345,8 +349,66 @@ def apply_shardings(model: nn.Module, mesh,
     # the root still gathered, is asserted on the CPU by
     # tests/test_torch_parallel_tp.py::test_tp_units_after_forward
     model._get_fsdp_state()._lazy_init()
-    for mod in [m for m in fp32 if hasattr(m, "unshard")] + [model]:
+    regather(model)
+
+
+def gathered_units(model: nn.Module):
+    """The FSDP2 units that `apply_shardings` keeps gathered: the fp32
+    modules' and the root."""
+    fp32 = list(model.fp32_modules()) if hasattr(model, "fp32_modules") \
+        else []
+    return [m for m in fp32 if hasattr(m, "unshard")] + [model]
+
+
+def regather(model: nn.Module) -> None:
+    """Gather the units of `gathered_units` again (a backward frees them
+    with every other unit; nothing calls their `forward`, which would)."""
+    for mod in gathered_units(model):
         mod.unshard()
+
+
+# ---------------------------------------------------------------- shards
+
+def local_part(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of a DTensor (a plain tensor is whole here)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def shard_of(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's part of `full`, laid out as the DTensor `like` (its
+    mesh and placements; `full` itself for a plain tensor), on `like`'s
+    device, without communication."""
+    if not hasattr(like, "to_local"):
+        return full.to(like.device)
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full, like.device_mesh, like.placements,
+                             src_data_rank=None).to_local()
+
+
+def full_of(local: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of the parts `local` that every rank holds,
+    laid out as the DTensor `like` (a collective over its mesh; `local`
+    itself for a plain tensor)."""
+    if not hasattr(like, "to_local"):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride()).full_tensor()
+
+
+def holders(t: torch.Tensor) -> int:
+    """The ranks of the world that hold the same part of `t` as this one:
+    the world over the shards of a DTensor, the world for a plain tensor
+    (whole on every rank)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not hasattr(t, "to_local"):
+        return world
+    shards = 1
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard():
+            shards *= t.device_mesh.size(i)
+    return world // shards
 
 
 def shard_batch(batch: Any, mesh) -> Any:

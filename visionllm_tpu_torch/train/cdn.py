@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from visionllm_tpu_torch.ops.box_ops import (box_cxcywh_to_xyxy,
                                              generalized_box_iou,
                                              inverse_sigmoid)
+from visionllm_tpu_torch.parallel.global_batch import global_sum
 from visionllm_tpu_torch.train.losses import sigmoid_focal_loss
 
 
@@ -138,7 +139,7 @@ def dn_loss(
     valid = dn_targets["valid"].bool()
     pos = dn_targets["is_positive"].bool() & valid
     if num_boxes is None:
-        num_boxes = pos.sum().float().clamp(min=1.0)
+        num_boxes = global_sum(pos.sum().float()).clamp(min=1.0)
 
     onehot = F.one_hot(dn_targets["labels"].long().clamp(0, T - 1),
                        T).float() * pos[..., None].float()

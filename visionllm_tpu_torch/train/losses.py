@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from visionllm_tpu_torch.ops.box_ops import (box_cxcywh_to_xyxy,
                                              generalized_box_iou)
+from visionllm_tpu_torch.parallel.global_batch import global_sum
 
 BIG = 1e5
 PointDraws = Tuple[torch.Tensor, torch.Tensor]
@@ -68,7 +69,8 @@ def dice_loss_points(pred_logits: torch.Tensor, targets: torch.Tensor,
 
 def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                      ignore_index: int = -100) -> torch.Tensor:
-    """Next-token cross entropy with an ignore mask (HF causal-LM shift)."""
+    """Next-token cross entropy with an ignore mask (HF causal-LM shift),
+    a mean over the global batch's target tokens (`global_sum`)."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:]
     valid = shift_labels != ignore_index
@@ -76,7 +78,7 @@ def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ce = F.cross_entropy(shift_logits.reshape(-1, shift_logits.shape[-1]),
                          safe.reshape(-1).long(), reduction="none")
     ce = torch.where(valid.reshape(-1), ce, torch.zeros_like(ce))
-    return ce.sum() / valid.sum().clamp(min=1)
+    return ce.sum() / global_sum(valid.sum()).clamp(min=1)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +305,7 @@ def detection_loss_with_aux(outputs: Dict[str, torch.Tensor],
     (total, detail dict, the step's choices: matches and the chosen
     points of each layer), so a second run can repeat the same choices."""
     tgt_valid = targets["valid"].bool()
-    num_boxes = tgt_valid.sum().float().clamp(min=1.0)
+    num_boxes = global_sum(tgt_valid.sum().float()).clamp(min=1.0)
     n_layers = outputs["all_logits"].shape[0]
     text_mask = outputs.get("text_mask")
 

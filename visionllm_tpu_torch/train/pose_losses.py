@@ -22,6 +22,7 @@ import torch
 
 from visionllm_tpu_torch.ops.box_ops import (box_cxcywh_to_xyxy,
                                              generalized_box_iou)
+from visionllm_tpu_torch.parallel.global_batch import global_sum
 from visionllm_tpu_torch.train.losses import (BIG, hungarian_match,
                                               sigmoid_focal_loss)
 
@@ -157,7 +158,7 @@ def pose_loss_with_aux(outputs: Dict[str, object],
     (layers, then the encoder) are solved in one host call unless
     `matches` gives them. Returns (total, detail, matches)."""
     tgt_valid = targets["valid"].bool()
-    num_boxes = tgt_valid.sum().float().clamp(min=1.0)
+    num_boxes = global_sum(tgt_valid.sum().float()).clamp(min=1.0)
     n = len(outputs["all_logits"])
     sigmas = torch.from_numpy(pose_sigmas(cfg.num_body_points)).to(
         tgt_valid.device)

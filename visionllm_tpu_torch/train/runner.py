@@ -15,8 +15,7 @@ Every tool group is ported: `vlm` (chat, VQA, caption and region
 tasks) through `make_chat_train_step`, `gdino` (det, grd and seg)
 through `make_det_train_step`, `unipose` (pose) through
 `make_pose_train_step` (with `tc.num_obj_patches`), `sd` ([GEN]) and
-`ip2p` ([EDIT]) through `make_gen_train_step`. `n_model > 1` (tensor
-parallelism) raises naming its `ROADMAP.md` item, A.8. LoRA
+`ip2p` ([EDIT]) through `make_gen_train_step`. LoRA
 (`LLMConfig.lora_r`; its factors are never frozen), rematerialization
 (`LLMConfig.remat`, `GDinoConfig.remat`) and gradient accumulation
 (`tc.optimizer.grad_accum_steps`) come with the configs. As in JAX,
@@ -33,6 +32,21 @@ batches on resume, and draws each sample's augmentations from
 (`seeded_sample`), so "2 steps, save, resume, 2 steps" equals "4 steps"
 and `num_workers` changes no batch. Like the JAX loop, one pass over the
 sampler ends the run, whatever `total_steps` says.
+
+Under an initialized process group the Trainer lays a mesh over it, as
+the JAX Trainer always does (`build_mesh(n_model=tc.n_model)`): the
+model is sharded by `apply_shardings` (FSDP2 over "data", tensor
+parallelism over "model" when `n_model > 1`; quantized or LoRA LLMs
+there raise naming `ROADMAP.md` A.8.4) and each step is the one-process
+step on the global batch (`train_step`'s module docstring). Every rank
+builds the whole global batch, as JAX collates it before placing it,
+and takes its rows (`shard_batch`): each rank so sees the collator's
+padding and target count of the whole batch, and the samples are the
+one-process run's. Only rank 0 writes `metrics.jsonl` and checkpoints;
+a checkpoint is gathered to it and has the one-process format, and
+each rank restores its parts of one, so a checkpoint crosses between a
+mesh and one process both ways. With no group the Trainer is the
+one-process Trainer, and `n_model > 1` raises `ValueError`.
 """
 
 from __future__ import annotations
@@ -46,6 +60,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from visionllm_tpu_torch.config import OptimizerConfig, VisionLLMConfig
 from visionllm_tpu_torch.data.build import (TaskGroupedBatchSampler,
@@ -56,6 +71,8 @@ from visionllm_tpu_torch.data.loader import PrefetchLoader
 from visionllm_tpu_torch.device import resolve_device
 from visionllm_tpu_torch.models.composite import build_model
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
+from visionllm_tpu_torch.parallel.mesh import (apply_shardings, build_mesh,
+                                               full_of, shard_batch)
 from visionllm_tpu_torch.train.train_step import (TrainState,
                                                   build_optimizer,
                                                   make_chat_train_step,
@@ -82,7 +99,7 @@ class TrainConfig:
     log_every: int = 10
     save_every: int = 1000
     seed: int = 0
-    n_model: int = 1                  # TP axis size (only 1 is ported)
+    n_model: int = 1                  # TP axis size (under a group)
     num_workers: int = 2              # prefetch loader threads (0 = sync)
     num_obj_patches: int = 1          # pose obj/kpt query split
     optimizer: OptimizerConfig = dataclasses.field(
@@ -159,13 +176,14 @@ def to_device(batch: Dict[str, Any], device: torch.device,
 
 
 class Trainer:
-    """The training loop of one model on one device.
+    """The training loop of one model on one device, or on a mesh over
+    the initialized process group (see the module docstring).
 
     Args:
       model_cfg, tc, tid: the model's config, the run's, the special
         token ids.
       device: CUDA when None (raises without a card); "cpu" runs the
-        plain versions.
+        plain versions (under a process group, a gloo one).
       dtype: the model's compute dtype (its fp32 masters live in the
         optimizer state).
     """
@@ -174,10 +192,20 @@ class Trainer:
                  tid: SpecialTokenIds, *,
                  device: Optional[Union[str, torch.device]] = None,
                  dtype: torch.dtype = torch.bfloat16):
-        if tc.n_model > 1:
-            raise NotImplementedError(
-                f"TrainConfig.n_model={tc.n_model}: tensor parallelism is "
-                "not ported (ROADMAP.md A.8.2)")
+        self.mesh = None
+        if dist.is_initialized():
+            self.mesh = build_mesh(n_model=tc.n_model)
+            n_data = self.mesh["data"].size()
+            if tc.batch_size % n_data:
+                raise ValueError(
+                    f"batch size {tc.batch_size} does not split over the "
+                    f"{n_data} data ranks")
+        elif tc.n_model > 1:
+            raise ValueError(
+                f"TrainConfig.n_model={tc.n_model} needs a process group "
+                "of a multiple of that size (parallel.mesh."
+                "init_process_group_for)")
+        self.rank0 = not dist.is_initialized() or dist.get_rank() == 0
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.tc = tc
@@ -203,7 +231,10 @@ class Trainer:
             self.model = build_model(self.cfg, device=self.device,
                                      dtype=self.dtype, seed=self.tc.seed)
         self.tx = build_optimizer(self.tc.optimizer, self.model, self.frozen)
-        state = TrainState.create(self.model, self.tx, self.frozen)
+        if self.mesh is not None:
+            apply_shardings(self.model, self.mesh)
+        state = TrainState.create(self.model, self.tx, self.frozen,
+                                  mesh=self.mesh)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.tc.seed)
         self.position = 0
@@ -215,13 +246,32 @@ class Trainer:
     def save(self, state: TrainState) -> str:
         """Checkpoint the state (with the accumulation's micro-step,
         applied steps and running mean), the generator and the sampler
-        position as `ckpt_dir/<step>/`."""
-        return save_checkpoint(self.ckpt_dir, state.step, {
-            "step": state.step, "masters": state.masters, "mu": state.mu,
-            "nu": state.nu, "mini_step": state.mini_step,
-            "gradient_step": state.gradient_step, "acc": state.acc,
-            "generator": self.generator.get_state(),
-            "position": self.position, "seed": self.tc.seed})
+        position as `ckpt_dir/<step>/`. On a mesh the masters, moments
+        and running mean are gathered to rank 0 one tensor at a time,
+        rank 0 writes the one-process checkpoint and the others wait."""
+        parts = {}
+        for part in ("masters", "mu", "nu", "acc"):
+            parts[part] = getattr(state, part)
+            if self.mesh is not None:
+                parts[part] = {n: self._gathered(t, state.params[n])
+                               for n, t in parts[part].items()}
+        path = os.path.join(self.ckpt_dir, str(state.step))
+        if self.rank0:
+            path = save_checkpoint(self.ckpt_dir, state.step, {
+                "step": state.step, **parts, "mini_step": state.mini_step,
+                "gradient_step": state.gradient_step,
+                "generator": self.generator.get_state(),
+                "position": self.position, "seed": self.tc.seed})
+        if self.mesh is not None:
+            dist.barrier()
+        return path
+
+    def _gathered(self, t: torch.Tensor, like: torch.Tensor
+                  ) -> Optional[torch.Tensor]:
+        """The whole of a state tensor whose parts the ranks hold, on the
+        host of rank 0 (None on the others)."""
+        full = full_of(t, like)
+        return full.cpu() if self.rank0 else None
 
     def _restore(self, state: TrainState, ck: Dict[str, Any]) -> None:
         if ck["seed"] != self.tc.seed:
@@ -233,10 +283,7 @@ class Trainer:
         if set(ck["acc"]) != set(state.acc):
             raise ValueError("the checkpoint was taken at another "
                              "grad_accum_steps")
-        with torch.no_grad():
-            for part in ("masters", "mu", "nu", "acc"):
-                for n, t in getattr(state, part).items():
-                    t.copy_(ck[part][n])
+        state.load(ck)
         state.step = int(ck["step"])
         state.mini_step = int(ck["mini_step"])
         state.gradient_step = int(ck["gradient_step"])
@@ -294,10 +341,12 @@ class Trainer:
         """Train until `max_steps` (or `tc.total_steps`) or the end of one
         pass over the sampler, and checkpoint the last step unless its
         `save_every` checkpoint is already written; returns the state.
-        Each batch takes its tool group's step. A step whose metrics
-        (loss terms, gradient norm) are not all finite raises
-        `FloatingPointError` before anything is logged or saved for it;
-        reading them makes each step wait for the device."""
+        Each batch takes its tool group's step (on a mesh, on this rank's
+        rows of it). A step whose metrics (loss terms, gradient norm; the
+        global batch's on a mesh, so every rank sees the same) are not
+        all finite raises `FloatingPointError` before anything is logged
+        or saved for it; reading them makes each step wait for the
+        device."""
         tc = self.tc
         concat = build_multi_datasets(
             [{"image_token_len": self.cfg.image_token_len, **c}
@@ -318,9 +367,13 @@ class Trainer:
                 wait = time.perf_counter() - t0
                 group = group_of_task(concat.task_of(idx[0]))
                 step = self.step_fn_for(group)
-                state, metrics = step(state, to_device(batch, self.device,
-                                                       self.dtype),
-                                      generator=self.generator)
+                batch = to_device(batch, self.device, self.dtype)
+                draws = {"generator": self.generator}
+                if self.mesh is not None:
+                    # the global batch's draws; the step keeps its rows
+                    draws = {"noise": step.draw(self.generator, batch)}
+                    batch = shard_batch(batch, self.mesh)
+                state, metrics = step(state, batch, **draws)
                 self.position += 1
                 values = dict(zip(metrics, torch.stack(
                     [v.float() for v in metrics.values()]).tolist()))
@@ -331,7 +384,7 @@ class Trainer:
                         f"step {state.step}: non-finite {bad}; the last "
                         f"checkpoint is that of step "
                         f"{latest_step(self.ckpt_dir)}")
-                if state.step % tc.log_every == 0:
+                if state.step % tc.log_every == 0 and self.rank0:
                     self.logger.log(state.step, values)
                 self.history.append({"position": self.position - 1,
                                      "group": group, "data_wait_s": wait,

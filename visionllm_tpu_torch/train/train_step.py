@@ -38,20 +38,42 @@ applied steps (`TrainState.gradient_step`), `TrainState.step` counts
 micro-steps. Every step reports `grad_norm`: the global norm of the
 gradient the update sees, on a micro-step that does not apply the norm
 of the running mean so far.
+
+On a mesh (`TrainState.mesh`; `shard_train_step`, the Trainer under a
+process group) a step is the one-process step on the global batch, as
+XLA's jitted step is in JAX. The model is sharded by `apply_shardings`
+(FSDP2 over "data", tensor parallelism over "model"); each rank takes its
+rows of the global batch and of the global batch's draws (`step.draw`:
+the Trainer draws them on every rank from the same generator); the
+loss runs under `global_batch.split_over`, so each rank's loss is its
+part of the global loss; FSDP2 sums (not averages) the data ranks'
+gradients into each rank's shard; the masters, moments and running mean
+are fp32 copies of this rank's shards (ZeRO-style, the layout JAX's
+`opt_sh` gives), updated as plain tensors (no DTensor dispatch: the
+update is elementwise); the clipping norm is the global one, each shard
+counted once (`parallel.mesh.holders`); the metrics are summed over the
+data ranks, so every rank reports the global batch's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import re
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from visionllm_tpu_torch.config import GDinoConfig, OptimizerConfig
 from visionllm_tpu_torch.models.visionllm import SpecialTokenIds
+from visionllm_tpu_torch.parallel.global_batch import split_over
+from visionllm_tpu_torch.parallel.mesh import (apply_shardings,
+                                               gathered_units, holders,
+                                               local_part, regather,
+                                               shard_batch, shard_of)
 from visionllm_tpu_torch.train.cdn import dn_loss, draw_cdn_noise
 from visionllm_tpu_torch.train.losses import (detection_loss_with_aux,
                                               draw_mask_points)
@@ -95,9 +117,18 @@ def split_frozen(model: nn.Module, frozen: Frozen) -> Dict[str, nn.Parameter]:
     return trainable
 
 
-def _global_norm(tensors) -> torch.Tensor:
-    """optax's `global_norm` of a list of fp32 tensors."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def _global_norm(tensors, copies: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """optax's `global_norm` of a list of fp32 tensors; with `copies`
+    (how many ranks hold each tensor's part), of the whole tensors that
+    the world's parts make: each squared local norm over its copies,
+    summed over every rank."""
+    norms = torch.stack(torch._foreach_norm(tensors))
+    if copies is None:
+        return torch.linalg.vector_norm(norms)
+    sq = (norms.square() / copies).sum()
+    dist.all_reduce(sq)
+    return sq.sqrt()
 
 
 class AdamW:
@@ -131,7 +162,7 @@ class AdamW:
         b1, b2 = cfg.betas
         names = list(state.masters)
         g = [grads[n].float() for n in names]
-        g_norm = _global_norm(g)
+        g_norm = _global_norm(g, state.copies)
         # clip_by_global_norm: t if norm < max else t / norm * max
         clip = torch.where(g_norm < cfg.max_grad_norm,
                            torch.ones_like(g_norm),
@@ -167,7 +198,15 @@ class TrainState:
     applied steps (Adam's count and the schedule's step; equal to `step`
     when k is 1), as optax's `MultiStepsState` has them; and `acc`, the
     fp32 running mean of the gradients (its `acc_grads`), empty when k is
-    1."""
+    1.
+
+    On a mesh (`mesh`, the `DeviceMesh` the model was sharded over by
+    `apply_shardings`) the masters, moments and running mean hold this
+    rank's parts of each tensor; `params` holds the trainable parameters
+    as the mesh lays them out (FSDP2's sharded DTensors; a parameter
+    FSDP2 leaves whole is a plain tensor on every rank) and `copies` how
+    many ranks hold the same part of each (`parallel.mesh.holders`, in
+    the masters' order)."""
 
     step: int
     model: nn.Module
@@ -177,28 +216,109 @@ class TrainState:
     mini_step: int = 0
     gradient_step: int = 0
     acc: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    mesh: Any = None
+    params: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    copies: Optional[torch.Tensor] = None
 
     @classmethod
-    def create(cls, model: nn.Module, tx: AdamW, frozen: Frozen = None
-               ) -> "TrainState":
-        trainable = split_frozen(model, frozen)
+    def create(cls, model: nn.Module, tx: AdamW, frozen: Frozen = None,
+               mesh=None) -> "TrainState":
+        """A fresh state of `model`'s trainable parameters; with `mesh`, of a
+        model that `apply_shardings` sharded over it, in this rank's parts
+        (the one layout of a state on a mesh: `on_mesh` and the Trainer's
+        restore fill it with `load`)."""
+        with _sharded(model, mesh):
+            trainable = split_frozen(model, frozen)
         if set(trainable) != set(tx.mult):
-            raise ValueError("the optimizer was built for other trainable "
-                             "parameters")
-        masters = {n: p.detach().float().clone() for n, p in trainable.items()}
+            raise ValueError("the optimizer was built for other "
+                             "trainable parameters")
+        return cls._laid_out(model, trainable,
+                             tx.cfg.grad_accum_steps > 1, mesh)
+
+    @classmethod
+    def _laid_out(cls, model: nn.Module, trainable: Dict[str, torch.Tensor],
+                  accum: bool, mesh) -> "TrainState":
+        """The state of the `trainable` parameters (the masters their
+        values, in this rank's parts) and, on `mesh`, the sharded
+        parameters, the copies of each part, and FSDP2 set to sum the data
+        ranks' gradients (the losses are each rank's part of the global
+        loss)."""
+        with _sharded(model, mesh):
+            masters = {n: local_part(p).detach().float().clone()
+                       for n, p in trainable.items()}
 
         def zeros():
             return {n: torch.zeros_like(w) for n, w in masters.items()}
-        return cls(step=0, model=model, masters=masters, mu=zeros(),
-                   nu=zeros(),
-                   acc=zeros() if tx.cfg.grad_accum_steps > 1 else {})
+        state = cls(step=0, model=model, masters=masters, mu=zeros(),
+                    nu=zeros(), acc=zeros() if accum else {})
+        if mesh is None:
+            return state
+        state.mesh = mesh
+        state.params = dict(trainable)
+        if dist.get_world_size() > 1:
+            device = next(iter(masters.values())).device if masters else None
+            state.copies = torch.tensor(
+                [float(holders(p)) for p in trainable.values()],
+                device=device)
+        for m in model.modules():
+            if hasattr(m, "set_gradient_divide_factor"):
+                m.set_gradient_divide_factor(1.0)
+                # a plain SUM where torch has the switch (gloo has no
+                # pre-multiplied sum; NCCL's, by 1, is one too)
+                if hasattr(m, "set_force_sum_reduction_for_comms"):
+                    m.set_force_sum_reduction_for_comms(True)
+        return state
+
+    def on_mesh(self, mesh) -> "TrainState":
+        """This one-process state on `mesh`, after `apply_shardings`
+        sharded its model over it: `create`'s layout, holding this rank's
+        parts of the masters, moments and running mean."""
+        with _sharded(self.model, mesh):
+            params = {n: p for n, p in self.model.named_parameters()
+                      if n in self.masters}
+        state = TrainState._laid_out(self.model, params, bool(self.acc),
+                                     mesh)
+        state.load({"masters": self.masters, "mu": self.mu,
+                    "nu": self.nu, "acc": self.acc})
+        state.step, state.mini_step, state.gradient_step = (
+            self.step, self.mini_step, self.gradient_step)
+        return state
+
+    @torch.no_grad()
+    def load(self, whole: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        """Copy whole tensors (`whole["masters"]`, `["mu"]`, `["nu"]`,
+        `["acc"]` by name: a checkpoint's or a one-process state's) into
+        this state; on a mesh each rank copies its parts."""
+        for part in ("masters", "mu", "nu", "acc"):
+            for n, t in getattr(self, part).items():
+                src = whole[part][n]
+                t.copy_(shard_of(src, self.params[n])
+                        if self.mesh is not None else src)
 
     @torch.no_grad()
     def write_back(self) -> None:
-        """Round the masters into the model's parameters."""
-        params = dict(self.model.named_parameters())
-        for n, w in self.masters.items():
-            params[n].copy_(w)
+        """Round the masters into the model's parameters (on a mesh, into
+        this rank's parts; the units kept gathered gather again)."""
+        with _sharded(self.model, self.mesh):
+            params = self.params or dict(self.model.named_parameters())
+            for n, w in self.masters.items():
+                local_part(params[n]).copy_(w)
+
+
+@contextlib.contextmanager
+def _sharded(model: nn.Module, mesh):
+    """With `mesh`, the block sees the model's sharded parameters: the
+    units that `apply_shardings` keeps gathered are sharded for it and
+    gathered again after."""
+    if mesh is None:
+        yield
+        return
+    for m in gathered_units(model):
+        m.reshard()
+    try:
+        yield
+    finally:
+        regather(model)
 
 
 def draw_step_noise(generator: torch.Generator, cfg: GDinoConfig,
@@ -338,6 +458,51 @@ def accumulate(grads: Dict[str, torch.Tensor], state: TrainState
     return state.acc
 
 
+def _own_rows(tree, shards: int, rank: int):
+    """Rank `rank`'s equal share of the leading dim of every tensor in
+    `tree` (the draws of a step: each is per sample)."""
+    if isinstance(tree, dict):
+        return {k: _own_rows(v, shards, rank) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_own_rows(v, shards, rank) for v in tree)
+    n = tree.shape[0] // shards
+    return tree[rank * n:(rank + 1) * n]
+
+
+def _mesh_gradients(model: nn.Module, state: TrainState
+                    ) -> Dict[str, torch.Tensor]:
+    """This rank's part of the global gradient of each trainable
+    parameter after a backward on the mesh: FSDP2 has summed the sharded
+    ones over "data" into their shards; the ones it leaves whole are
+    summed here."""
+    registered = dict(model.named_parameters())
+    stale = [n for n, p in state.params.items() if registered[n] is not p]
+    if stale:
+        raise RuntimeError(
+            f"FSDP2 did not reduce the gradients of {stale[:3]}: the "
+            "backward reached no unit's forward output")
+    shards = state.mesh["data"].size()
+    grads = {}
+    for n, p in state.params.items():
+        g = local_part(p.grad) if p.grad is not None else None
+        if g is None:
+            g = torch.zeros_like(local_part(p))
+        elif shards > 1 and not hasattr(p, "to_local"):
+            dist.all_reduce(g, group=state.mesh["data"].get_group())
+        grads[n] = g
+    return grads
+
+
+def _sum_metrics(metrics: Dict[str, torch.Tensor], mesh
+                 ) -> Dict[str, torch.Tensor]:
+    """Each rank's part of the global batch's loss terms, summed over the
+    data ranks."""
+    keys = list(metrics)
+    vals = torch.stack([metrics[k].detach().float() for k in keys])
+    dist.all_reduce(vals, group=mesh["data"].get_group())
+    return dict(zip(keys, vals.unbind()))
+
+
 def _make_step(model: nn.Module, tx: AdamW, frozen: Frozen, loss_fn,
                draw):
     """step(state, batch, generator=None, noise=None) -> (state, metrics)
@@ -346,21 +511,39 @@ def _make_step(model: nn.Module, tx: AdamW, frozen: Frozen, loss_fn,
     parameters, then (every `grad_accum_steps`-th micro-step, see the
     module docstring) the AdamW update and the masters written back;
     `grad_norm` in the metrics. `frozen` must be the predicate the state
-    was created with."""
+    was created with. On a mesh (`state.mesh`) `batch` is this rank's
+    rows of the global batch and `noise`, which a mesh of more than one
+    data rank needs given, the global batch's draws (`step.draw(
+    generator, global_batch)`): the step keeps this rank's rows."""
     split_frozen(model, frozen)
     every = tx.cfg.grad_accum_steps
 
     def step(state: TrainState, batch, generator=None, noise=None):
+        mesh = state.mesh
+        shards = 1 if mesh is None else mesh["data"].size()
         if noise is None:
+            if shards > 1:
+                raise ValueError("a step over several data ranks takes the "
+                                 "global batch's draws as noise= "
+                                 "(step.draw)")
             noise = draw(generator, batch)
-        trainable = {n: p for n, p in model.named_parameters()
-                     if n in state.masters}
+        if shards > 1:
+            noise = _own_rows(noise, shards, mesh["data"].get_local_rank())
+        trainable = state.params or {n: p for n, p in
+                                     model.named_parameters()
+                                     if n in state.masters}
         for p in trainable.values():
             p.grad = None
-        loss, metrics, _ = loss_fn(batch, noise)
+        with split_over(mesh):
+            loss, metrics, _ = loss_fn(batch, noise)
         loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in trainable.items()}
+        if mesh is None:
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for n, p in trainable.items()}
+        else:
+            grads = _mesh_gradients(model, state)
+            if shards > 1:
+                metrics = _sum_metrics(metrics, mesh)
         if every > 1:
             grads = accumulate(grads, state)
         if state.mini_step == every - 1:
@@ -371,14 +554,30 @@ def _make_step(model: nn.Module, tx: AdamW, frozen: Frozen, loss_fn,
             state.write_back()
         else:
             metrics["grad_norm"] = _global_norm(
-                [t.float() for t in grads.values()])
+                [t.float() for t in grads.values()], state.copies)
+            if mesh is not None:
+                regather(model)
         state.mini_step = (state.mini_step + 1) % every
         state.step += 1
         for p in trainable.values():
             p.grad = None
         return state, {k: v.detach() for k, v in metrics.items()}
 
+    step.draw = draw
     return step
+
+
+def shard_train_step(step_fn, mesh, state: TrainState, batch,
+                     rules=None):
+    """The counterpart of the JAX `shard_train_step`: shard `state.model`
+    over `mesh` by `rules` in place (`apply_shardings`; FSDP/TP rules by
+    default), the state's masters, moments and running mean to this
+    rank's parts (the ZeRO-style layout of JAX's `opt_sh`), and `batch`
+    to this rank's rows (`shard_batch`). Returns (step_fn, the state on
+    the mesh, this rank's batch); `step_fn` (any `make_*_train_step` of
+    the model) runs on the mesh because the state carries it."""
+    apply_shardings(state.model, mesh, rules)
+    return step_fn, state.on_mesh(mesh), shard_batch(batch, mesh)
 
 
 def chat_loss(model: nn.Module, batch: Dict[str, object],
